@@ -1,0 +1,217 @@
+"""Dense epoch processing (port of ``pos_evolution_tpu/ops/epoch.py``:
+the epoch-boundary sweep).
+
+Justification and finalization tallies, inactivity scores, Altair flag
+rewards and penalties, the slashings sweep, the hysteresis
+effective-balance update and the participation-flag rotation, as one
+pass of int64 tensor ops over a struct-of-arrays registry. All division
+is floor division on int64 (exact Gwei semantics).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from pos_evolution_tpu_torch.config import (
+    PARTICIPATION_FLAG_WEIGHTS,
+    TIMELY_HEAD_FLAG_INDEX,
+    TIMELY_TARGET_FLAG_INDEX,
+    WEIGHT_DENOMINATOR,
+    Config,
+)
+
+# FAR_FUTURE_EPOCH (2**64-1) does not fit int64; the dense registry maps
+# it to this sentinel. All epoch comparisons behave identically.
+FAR_FUTURE_I64 = 2**62
+
+
+class DenseRegistry(NamedTuple):
+    """Struct-of-arrays registry plus per-epoch participation."""
+
+    effective_balance: torch.Tensor     # int64[N] Gwei
+    balance: torch.Tensor               # int64[N] Gwei
+    activation_epoch: torch.Tensor      # int64[N]
+    exit_epoch: torch.Tensor            # int64[N]
+    withdrawable_epoch: torch.Tensor    # int64[N]
+    slashed: torch.Tensor               # bool[N]
+    prev_flags: torch.Tensor            # uint8[N]
+    cur_flags: torch.Tensor             # uint8[N]
+    inactivity_scores: torch.Tensor     # int64[N]
+
+
+class EpochResult(NamedTuple):
+    registry: DenseRegistry
+    total_active_balance: torch.Tensor      # int64 scalar
+    prev_target_balance: torch.Tensor       # int64 scalar
+    cur_target_balance: torch.Tensor        # int64 scalar
+    justify_prev: torch.Tensor              # bool scalar
+    justify_cur: torch.Tensor               # bool scalar
+    new_justification_bits: torch.Tensor    # bool[4]
+    finalize_epoch: torch.Tensor            # int64 scalar (-1 = no finalization)
+
+
+def isqrt_i64(x):
+    """Exact integer sqrt of non-negative int64: float64 estimate + fixup."""
+    s = torch.floor(torch.sqrt(x.to(torch.float64))).to(torch.int64)
+    s = torch.where((s + 1) * (s + 1) <= x, s + 1, s)
+    return torch.where(s * s > x, s - 1, s)
+
+
+def _active(reg: DenseRegistry, epoch):
+    return (reg.activation_epoch <= epoch) & (epoch < reg.exit_epoch)
+
+
+def _has_flag(flags, idx: int):
+    return ((flags >> idx) & 1).bool()
+
+
+def _masked_sum(values, mask):
+    return torch.where(mask, values, 0).sum()
+
+
+def epoch_core(reg: DenseRegistry, current_epoch, finalized_epoch,
+               justification_bits, prev_justified_epoch, cur_justified_epoch,
+               slashings_sum, cfg: Config) -> EpochResult:
+    """One epoch boundary over the dense registry, in the spec's order:
+    justification tallies -> inactivity updates -> rewards/penalties
+    (with the new inactivity scores) -> slashings -> hysteresis -> flag
+    rotation. Scalar arguments are 0-dim int64 tensors (bits: bool[4])
+    on the registry's device."""
+    prev_epoch = torch.clamp(current_epoch - 1, min=0)
+    incr = cfg.effective_balance_increment
+
+    active_cur = _active(reg, current_epoch)
+    active_prev = _active(reg, prev_epoch)
+    eff = reg.effective_balance
+
+    total_active = torch.clamp(_masked_sum(eff, active_cur), min=incr)
+
+    # --- justification tallies ---
+    prev_target_mask = (active_prev
+                        & _has_flag(reg.prev_flags, TIMELY_TARGET_FLAG_INDEX)
+                        & ~reg.slashed)
+    cur_target_mask = (active_cur
+                       & _has_flag(reg.cur_flags, TIMELY_TARGET_FLAG_INDEX)
+                       & ~reg.slashed)
+    prev_target = torch.clamp(_masked_sum(eff, prev_target_mask), min=incr)
+    cur_target = torch.clamp(_masked_sum(eff, cur_target_mask), min=incr)
+
+    past_genesis = current_epoch > 1
+    justify_prev = past_genesis & (prev_target * 3 >= total_active * 2)
+    justify_cur = past_genesis & (cur_target * 3 >= total_active * 2)
+
+    bits = justification_bits
+    new_bits = torch.where(
+        past_genesis,
+        torch.stack([justify_cur, justify_prev | bits[0], bits[1], bits[2]]),
+        bits)
+
+    # 4-case 2-finalization on epoch numbers; the caller maps the winning
+    # epoch back to its checkpoint root.
+    old_prev, old_cur = prev_justified_epoch, cur_justified_epoch
+    fin = torch.full_like(current_epoch, -1)
+    fin = torch.where(new_bits[1] & new_bits[2] & new_bits[3]
+                      & (old_prev + 3 == current_epoch), old_prev, fin)
+    fin = torch.where(new_bits[1] & new_bits[2]
+                      & (old_prev + 2 == current_epoch), old_prev, fin)
+    fin = torch.where(new_bits[0] & new_bits[1] & new_bits[2]
+                      & (old_cur + 2 == current_epoch), old_cur, fin)
+    fin = torch.where(new_bits[0] & new_bits[1]
+                      & (old_cur + 1 == current_epoch), old_cur, fin)
+    fin = torch.where(past_genesis, fin, -1)
+
+    # --- inactivity scores ---
+    eligible = active_prev | (reg.slashed & (prev_epoch + 1 < reg.withdrawable_epoch))
+    target_participating = prev_target_mask
+    in_leak = (prev_epoch - finalized_epoch) > 4
+    scores = reg.inactivity_scores
+    scores = torch.where(eligible & target_participating,
+                         torch.clamp(scores - 1, min=0), scores)
+    scores = torch.where(eligible & ~target_participating,
+                         scores + cfg.inactivity_score_bias, scores)
+    scores = torch.where(~in_leak & eligible,
+                         scores - torch.clamp(scores, max=cfg.inactivity_score_recovery_rate),
+                         scores)
+    new_scores = torch.where(current_epoch > 0, scores, reg.inactivity_scores)
+
+    # --- rewards & penalties (Altair flag deltas) ---
+    base_reward = (eff // incr) * (incr * cfg.base_reward_factor // isqrt_i64(total_active))
+    active_increments = total_active // incr
+
+    rewards = torch.zeros_like(eff)
+    penalties = torch.zeros_like(eff)
+    for flag_index, weight in enumerate(PARTICIPATION_FLAG_WEIGHTS):
+        participating = (active_prev & _has_flag(reg.prev_flags, flag_index)
+                         & ~reg.slashed)
+        participating_increments = _masked_sum(eff, participating) // incr
+        numer = base_reward * weight * participating_increments
+        denom = active_increments * WEIGHT_DENOMINATOR
+        rewards = rewards + torch.where(~in_leak & eligible & participating,
+                                        numer // denom, 0)
+        if flag_index != TIMELY_HEAD_FLAG_INDEX:
+            penalties = penalties + torch.where(
+                eligible & ~participating,
+                base_reward * weight // WEIGHT_DENOMINATOR, 0)
+
+    inactivity_penalty = (eff * new_scores
+                          // (cfg.inactivity_score_bias * cfg.inactivity_penalty_quotient))
+    penalties = penalties + torch.where(eligible & ~target_participating,
+                                        inactivity_penalty, 0)
+    new_balance = torch.where(current_epoch > 0,
+                              torch.clamp(reg.balance + rewards - penalties, min=0),
+                              reg.balance)
+
+    # --- slashings sweep (proportional penalties) ---
+    vector_half = cfg.epochs_per_slashings_vector // 2
+    adjusted_total = torch.minimum(
+        slashings_sum * cfg.proportional_slashing_multiplier, total_active)
+    hit = reg.slashed & (current_epoch + vector_half == reg.withdrawable_epoch)
+    slash_penalty = (eff // incr * adjusted_total) // total_active * incr
+    new_balance = torch.clamp(new_balance - torch.where(hit, slash_penalty, 0), min=0)
+
+    # --- hysteresis effective-balance update ---
+    h_incr = cfg.effective_balance_increment // cfg.hysteresis_quotient
+    downward = h_incr * cfg.hysteresis_downward_multiplier
+    upward = h_incr * cfg.hysteresis_upward_multiplier
+    needs = (new_balance + downward < eff) | (eff + upward < new_balance)
+    new_eff = torch.where(
+        needs,
+        torch.clamp(new_balance - new_balance % incr, max=cfg.max_effective_balance),
+        eff)
+
+    new_reg = reg._replace(
+        effective_balance=new_eff,
+        balance=new_balance,
+        inactivity_scores=new_scores,
+        prev_flags=reg.cur_flags,
+        cur_flags=torch.zeros_like(reg.cur_flags),
+    )
+    return EpochResult(
+        registry=new_reg,
+        total_active_balance=total_active,
+        prev_target_balance=prev_target,
+        cur_target_balance=cur_target,
+        justify_prev=justify_prev,
+        justify_cur=justify_cur,
+        new_justification_bits=new_bits,
+        finalize_epoch=fin,
+    )
+
+
+def process_epoch_dense(reg: DenseRegistry, current_epoch, finalized_epoch,
+                        justification_bits, prev_justified_epoch,
+                        cur_justified_epoch, slashings_sum,
+                        cfg: Config) -> EpochResult:
+    """Single-device epoch boundary: the scalar arguments (ints or
+    tensors) go to the registry's device as int64, the bits as bool[4]."""
+    dev = reg.balance.device
+
+    def i64(x):
+        return torch.as_tensor(x, dtype=torch.int64, device=dev)
+
+    return epoch_core(reg, i64(current_epoch), i64(finalized_epoch),
+                      torch.as_tensor(justification_bits, dtype=torch.bool, device=dev),
+                      i64(prev_justified_epoch), i64(cur_justified_epoch),
+                      i64(slashings_sum), cfg)

@@ -1,0 +1,124 @@
+"""Build and load the port's CUDA kernels, and count their launches.
+
+Each ``csrc/*.cu`` source becomes its own shared library with a plain C
+interface, compiled by ``nvcc`` for ``sm_90a`` at first use into
+``build/torch_kernels/`` at the repository root and loaded with
+``ctypes``. A library's file name carries a hash of its source, the
+shared headers and the flags, so an edited source is always rebuilt.
+``build_all`` starts one ``nvcc`` per source, all at once.
+
+``launches`` counts, per kernel, the launches its wrapper made; a wrapper
+adds one where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+# kernel name -> (source file, C entry point, its argtypes)
+KERNELS = {
+    "agg_sig": ("agg_sig.cu", "agg_sig_launch",
+                [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]),
+}
+
+launches = {name: 0 for name in KERNELS}
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
+    return str(path)
+
+
+def _library_path(name: str) -> Path:
+    source = KERNELS[name][0]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [_CSRC / source, *sorted(_CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Compile every kernel not yet built, one ``nvcc`` per source, all
+    started together. Returns each kernel's ptxas report (registers,
+    shared memory, spills). Raises with the compiler's output on failure."""
+    names = list(KERNELS if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in names:
+        target = _library_path(name)
+        if target.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_CSRC / KERNELS[name][0])]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, target)
+    reports, failed = {}, []
+    for name, (proc, tmp, target) in jobs.items():
+        out, _ = proc.communicate()
+        reports[name] = out
+        target.with_suffix(".log").write_text(out)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+        else:
+            os.replace(tmp, target)   # atomic: a reader sees a whole library
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = _library_path(name)
+        if not path.exists():
+            build_all([name])
+        lib = ctypes.CDLL(str(path))
+        _, entry, argtypes = KERNELS[name]
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C entry point, raise if CUDA refused the
+    launch, and count it."""
+    lib = library(name)
+    rc = getattr(lib, KERNELS[name][1])(*args)
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+    launches[name] += 1

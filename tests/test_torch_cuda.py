@@ -1,0 +1,85 @@
+"""The port's CUDA kernels on the card: each against its plain PyTorch
+version, bit for bit. Marked ``cuda``; each test skips without a CUDA
+device. On a GPU machine: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from pos_evolution_tpu_torch.device import words_to_torch  # noqa: E402
+from pos_evolution_tpu_torch.epoch import build_epoch_inputs, run_epoch  # noqa: E402
+from pos_evolution_tpu_torch.ops import kernels  # noqa: E402
+from pos_evolution_tpu_torch.ops.aggregation import (  # noqa: E402
+    _committee_aggregates,
+    committee_aggregates,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _k1_inputs(a, c, n, seed):
+    rng = np.random.default_rng(seed)
+    pk = rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
+    committees = rng.integers(0, n, (a, c)).astype(np.int32)
+    bits = rng.random((a, c)) < 0.9
+    bits[0, : c // 2] = False
+    if a > 2:
+        bits[2] = False
+    msgs = rng.integers(0, 2**32, (a, 8), dtype=np.uint64).astype(np.uint32)
+    return (words_to_torch(pk, "cpu"), torch.from_numpy(committees), torch.from_numpy(bits),
+            words_to_torch(msgs, "cpu"))
+
+
+@pytest.mark.parametrize("a,c,n", [(1, 1, 8), (7, 33, 300), (3, 200, 1000), (64, 512, 40000)])
+def test_k1_matches_plain(cuda, a, c, n):
+    cpu_args = _k1_inputs(a, c, n, seed=a * c)
+    args = [t.to(cuda) for t in cpu_args]
+    before = kernels.launches["agg_sig"]
+    got = committee_aggregates(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["agg_sig"] == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.int32 and got.shape == (a, 24)
+    assert torch.equal(got, _committee_aggregates(*args))
+    assert torch.equal(got.cpu(), _committee_aggregates(*cpu_args))
+
+
+def test_k1_rejects_what_it_does_not_take(cuda):
+    pk, comm, bits, msgs = (t.to(cuda) for t in _k1_inputs(4, 64, 500, seed=1))
+    with pytest.raises(ValueError, match="pk_states"):
+        committee_aggregates(pk.long(), comm, bits, msgs)
+    with pytest.raises(ValueError, match="outside"):
+        committee_aggregates(pk, comm.masked_fill(comm == comm[0, 0], 500), bits, msgs)
+    with pytest.raises(ValueError, match="contiguous"):
+        committee_aggregates(pk, comm.t().contiguous().t(), bits, msgs)
+
+
+@pytest.mark.parametrize("a,c", [(0, 16), (4, 0)])
+def test_k1_empty_launches_nothing(cuda, a, c):
+    """No committee or no signer: zero aggregates, and no launch counted."""
+    pk, comm, bits, msgs = (t.to(cuda) for t in _k1_inputs(max(a, 1), max(c, 1), 64, seed=2))
+    comm, bits, msgs = comm[:a, :c].contiguous(), bits[:a, :c].contiguous(), msgs[:a]
+    before = kernels.launches["agg_sig"]
+    got = committee_aggregates(pk, comm, bits, msgs)
+    assert kernels.launches["agg_sig"] == before
+    assert got.shape == (a, 24) and not bool(got.any())
+
+
+def test_small_epoch_card_equals_cpu(cuda):
+    inp = build_epoch_inputs(4096, seed=3, slots=4, committees_per_slot=4, capacity=16,
+                             shuffle_rounds=10)
+    a, b = run_epoch(inp, "cpu"), run_epoch(inp, cuda)
+    for x, y in zip(a[:5], b[:5]):
+        assert torch.equal(x, y.cpu())
+    for x, y in zip(a.result.registry, b.result.registry):
+        assert torch.equal(x, y.cpu())
+    for x, y in zip(a.result[1:], b.result[1:]):
+        assert torch.equal(x, y.cpu())

@@ -1,0 +1,197 @@
+"""The port's whole slice -- one epoch through ``run_epoch`` -- against the
+same composition of JAX package functions (bit for bit), the port's
+independence from JAX, and its device rules."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from pos_evolution_tpu import config as jcfg  # noqa: E402
+from pos_evolution_tpu.ops import aggregation as jagg  # noqa: E402
+from pos_evolution_tpu.ops import epoch as jep  # noqa: E402
+from pos_evolution_tpu.ops import forkchoice as jfc  # noqa: E402
+from pos_evolution_tpu.ops.shuffle import shuffle_permutation_jax  # noqa: E402
+from pos_evolution_tpu_torch import convert  # noqa: E402
+from pos_evolution_tpu_torch.device import (  # noqa: E402
+    checksum_tree,
+    words_to_numpy,
+    words_to_torch,
+)
+from pos_evolution_tpu_torch.epoch import (  # noqa: E402
+    build_epoch_inputs,
+    epoch_committees,
+    head_passes,
+    load_inputs,
+    run_epoch,
+)
+from pos_evolution_tpu_torch.ops import kernels  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SMALL = dict(slots=4, committees_per_slot=4, capacity=16, shuffle_rounds=10)
+
+
+def _jax_epoch(inp):
+    """The JAX package's functions composed as ``run_epoch`` composes the port's."""
+    n = inp.pubkeys.shape[0]
+    a, c = inp.agg_bits.shape
+    perm = shuffle_permutation_jax(inp.shuffle_seed, n, inp.shuffle_rounds)
+    committees = perm[: a * c].reshape(a, c)
+    pk = jagg.precompute_pk_states(inp.pubkeys)
+    bits, msgs = jnp.asarray(inp.agg_bits), jnp.asarray(inp.msg_words)
+    sigs = jagg.aggregate_signatures_batch(pk, committees, bits, msgs)
+    ok = jagg.aggregate_verify_batch(pk, committees, bits, msgs, sigs)
+    store = jfc.DenseStore(*(jnp.asarray(x) for x in inp.store))
+    heads, weights = [], []
+    for s in range(inp.slots):
+        t = inp.salt * inp.slots + s
+        st = store._replace(msg_epoch=store.msg_epoch.at[0].set(t),
+                            boost_idx=jnp.int32(t % inp.capacity))
+        h, w = jfc.head_and_weights(st, inp.capacity)
+        heads.append(int(h))
+        weights.append(np.asarray(w))
+    cur, fin, jbits, pj, cj, sl = inp.sweep_args
+    res = jep.process_epoch_dense(jep.DenseRegistry(*(jnp.asarray(x) for x in inp.registry)),
+                                  cur, fin, jnp.asarray(jbits), pj, cj, sl,
+                                  jcfg.mainnet_config())
+    return (np.asarray(committees), np.asarray(sigs), np.asarray(ok), heads,
+            np.stack(weights), res)
+
+
+def test_run_epoch_matches_jax():
+    inp = build_epoch_inputs(4096, seed=5, **SMALL)
+    assert inp.agg_bits.shape == (16, 256)
+    before = dict(kernels.launches)
+    out = run_epoch(inp, "cpu")
+    assert kernels.launches == before   # the CPU takes the plain version
+    committees, sigs, ok, heads, weights, res = _jax_epoch(inp)
+
+    np.testing.assert_array_equal(out.committees.numpy(), committees)
+    np.testing.assert_array_equal(words_to_numpy(out.aggregates), sigs)
+    np.testing.assert_array_equal(out.ok.numpy(), ok)
+    assert out.ok.all()
+    assert out.heads.tolist() == heads
+    np.testing.assert_array_equal(out.weights.numpy(), weights)
+    got = convert.to_numpy(out.result)
+    for f in jep.DenseRegistry._fields:
+        np.testing.assert_array_equal(getattr(got.registry, f),
+                                      np.asarray(getattr(res.registry, f)), err_msg=f)
+    for f in jep.EpochResult._fields[1:]:
+        np.testing.assert_array_equal(getattr(got, f), np.asarray(getattr(res, f)), err_msg=f)
+    assert int(got.finalize_epoch) == 9     # ~95% participation finalizes
+
+
+def test_plain_flag_gives_the_same_epoch():
+    inp = build_epoch_inputs(1024, seed=6, **SMALL)
+    a, b = run_epoch(inp, "cpu"), run_epoch(inp, "cpu", plain=True)
+    assert checksum_tree(a) == checksum_tree(b)
+    assert torch.equal(a.aggregates, b.aggregates)
+
+
+def test_stages_compose_to_run_epoch():
+    """The stage functions, called one by one, give ``run_epoch``'s outputs."""
+    inp = build_epoch_inputs(1024, seed=7, **SMALL)
+    out = run_epoch(inp, "cpu")
+    t = load_inputs(inp, "cpu")
+    assert torch.equal(epoch_committees(inp, "cpu"), out.committees)
+    heads, weights = head_passes(t.store, inp)
+    assert torch.equal(heads, out.heads) and torch.equal(weights, out.weights)
+    assert heads.dtype == torch.int32 and weights.shape == (inp.slots, inp.capacity)
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    from pos_evolution_tpu_torch.ops.aggregation import precompute_pk_states
+    inp = build_epoch_inputs(1024, seed=8, **SMALL)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_epoch(inp)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        precompute_pk_states(inp.pubkeys)
+    for carry, arg in ((convert.registry_to_torch, inp.registry),
+                       (convert.store_to_torch, inp.store),
+                       (convert.pk_states_to_torch, np.zeros((4, 8), np.uint32)),
+                       (words_to_torch, inp.msg_words)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            carry(arg)
+
+
+_BLOCKER = textwrap.dedent("""
+    import importlib.abc, sys
+
+    BLOCKED = ("jax", "jaxlib", "pos_evolution_tpu")
+
+    class Blocker(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked import: " + name)
+            return None
+
+    sys.meta_path.insert(0, Blocker())
+    sys.path.insert(0, {repo!r})
+""")
+
+
+def _run_blocked(body: str):
+    code = _BLOCKER.format(repo=REPO) + textwrap.dedent(body)
+    return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, cwd=REPO)
+
+
+def test_blocker_blocks_only_whole_names():
+    proc = _run_blocked("""
+        for name in ("jax", "pos_evolution_tpu", "pos_evolution_tpu.config"):
+            try:
+                __import__(name)
+            except ImportError:
+                pass
+            else:
+                raise SystemExit("not blocked: " + name)
+        import pos_evolution_tpu_torch
+        print("ok")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_port_runs_with_jax_blocked():
+    """Every module of the port imports, and a tiny epoch runs on the CPU,
+    with jax and pos_evolution_tpu impossible to import."""
+    proc = _run_blocked("""
+        import pkgutil, importlib
+        import pos_evolution_tpu_torch as pkg
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(m.name)
+        from pos_evolution_tpu_torch.epoch import build_epoch_inputs, run_epoch
+        inp = build_epoch_inputs(512, seed=1, slots=2, committees_per_slot=2,
+                                 capacity=8, shuffle_rounds=4)
+        out = run_epoch(inp, "cpu")
+        assert bool(out.ok.all())
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not bad, bad
+        print("ran", out.heads.tolist())
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ran")
+
+
+def test_chip_smoke_imports_without_jax_and_refuses_cpu():
+    """chip_smoke.py imports nothing of JAX and, with no CUDA, exits
+    non-zero before printing any result."""
+    proc = _run_blocked("""
+        import runpy
+        sys.argv = ["chip_smoke.py"]
+        runpy.run_path("chip_smoke.py", run_name="__main__")
+    """)
+    if "torch.cuda.is_available() is False" not in proc.stderr:
+        pytest.skip("a CUDA device is present")
+    assert proc.returncode == 2, proc.stderr
+    assert "ok" not in proc.stdout
+    assert "blocked import" not in proc.stderr
