@@ -14,7 +14,23 @@ Phases, in order; any mismatch or exception ends the run non-zero:
    with the launch counts zeroed just before and read just after, and hold
    every output against the same epoch with the plain aggregation;
 5. time K1, its plain version and the whole epoch with CUDA events after a
-   warm-up, and work out K1's bound from this run's inputs.
+   warm-up, and work out K1's bound from this run's inputs;
+6. hold kernel K2 (``csrc/merkle_level.cu``) against its plain PyTorch
+   version at the slice's largest level (4,194,304 pairs, the validator
+   leaves' first level at N=2^20) and at N in {1, 3, 511, 513}, bit for
+   bit, and against hashlib on spot rows; a zero-size call launches
+   nothing;
+7. drive the second slice's path once -- ``run_state_roots`` on 2^20
+   validators on cuda: the five registry-scale field roots before (full
+   build) and after (incremental) the epoch -- with the launch counts
+   zeroed just before and read just after; hold both root sets against the
+   same run with the plain versions, the incremental roots against a fresh
+   build of the post-epoch state, and three balance chunks and three
+   validators against the roots by hashlib branch proofs;
+8. cross-check the roots on the card against the CPU at a small size;
+9. time K2 (per launch at 4,194,304 and 1,048,576 pairs), its plain
+   version, the full build and the incremental update, and the roots
+   path's stages, and work out K2's bound from this run's pair counts.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and
@@ -27,12 +43,14 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from pos_evolution_tpu_torch.convert import registry_to_torch  # noqa: E402
 from pos_evolution_tpu_torch.device import (  # noqa: E402
     MASK32,
     checksum_tree,
@@ -56,8 +74,24 @@ from pos_evolution_tpu_torch.ops.aggregation import (  # noqa: E402
     committee_aggregates,
     precompute_pk_states,
 )
-from pos_evolution_tpu_torch.ops.epoch import process_epoch_dense  # noqa: E402
+from pos_evolution_tpu_torch.ops import merkle_device  # noqa: E402
+from pos_evolution_tpu_torch.ops.epoch import FAR_FUTURE_I64, process_epoch_dense  # noqa: E402
+from pos_evolution_tpu_torch.ops.merkle_device import _merkle_level, merkle_level  # noqa: E402
 from pos_evolution_tpu_torch.ops.shuffle import shuffle_permutation  # noqa: E402
+from pos_evolution_tpu_torch.ssz import incremental  # noqa: E402
+from pos_evolution_tpu_torch.ssz.merkle import (  # noqa: E402
+    ZERO_HASHES,
+    _depth_for,
+    is_valid_merkle_branch,
+)
+from pos_evolution_tpu_torch.state_roots import (  # noqa: E402
+    FIELDS,
+    RegistryScaleTrees,
+    load_columns,
+    registry_state,
+    run_state_roots,
+    validator_columns,
+)
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 flops
@@ -78,6 +112,17 @@ K1_SOURCE = "pos_evolution_tpu_torch/csrc/agg_sig.cu"
 K1_REPLACES = "pos_evolution_tpu/ops/pallas_aggregation.py:47"
 FAKEBLS_PREFIX = b"fakebls-sig-pad!"
 STAGES = ("registry", "shuffle", "sign", "verify", "head", "sweep")
+
+# K2 per pair: the message compression with its schedule, then the padding
+# block's compression from a precomputed schedule (2,288 instructions); two
+# 32-byte nodes read, one written.
+OPS_K2_PAIR = 2 * OPS_COMPRESS_ROUNDS + OPS_SCHEDULE
+BYTES_K2_PAIR = 96
+K2_SOURCE = "pos_evolution_tpu_torch/csrc/merkle_level.cu"
+K2_REPLACES = "pos_evolution_tpu/ops/pallas_sha256.py:88"
+K2_LARGEST = 4_194_304          # the validator leaves' first level at N = 2^20
+ROOT_STAGES = ("load", "pre", "epoch", "post")
+SMALL = dict(slots=4, committees_per_slot=4, capacity=16, shuffle_rounds=10)
 
 
 def say(*parts):
@@ -181,6 +226,119 @@ def k1_bound(bits: torch.Tensor, a: int) -> dict:
     t_ops = ops / PEAK_LANE_OPS_PER_S * 1e3
     return {"set_bits": n_set, "ops": ops, "bytes": nbytes, "ms": max(t_ops, t_bytes),
             "by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def k2_bound(pairs: int) -> dict:
+    """Least time for K2's work on ``pairs`` sibling pairs."""
+    t_ops = pairs * OPS_K2_PAIR / PEAK_LANE_OPS_PER_S * 1e3
+    t_bytes = pairs * BYTES_K2_PAIR / HBM_BYTES_PER_S * 1e3
+    return {"ms": max(t_ops, t_bytes), "by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def rand_words(rng, rows: int, dev) -> torch.Tensor:
+    return words_to_torch(rng.integers(0, 2**32, (rows, 8), dtype=np.uint64)
+                          .astype(np.uint32), dev)
+
+
+def row_bytes(t: torch.Tensor) -> bytes:
+    return words_to_bytes(words_to_numpy(t))
+
+
+def sha(a: bytes, b: bytes) -> bytes:
+    return hashlib.sha256(a + b).digest()
+
+
+def validator_root(pubkey: bytes, credentials: bytes, fields) -> bytes:
+    """hash_tree_root(Validator) with hashlib: pubkey (two chunks, hashed),
+    credentials, then effective balance, slashed and the four epochs, each
+    a little-endian uint64 (the bool one byte) in its own chunk."""
+    eff, slashed, *epochs = fields
+    leaves = [sha(pubkey[:32], pubkey[32:] + bytes(16)), credentials,
+              int(eff).to_bytes(8, "little") + bytes(24), bytes([int(slashed)]) + bytes(31)]
+    leaves += [int(e).to_bytes(8, "little") + bytes(24) for e in epochs]
+    while len(leaves) > 1:
+        leaves = [sha(leaves[i], leaves[i + 1]) for i in range(0, len(leaves), 2)]
+    return leaves[0]
+
+
+def tree_branch(tree, index: int) -> list:
+    """Branch of leaf ``index`` of a ``ChunkTree``: siblings from its
+    occupied levels on the card (zero-subtree roots past a level's end),
+    then the zero-subtree roots up to its limit's depth."""
+    branch = []
+    for d, layer in enumerate(tree.levels[:-1]):
+        sib = (index >> d) ^ 1
+        branch.append(row_bytes(layer[sib]) if sib < layer.shape[0] else ZERO_HASHES[d])
+    depth = _depth_for(tree.limit)
+    return branch + ZERO_HASHES[len(tree.levels) - 1:depth]
+
+
+def root_stage_ms(inputs, dev) -> list:
+    """ms of each of ``ROOT_STAGES``: ``run_state_roots``'s stages called
+    one by one, with a CUDA event recorded after each."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(ROOT_STAGES) + 1)]
+    ev[0].record()
+    cols = load_columns(inputs, dev)
+    pre_state = registry_state(registry_to_torch(inputs.registry, dev), cols)
+    ev[1].record()
+    trees = RegistryScaleTrees(inputs.cfg)
+    trees.roots(pre_state)
+    ev[2].record()
+    out = run_epoch(inputs, dev)
+    ev[3].record()
+    trees.roots(registry_state(out.result.registry, cols))
+    ev[4].record()
+    torch.cuda.synchronize()
+    return [x.elapsed_time(y) for x, y in zip(ev, ev[1:])]
+
+
+def profiled(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall ms (host clock,
+    ending in a synchronize), the device's busy ms (kernel time summed) and
+    K2's share of that."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = k2_us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:    # kernels and copies; host ops would count twice
+            busy += e.self_device_time_total
+            if "merkle_level" in e.key:
+                k2_us += e.self_device_time_total
+    return {"wall_ms": wall, "busy_ms": busy / 1e3, "k2_ms": k2_us / 1e3}
+
+
+def sync_count(fn) -> int:
+    """Host syncs of one call of ``fn``, counted by CUDA's sync debug mode."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
+def roots_work(trees, state) -> tuple:
+    """(ms, K2 launches, pairs) of one ``trees.roots(state)``."""
+    merkle_device.reset_stats()
+    before = kernels.launches["merkle_level"]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    trees.roots(state)
+    end.record()
+    end.synchronize()
+    return (start.elapsed_time(end), kernels.launches["merkle_level"] - before,
+            merkle_device.stats()["pairs"])
 
 
 def main() -> int:
@@ -295,12 +453,148 @@ def main() -> int:
     say(f"[{card}] epoch n={N_MAINNET}: {epoch_ms:.3f} ms; stages "
         + ", ".join(f"{s} {ms:.3f} ms" for s, ms in zip(STAGES, stages)))
 
+    del pk, committees, k1_out, out
+
+    # 6. K2 against its plain version and hashlib
+    rng = np.random.default_rng(11)
+    k2_err = 0
+    for n in (K2_LARGEST, 1, 3, 511, 513):
+        layer = rand_words(rng, 2 * n, dev)
+        left, right = layer[0::2], layer[1::2]   # a level's even and odd rows, as trees pass them
+        got = merkle_level(left, right)
+        ref = _merkle_level(left, right)
+        torch.cuda.synchronize()
+        err = int(((got.long() & MASK32) - (ref.long() & MASK32)).abs().max())
+        k2_err = max(k2_err, err)
+        check(err == 0 and torch.equal(got, ref), f"K2 differs from its plain version at N={n}")
+        if n == K2_LARGEST:
+            for i in (0, 1, n // 2, n - 1):
+                check(row_bytes(got[i]) == sha(row_bytes(left[i]), row_bytes(right[i])),
+                      f"K2 row {i} differs from hashlib")
+    before = kernels.launches["merkle_level"]
+    check(merkle_level(layer[:0], layer[:0]).shape == (0, 8)
+          and kernels.launches["merkle_level"] == before, "a zero-size K2 call must not launch")
+    say(f"K2 vs plain at N={K2_LARGEST}, 1, 3, 511, 513 (strided level views): bit-equal; "
+        "4 rows == hashlib; N=0 launches nothing")
+    del layer, left, right, got, ref
+
+    # 7. the roots path, counted
+    kernels.reset_launches()
+    merkle_device.reset_stats()
+    incremental.reset_stats()
+    roots = run_state_roots(inputs, dev)
+    torch.cuda.synchronize()
+    root_launches = dict(kernels.launches)
+    mstats, istats = merkle_device.stats(), incremental.stats()
+    want_k2 = 4 * istats["validator_root_passes"] + mstats["batched_launches"]
+    check(root_launches["merkle_level"] == want_k2 and root_launches["agg_sig"] == 2,
+          f"roots path launches {root_launches}, want K2 {want_k2} and K1 2")
+    say(f"roots path n={N_MAINNET}: launches {root_launches} (validator-root passes "
+        f"{istats['validator_root_passes']}, sweeper rounds {mstats['batched_launches']}, "
+        f"pairs {mstats['pairs']}); dirty after the epoch {roots.dirty}")
+    ref = run_state_roots(inputs, dev, plain=True)
+    check(ref.pre == roots.pre and ref.post == roots.post,
+          "roots differ from the run with the plain versions")
+    del ref
+    cols = load_columns(inputs, dev)
+    post_state = registry_state(roots.epoch.result.registry, cols)
+    check(RegistryScaleTrees(inputs.cfg).roots(post_state) == roots.post,
+          "incremental post-epoch roots differ from a fresh build")
+    n_val = N_MAINNET
+    bal = roots.epoch.result.registry.balance.cpu().numpy()
+    reg = {f: getattr(roots.epoch.result.registry, f).cpu().numpy()
+           for f in ("effective_balance", "slashed", "activation_epoch", "exit_epoch",
+                     "withdrawable_epoch")}
+    host_cols = validator_columns(inputs)
+    bal_tree = roots.trees.fields["balances"].tree
+    reg_tree = roots.trees.fields["validators"].reg_tree.tree
+    length = n_val.to_bytes(32, "little")
+    for v in (0, 123457, n_val - 1):
+        c = v // 4
+        leaf = bal[4 * c:4 * c + 4].astype("<u8").tobytes()
+        branch = tree_branch(bal_tree, c) + [length]
+        check(is_valid_merkle_branch(leaf, branch, len(branch), c, roots.post["balances"]),
+              f"balance chunk {c} does not prove against the balances root")
+        epochs = [2**64 - 1 if int(reg[f][v]) == FAR_FUTURE_I64 else int(reg[f][v])
+                  for f in ("activation_epoch", "exit_epoch", "withdrawable_epoch")]
+        vroot = validator_root(
+            host_cols.pubkeys[v].tobytes(), host_cols.withdrawal_credentials[v].tobytes(),
+            [reg["effective_balance"][v], reg["slashed"][v],
+             host_cols.activation_eligibility_epoch[v], *epochs])
+        branch = tree_branch(reg_tree, v) + [length]
+        check(is_valid_merkle_branch(vroot, branch, len(branch), v, roots.post["validators"]),
+              f"validator {v} does not prove against the validators root")
+    say("roots path: pre and post == the plain-version run; post == fresh build; "
+        "balance chunks and validators 0, 123457, 2^20-1 prove by hashlib branches; "
+        "post roots " + ", ".join(f"{f} {roots.post[f].hex()[:16]}" for f in FIELDS))
+
+    # 8. small cross-device reference
+    small = build_epoch_inputs(4096, seed=3, **SMALL)
+    a_cpu, a_dev = run_state_roots(small, "cpu"), run_state_roots(small, dev)
+    check((a_cpu.pre, a_cpu.post, a_cpu.dirty) == (a_dev.pre, a_dev.post, a_dev.dirty),
+          "small state roots: card differs from CPU")
+    say("small state roots (n=4096): card == CPU")
+
+    # 9. timings
+    k2 = {}
+    for n in (K2_LARGEST, N_MAINNET):
+        left, right = rand_words(rng, n, dev), rand_words(rng, n, dev)
+        k2_out = torch.empty((n, 8), dtype=torch.int32, device=dev)
+
+        def k2_kernel():
+            kernels.launch("merkle_level", left.data_ptr(), 8, right.data_ptr(), 8,
+                           k2_out.data_ptr(), n, stream)
+
+        k2[n] = {"ms": time_ms(k2_kernel, 20),
+                 "wrapper_ms": time_ms(lambda: merkle_level(left, right), 20),
+                 "plain_ms": time_ms(lambda: _merkle_level(left, right), 2),
+                 "bound": k2_bound(n)}
+        say(f"[{card}] K2 at {n} pairs: kernel {k2[n]['ms']:.4f} ms/launch, wrapper "
+            f"{k2[n]['wrapper_ms']:.4f} ms, plain {k2[n]['plain_ms']:.4f} ms, bound "
+            f"{k2[n]['bound']['ms']:.4f} ms ({k2[n]['bound']['by']}: {n * OPS_K2_PAIR} lane "
+            f"instructions, {n * BYTES_K2_PAIR} bytes)")
+    del left, right, k2_out
+    pre_state = registry_state(registry_to_torch(inputs.registry, dev), cols)
+    builds, updates = [], []
+    for _ in range(3):
+        trees = RegistryScaleTrees(inputs.cfg)
+        builds.append(roots_work(trees, pre_state))
+        updates.append(roots_work(trees, post_state))
+    for name, runs in (("full build", builds), ("incremental update", updates)):
+        ms = [r[0] for r in runs]
+        _, launches_k2, pairs = runs[-1]
+        b = k2_bound(pairs)
+        say(f"[{card}] {name}: {', '.join(f'{x:.3f}' for x in ms)} ms; {launches_k2} K2 "
+            f"launches, {pairs} pairs; K2 bound on those pairs {b['ms']:.4f} ms ({b['by']})")
+    trees = RegistryScaleTrees(inputs.cfg)
+    syncs = {"full build": sync_count(lambda: trees.roots(pre_state)),
+             "incremental update": sync_count(lambda: trees.roots(post_state))}
+    trees = RegistryScaleTrees(inputs.cfg)
+    prof = {"full build": profiled(lambda: trees.roots(pre_state)),
+            "incremental update": profiled(lambda: trees.roots(post_state))}
+    for name, p in prof.items():
+        say(f"[{card}] {name} under torch.profiler: wall {p['wall_ms']:.3f} ms, device busy "
+            f"{p['busy_ms']:.3f} ms ({100 * p['busy_ms'] / p['wall_ms']:.1f}%), K2 "
+            f"{p['k2_ms']:.3f} ms; host syncs {syncs[name]} (CUDA sync debug mode)")
+    reps = 2
+    rstages = [sum(col) / reps for col in zip(*(root_stage_ms(inputs, dev) for _ in range(reps)))]
+    say(f"[{card}] roots path n={N_MAINNET}: stages "
+        + ", ".join(f"{s} {ms:.3f} ms" for s, ms in zip(ROOT_STAGES, rstages)))
+
+    big = k2[K2_LARGEST]
     say(card)
     say(json.dumps({"kernels": [{
         "name": "agg_sig", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": launches["agg_sig"], "max_abs_err": max_abs_err, "matches_plain": True,
         "ms": k1_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None, "epoch_ms": epoch_ms}]}))
+        "bound_by": bound_by, "library_ms": None, "epoch_ms": epoch_ms}, {
+        "name": "merkle_level", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+        "launches": root_launches["merkle_level"], "max_abs_err": k2_err,
+        "matches_plain": True, "pairs": K2_LARGEST, "ms": big["ms"],
+        "wrapper_ms": big["wrapper_ms"], "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound"]["ms"], "bound_by": big["bound"]["by"], "library_ms": None,
+        "ms_1048576": k2[N_MAINNET]["ms"], "full_build_ms": builds[-1][0],
+        "update_ms": updates[-1][0]}]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

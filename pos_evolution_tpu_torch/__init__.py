@@ -6,5 +6,7 @@ unless the caller asks for the CPU; on the CPU every kernel wrapper takes
 its plain PyTorch version. The kernels are CUDA C++ for ``sm_90a`` under
 ``csrc/``, built at first use (``ops/kernels.py``).
 
-The main path is one mainnet epoch: ``python -m pos_evolution_tpu_torch.epoch``.
+The main path is one mainnet epoch: ``python -m pos_evolution_tpu_torch.epoch``;
+the registry-scale state roots around it:
+``python -m pos_evolution_tpu_torch.state_roots``.
 """

@@ -1,11 +1,13 @@
 """Carry state between the JAX package and the port.
 
-The JAX package's ``DenseRegistry``, ``DenseStore`` and ``pk_states`` go
-in as any objects whose fields ``np.asarray`` accepts (jax arrays, numpy
-arrays), and come out as the port's NamedTuples of tensors on ``device``:
+The JAX package's ``DenseRegistry``, ``DenseStore``, ``pk_states`` and
+``ValidatorRegistry`` go in as any objects whose fields ``np.asarray``
+accepts (jax arrays, numpy arrays), and come out as the port's
+NamedTuples of tensors on ``device``:
 CUDA unless the caller asks for another, raising without it (see
 ``device.resolve_device``). ``to_numpy`` takes them back to numpy. uint32
-word arrays become int32 bit-pattern tensors (see ``device.py``).
+word arrays become int32 bit-pattern tensors (see ``device.py``), uint64
+columns int64 bit patterns, and 32-byte chunk rows (N, 8) words.
 """
 
 from __future__ import annotations
@@ -13,9 +15,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pos_evolution_tpu_torch.device import resolve_device, words_to_torch
+from pos_evolution_tpu_torch.device import resolve_device, rows_to_words, words_to_torch
 from pos_evolution_tpu_torch.ops.epoch import DenseRegistry
 from pos_evolution_tpu_torch.ops.forkchoice import DenseStore
+from pos_evolution_tpu_torch.ssz.incremental import ValidatorRegistry
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -41,6 +44,37 @@ def store_to_torch(store, device="cuda") -> DenseStore:
 def pk_states_to_torch(pk_states, device="cuda") -> torch.Tensor:
     """(N, 8) uint32 midstates -> (N, 8) int32 words on ``device``."""
     return words_to_torch(np.asarray(pk_states), device)
+
+
+def validator_registry_to_torch(reg, device="cuda") -> ValidatorRegistry:
+    """The JAX package's ``ValidatorRegistry`` (any object with its numpy
+    columns) -> the port's columns on ``device``; uint64 columns become
+    int64 bit patterns (FAR_FUTURE_EPOCH is -1)."""
+    dev = resolve_device(device)
+    cols = []
+    for f in ValidatorRegistry._fields:
+        a = np.asarray(getattr(reg, f))
+        if a.dtype == np.uint64:
+            a = a.view(np.int64)
+        cols.append(torch.from_numpy(np.array(a, copy=True)).to(dev))
+    return ValidatorRegistry(*cols)
+
+
+def validator_registry_to_numpy(reg: ValidatorRegistry) -> dict:
+    """The port's registry columns -> numpy columns in the JAX
+    ``ValidatorRegistry``'s dtypes, by field name (int64 -> uint64)."""
+    out = {}
+    for f, t in zip(reg._fields, reg):
+        a = t.detach().cpu().numpy()
+        out[f] = a.view(np.uint64) if a.dtype == np.int64 else a
+    return out
+
+
+def chunks_to_torch(rows, device="cuda") -> torch.Tensor:
+    """(N, 32) uint8 chunk rows -> (N, 8) int32 words on ``device``,
+    converted there."""
+    rows = np.array(rows, dtype=np.uint8, copy=True).reshape(-1, 32)
+    return rows_to_words(torch.from_numpy(rows).to(resolve_device(device)))
 
 
 def to_numpy(x):

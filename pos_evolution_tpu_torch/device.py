@@ -6,6 +6,11 @@ pattern, which a kernel reads as ``uint32_t``. The plain PyTorch
 arithmetic works on ``torch.int64`` holding the word's value in
 [0, 2^32), because torch's uint32 lacks ``+``, ``>>``, ``<<`` and ``~``.
 ``u32`` and ``i32`` convert between the two, exactly.
+
+Merkle tree nodes are (N, 8) int32 words; bytes appear only at the edges
+(leaf packing, a root handed back as ``bytes``), and ``rows_to_words`` /
+``words_to_rows`` convert (N, 32) uint8 rows on the device. Both read
+int32 in the native byte order, little-endian on the CPU and the GPU.
 """
 
 from __future__ import annotations
@@ -60,6 +65,20 @@ def bytes_to_words(data: bytes) -> np.ndarray:
 def words_to_bytes(words) -> bytes:
     """u32 words -> big-endian bytes (a digest from its 8 state words)."""
     return np.asarray(words, dtype=np.uint32).astype(">u4").tobytes()
+
+
+def rows_to_words(rows: torch.Tensor) -> torch.Tensor:
+    """(N, 32) uint8 rows -> (N, 8) int32 big-endian words, on the rows'
+    device (the counterpart of ``ops/merkle_device._rows_to_words``).
+    Each 4-byte group is reversed and read as one native (little-endian)
+    int32, so no value is shifted or cast."""
+    return rows.reshape(-1, 8, 4).flip(-1).contiguous().view(torch.int32).reshape(-1, 8)
+
+
+def words_to_rows(words: torch.Tensor) -> torch.Tensor:
+    """(N, 8) int32 words -> (N, 32) uint8 rows, on the words' device
+    (the inverse of ``rows_to_words``)."""
+    return words.contiguous().view(torch.uint8).reshape(-1, 8, 4).flip(-1).reshape(-1, 32)
 
 
 def _leaves(tree):

@@ -27,6 +27,14 @@ from pos_evolution_tpu_torch.config import (
 FAR_FUTURE_I64 = 2**62
 
 
+def i64_to_epochs(col: torch.Tensor) -> torch.Tensor:
+    """The sentinel back to FAR_FUTURE_EPOCH = 2^64 - 1, carried as the
+    int64 bit pattern -1 (every little-endian byte 0xFF), the form an SSZ
+    leaf packs (counterpart of ``pos_evolution_tpu/ops/epoch.py::
+    i64_to_epochs``, which returns uint64)."""
+    return torch.where(col == FAR_FUTURE_I64, -1, col)
+
+
 class DenseRegistry(NamedTuple):
     """Struct-of-arrays registry plus per-epoch participation."""
 

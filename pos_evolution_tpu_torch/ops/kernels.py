@@ -31,6 +31,8 @@ _P = ctypes.c_void_p
 KERNELS = {
     "agg_sig": ("agg_sig.cu", "agg_sig_launch",
                 [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]),
+    "merkle_level": ("merkle_level.cu", "merkle_level_launch",
+                     [_P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, ctypes.c_int, _P]),
 }
 
 launches = {name: 0 for name in KERNELS}
@@ -65,13 +67,16 @@ def _library_path(name: str) -> Path:
 def build_all(names=None) -> dict[str, str]:
     """Compile every kernel not yet built, one ``nvcc`` per source, all
     started together. Returns each kernel's ptxas report (registers,
-    shared memory, spills). Raises with the compiler's output on failure."""
+    shared memory, spills), from its build log when it was built before.
+    Raises with the compiler's output on failure."""
     names = list(KERNELS if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
+    jobs, reports = {}, {}
     for name in names:
         target = _library_path(name)
         if target.exists():
+            log = target.with_suffix(".log")
+            reports[name] = log.read_text() if log.exists() else ""
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -79,7 +84,7 @@ def build_all(names=None) -> dict[str, str]:
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, target)
-    reports, failed = {}, []
+    failed = []
     for name, (proc, tmp, target) in jobs.items():
         out, _ = proc.communicate()
         reports[name] = out

@@ -15,6 +15,8 @@ from pos_evolution_tpu_torch.ops.aggregation import (  # noqa: E402
     _committee_aggregates,
     committee_aggregates,
 )
+from pos_evolution_tpu_torch.ops.merkle_device import _merkle_level, merkle_level  # noqa: E402
+from pos_evolution_tpu_torch.state_roots import run_state_roots  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -83,3 +85,57 @@ def test_small_epoch_card_equals_cpu(cuda):
         assert torch.equal(x, y.cpu())
     for x, y in zip(a.result[1:], b.result[1:]):
         assert torch.equal(x, y.cpu())
+
+
+def _k2_inputs(n, seed):
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2**32, (2 * n, 8), dtype=np.uint64).astype(np.uint32)
+    return words_to_torch(words, "cpu")
+
+
+@pytest.mark.parametrize("n", [1, 3, 255, 256, 257, 511, 513, 100_000])
+def test_k2_matches_plain(cuda, n):
+    layer = _k2_inputs(n, seed=n)
+    left, right = layer[:n].to(cuda), layer[n:].to(cuda)
+    before = kernels.launches["merkle_level"]
+    got = merkle_level(left, right)
+    torch.cuda.synchronize()
+    assert kernels.launches["merkle_level"] == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.int32 and got.shape == (n, 8)
+    assert torch.equal(got, _merkle_level(left, right))
+    assert torch.equal(got.cpu(), _merkle_level(layer[:n], layer[n:]))
+
+
+def test_k2_strided_level(cuda):
+    """The even and odd rows of one level, as views (row stride 16 words)."""
+    layer = _k2_inputs(513, seed=7).to(cuda)
+    got = merkle_level(layer[0::2], layer[1::2])
+    assert torch.equal(got, _merkle_level(layer[0::2], layer[1::2]))
+
+
+def test_k2_empty_launches_nothing(cuda):
+    layer = _k2_inputs(4, seed=8).to(cuda)
+    before = kernels.launches["merkle_level"]
+    got = merkle_level(layer[:0], layer[:0])
+    assert kernels.launches["merkle_level"] == before
+    assert got.shape == (0, 8)
+
+
+def test_k2_rejects_what_it_does_not_take(cuda):
+    layer = _k2_inputs(8, seed=9).to(cuda)
+    with pytest.raises(ValueError, match="left"):
+        merkle_level(layer[:8].long(), layer[8:])
+    with pytest.raises(ValueError, match="right"):
+        merkle_level(layer[:8], layer[8:12])
+    flat = layer.reshape(-1)
+    with pytest.raises(ValueError, match="aligned"):
+        merkle_level(flat[1:65].view(8, 8), layer[8:])        # rows off 16-byte alignment
+    with pytest.raises(ValueError, match="aligned"):
+        merkle_level(layer[:8].t(), layer[8:])                # words not contiguous
+
+
+def test_small_state_roots_card_equals_cpu(cuda):
+    inp = build_epoch_inputs(4096, seed=3, slots=4, committees_per_slot=4, capacity=16,
+                             shuffle_rounds=10)
+    a, b = run_state_roots(inp, "cpu"), run_state_roots(inp, cuda)
+    assert (a.pre, a.post, a.dirty) == (b.pre, b.post, b.dirty)

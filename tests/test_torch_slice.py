@@ -162,8 +162,9 @@ def test_blocker_blocks_only_whole_names():
 
 
 def test_port_runs_with_jax_blocked():
-    """Every module of the port imports, and a tiny epoch runs on the CPU,
-    with jax and pos_evolution_tpu impossible to import."""
+    """Every module of the port imports, and a tiny epoch and its state
+    roots run on the CPU, with jax and pos_evolution_tpu impossible to
+    import."""
     proc = _run_blocked("""
         import pkgutil, importlib
         import pos_evolution_tpu_torch as pkg
@@ -174,6 +175,9 @@ def test_port_runs_with_jax_blocked():
                                  capacity=8, shuffle_rounds=4)
         out = run_epoch(inp, "cpu")
         assert bool(out.ok.all())
+        from pos_evolution_tpu_torch.state_roots import run_state_roots
+        roots = run_state_roots(inp, "cpu")
+        assert roots.pre != roots.post and len(roots.post["balances"]) == 32
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
         print("ran", out.heads.tolist())
