@@ -30,7 +30,25 @@ Phases, in order; any mismatch or exception ends the run non-zero:
 8. cross-check the roots on the card against the CPU at a small size;
 9. time K2 (per launch at 4,194,304 and 1,048,576 pairs), its plain
    version, the full build and the incremental update, and the roots
-   path's stages, and work out K2's bound from this run's pair counts.
+   path's stages, and work out K2's bound from this run's pair counts;
+10. drive the third slice's path once -- ``DenseSimulation`` on 2^20
+    validators, mainnet config, 90 shuffle rounds, ``run_epochs(4)``, then
+    its ``state_digest`` -- with the launch counts zeroed just before and
+    read just after: K1 twice a slot, K2 in the digest, every walk check
+    true, 64 x 128 aggregates verified, finality reached; the same run with
+    ``plain=True`` gives identical metrics, summary and digest; K1 at the
+    path's shape (A=64, C=512) against its plain version;
+11. a faulted and adversarial run at 2^20 (drops, delays, a crash window,
+    an equivocator controlling 1/16, the default monitors) for 2 epochs,
+    and the same run checkpointed after epoch 1 and resumed on the card:
+    equal metrics, monitor violations, evidence and digest;
+12. the dense driver on the card against the CPU at n = 256 (honest) and
+    n = 384 (the faulted composition);
+13. time the dense path: seconds per simulated epoch, its phase budget,
+    and the device's busy share under ``torch.profiler`` over one epoch;
+    K1 at the path's shape against its bound;
+14. count the SASS instructions of both kernels (``cuobjdump -sass``), by
+    opcode group, per signer and per pair, and the two bounds they give.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and
@@ -92,6 +110,12 @@ from pos_evolution_tpu_torch.state_roots import (  # noqa: E402
     run_state_roots,
     validator_columns,
 )
+from pos_evolution_tpu_torch.config import mainnet_config  # noqa: E402
+from pos_evolution_tpu_torch.resilience import state_digest  # noqa: E402
+from pos_evolution_tpu_torch.sim.dense_adversary import DenseEquivocator  # noqa: E402
+from pos_evolution_tpu_torch.sim.dense_driver import DenseSimulation  # noqa: E402
+from pos_evolution_tpu_torch.sim.dense_monitors import default_dense_monitors  # noqa: E402
+from pos_evolution_tpu_torch.sim.faults import DenseCrashWindow, DenseFaultPlan  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 flops
@@ -123,6 +147,14 @@ K2_REPLACES = "pos_evolution_tpu/ops/pallas_sha256.py:88"
 K2_LARGEST = 4_194_304          # the validator leaves' first level at N = 2^20
 ROOT_STAGES = ("load", "pre", "epoch", "post")
 SMALL = dict(slots=4, committees_per_slot=4, capacity=16, shuffle_rounds=10)
+
+# the dense path: 2^20 validators, mainnet config, 4 epochs
+DENSE_EPOCHS = 4
+DENSE_SMALL = dict(slots_per_epoch=8, max_committees_per_slot=4)
+# SM count and boost clock of the H100 SXM; its INT32 pipe has 64 lanes per
+# SM, where LOP3 and SHF issue and nowhere else
+H100_SMS, H100_CLOCK_HZ, INT32_LANES = 132, 1.98e9, 64
+INT_PIPE_LANE_OPS_PER_S = H100_SMS * INT32_LANES * H100_CLOCK_HZ
 
 
 def say(*parts):
@@ -295,7 +327,7 @@ def root_stage_ms(inputs, dev) -> list:
 def profiled(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its wall ms (host clock,
     ending in a synchronize), the device's busy ms (kernel time summed) and
-    K2's share of that."""
+    K1's and K2's shares of that."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -304,13 +336,15 @@ def profiled(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = k2_us = 0.0
+    busy = k1_us = k2_us = 0.0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:    # kernels and copies; host ops would count twice
             busy += e.self_device_time_total
             if "merkle_level" in e.key:
                 k2_us += e.self_device_time_total
-    return {"wall_ms": wall, "busy_ms": busy / 1e3, "k2_ms": k2_us / 1e3}
+            if "agg_sig" in e.key:
+                k1_us += e.self_device_time_total
+    return {"wall_ms": wall, "busy_ms": busy / 1e3, "k1_ms": k1_us / 1e3, "k2_ms": k2_us / 1e3}
 
 
 def sync_count(fn) -> int:
@@ -339,6 +373,83 @@ def roots_work(trees, state) -> tuple:
     end.synchronize()
     return (start.elapsed_time(end), kernels.launches["merkle_level"] - before,
             merkle_device.stats()["pairs"])
+
+
+def dense_sim(dev, n: int = N_MAINNET, **kw) -> DenseSimulation:
+    """The dense path's run: mainnet config and its 90 shuffle rounds, or
+    the tests' small config below 2^20."""
+    cfg = mainnet_config() if n == N_MAINNET else mainnet_config().replace(**DENSE_SMALL)
+    kw.setdefault("shuffle_rounds", cfg.shuffle_round_count if n == N_MAINNET else 6)
+    return DenseSimulation(n, cfg, device=dev, **kw)
+
+
+def chaos_sim(dev, n: int, seed: int = 21) -> DenseSimulation:
+    """The faulted and adversarial composition of the CPU tests, its crash
+    window and the equivocator's share scaled to ``n``."""
+    plan = DenseFaultPlan(seed=seed, drop_p=0.1, delay_p=0.08, gst_slot=10,
+                          crashes=(DenseCrashWindow(n * 300 // 384, n * 340 // 384, 3, 9),))
+    return dense_sim(dev, n, seed=seed, check_walk_every=0, fault_plan=plan,
+                     adversaries=[DenseEquivocator(controlled=range(n * 24 // 384), seed=2)],
+                     monitors=default_dense_monitors(parity_every=4))
+
+
+def run_record(sim, epochs: int) -> dict:
+    """Run ``sim`` to ``epochs`` and what two runs must agree on."""
+    sim.run_epochs(epochs)
+    summary = sim.summary()
+    summary.pop("dense_phases", None)
+    return {"metrics": sim.metrics, "summary": summary,
+            "violations": [(v["monitor"], v["kind"], v["slot"]) for v in sim.monitor_violations],
+            "implicated": [np.flatnonzero(m.implicated).tolist() for m in sim.monitors
+                           if hasattr(m, "implicated")],
+            "digest": state_digest(sim)}
+
+
+def sass_census() -> dict:
+    """Each kernel's SASS from its built library (``cuobjdump -sass``), by
+    opcode group: {kernel: {"body": {...}, "total": {...}}}. K1's body is
+    what follows the block's barrier (every signer runs it; before it,
+    warp 0 builds the schedule once per block); K2's is the whole kernel
+    (one pair per thread, straight-line). None when cuobjdump is absent."""
+    import re
+    import shutil
+    from pathlib import Path
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    line_re = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
+    groups = ("LOP3", "SHF", "IADD3", "IMAD")
+    out = {}
+    for name in kernels.KERNELS:
+        text = subprocess.run([tool, "-sass", str(kernels._library_path(name))],
+                              capture_output=True, text=True, timeout=120, check=True).stdout
+        ops = line_re.findall(text)
+        if name == "agg_sig":
+            cut = next(i for i, op in enumerate(ops) if op.startswith("BAR"))
+            body = ops[cut + 1:]
+        else:
+            body = ops
+        def census(seq):
+            c = {g: 0 for g in (*groups, "other")}
+            for op in seq:
+                base = op.split(".")[0]
+                c[base if base in groups else "other"] += 1
+            c["all"] = len(seq)
+            return c
+        out[name] = {"body": census(body), "total": census(ops)}
+    return out
+
+
+def sass_bounds(census: dict, units: int) -> dict:
+    """Least ms for ``units`` signers or pairs at ``census`` instructions
+    each: the issue bound (every instruction at 128 lanes per SM per
+    clock), the integer-pipe bound (LOP3 and SHF at 64), and that bound
+    with IADD3 on the integer pipe too."""
+    issue = units * census["all"] / PEAK_LANE_OPS_PER_S * 1e3
+    int_only = units * (census["LOP3"] + census["SHF"]) / INT_PIPE_LANE_OPS_PER_S * 1e3
+    int_iadd = units * (census["LOP3"] + census["SHF"] + census["IADD3"]) \
+        / INT_PIPE_LANE_OPS_PER_S * 1e3
+    return {"issue_ms": issue, "int_pipe_ms": int_only, "int_pipe_with_iadd3_ms": int_iadd}
 
 
 def main() -> int:
@@ -581,20 +692,153 @@ def main() -> int:
     say(f"[{card}] roots path n={N_MAINNET}: stages "
         + ", ".join(f"{s} {ms:.3f} ms" for s, ms in zip(ROOT_STAGES, rstages)))
 
+    # 10. the dense path, counted
+    del pre_state, post_state, cols, trees, roots
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sim = dense_sim(dev, phase_profile=8)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sim.run_epochs(DENSE_EPOCHS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    run_launches = dict(kernels.launches)
+    summary = sim.summary()
+    before_digest = dict(kernels.launches)
+    digest = state_digest(sim)
+    torch.cuda.synchronize()
+    dense_launches = dict(kernels.launches)
+    digest_k2 = dense_launches["merkle_level"] - before_digest["merkle_level"]
+    slots = sim.slot
+    check(slots == DENSE_EPOCHS * 32, f"dense path ran {slots} slots")
+    check(run_launches["agg_sig"] == 2 * slots and run_launches["merkle_level"] == 0,
+          f"dense run launches {run_launches}, want K1 twice a slot ({2 * slots})")
+    check(digest_k2 > 0 and dense_launches["agg_sig"] == 2 * slots,
+          f"state_digest launches {dense_launches}")
+    check(all(sim.walk_checks) and summary["resident_head_equals_spec_walk"],
+          f"walk checks {sim.walk_checks}")
+    check(summary["aggregates_verified"] == 64 * slots,
+          f"aggregates verified {summary['aggregates_verified']}")
+    check(summary["finality_reached"] and summary["finalized_epoch"] == DENSE_EPOCHS - 2,
+          f"finality: {summary}")
+    phases = summary.pop("dense_phases")
+    say(f"dense path n={N_MAINNET}, {DENSE_EPOCHS} epochs ({slots} slots): launches "
+        f"{dense_launches} (K1 {run_launches['agg_sig']} in the run, K2 {digest_k2} in "
+        f"state_digest); summary {json.dumps(summary)}; digest {digest}")
+    t_plain = time.perf_counter()
+    ref_sim = dense_sim(dev, plain=True)
+    ref = run_record(ref_sim, DENSE_EPOCHS)
+    plain_s = time.perf_counter() - t_plain
+    check(ref["metrics"] == sim.metrics and ref["summary"] == summary
+          and ref["digest"] == digest, "dense path differs from the plain=True run")
+    del ref_sim
+    say(f"dense path: metrics, summary and digest == the plain=True run "
+        f"({plain_s:.3f} s for its setup, {DENSE_EPOCHS} epochs and digest)")
+    committees = torch.from_numpy(
+        sim._inv_perm[: 64 * 512].reshape(512, 64).T.astype(np.int32).copy()).to(dev)
+    d_bits = torch.from_numpy(np.random.default_rng(5).random((64, 512)) < 0.99).to(dev)
+    d_msgs = rand_words(rng, 64, dev)
+    d_pk = sim.pk_states
+    got = committee_aggregates(d_pk, committees, d_bits, d_msgs)
+    want = _committee_aggregates(d_pk, committees, d_bits, d_msgs)
+    dense_k1_err = int(((got.long() & MASK32) - (want.long() & MASK32)).abs().max())
+    check(dense_k1_err == 0 and torch.equal(got, want), "K1 at (64, 512) differs from plain")
+    say("K1 vs plain at the dense path's shape A=64 C=512: bit-equal")
+
+    # 11. faulted and adversarial at 2^20, checkpoint and resume on the card
+    t3 = time.perf_counter()
+    full = run_record(chaos_sim(dev, N_MAINNET), 2)
+    t4 = time.perf_counter()
+    half = chaos_sim(dev, N_MAINNET)
+    half.run_epochs(1)
+    data = half.checkpoint()
+    del half
+    resumed = run_record(DenseSimulation.resume(data, device=dev), 2)
+    bad = [k for k in full if resumed[k] != full[k]]
+    check(not bad, f"chaos run: resumed differs from the uninterrupted run in {bad}")
+    check(full["summary"]["resident_head_equals_spec_walk"] and full["implicated"][0],
+          "chaos run: parity and evidence")
+    say(f"chaos n={N_MAINNET}, 2 epochs: {len(full['violations'])} violations, "
+        f"{len(full['implicated'][0])} implicated, {full['summary']['n_blocks']} blocks, "
+        f"finalized {full['summary']['finalized_epoch']}; checkpoint {len(data)} bytes after "
+        f"epoch 1, resumed on the card == uninterrupted (metrics, violations, evidence, "
+        f"digest); {(t4 - t3) / 2:.3f} s per chaos epoch")
+    del data
+
+    # 12. the dense driver on the card against the CPU at small size
+    for label, make, n, epochs in (("honest", dense_sim, 256, 4), ("chaos", chaos_sim, 384, 3)):
+        kw = {"seed": 11, "check_walk_every": 8} if label == "honest" else {}
+        a_cpu = run_record(make("cpu", n, **kw), epochs)
+        a_dev = run_record(make(dev, n, **kw), epochs)
+        bad = [k for k in a_cpu if a_cpu[k] != a_dev[k]]
+        check(not bad, f"small dense {label} run: card differs from CPU in {bad}")
+    say("small dense runs (honest n=256, chaos n=384): card == CPU")
+
+    # 13. dense timings: a steady epoch, then one under the profiler
+    t5 = time.perf_counter()
+    sim.run_epochs(DENSE_EPOCHS + 1)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t5
+    prof_dense = profiled(lambda: sim.run_epochs(DENSE_EPOCHS + 2))
+    per_epoch = (t2 - t1) / DENSE_EPOCHS
+    say(f"[{card}] dense path: setup {t1 - t0:.3f} s, {DENSE_EPOCHS} epochs {t2 - t1:.3f} s "
+        f"= {per_epoch:.3f} s per simulated epoch; epoch {DENSE_EPOCHS + 1} alone "
+        f"{steady_s:.3f} s; under torch.profiler epoch {DENSE_EPOCHS + 2} wall "
+        f"{prof_dense['wall_ms']:.3f} ms, device busy {prof_dense['busy_ms']:.3f} ms "
+        f"({100 * prof_dense['busy_ms'] / prof_dense['wall_ms']:.2f}%), K1 "
+        f"{prof_dense['k1_ms']:.3f} ms, K2 {prof_dense['k2_ms']:.3f} ms")
+    say(f"[{card}] dense phase budget (4 epochs, every 8th slot fenced): "
+        + json.dumps(phases))
+    t_digest = time_ms(lambda: state_digest(sim), 2)
+    d_out = torch.zeros((64, 24), dtype=torch.int32, device=dev)
+
+    def k1_dense():
+        d_out.zero_()
+        kernels.launch("agg_sig", d_pk.data_ptr(), committees.data_ptr(), d_bits.data_ptr(),
+                       d_msgs.data_ptr(), d_out.data_ptr(), 64, 512, stream)
+
+    dense_k1_ms = time_ms(k1_dense, 50)
+    dense_plain_ms = time_ms(lambda: _committee_aggregates(d_pk, committees, d_bits, d_msgs), 5)
+    dense_bound = k1_bound(d_bits, 64)
+    say(f"[{card}] K1 at A=64 C=512: kernel {dense_k1_ms:.4f} ms, plain {dense_plain_ms:.4f} "
+        f"ms, bound {dense_bound['ms']:.5f} ms ({dense_bound['by']}); state_digest "
+        f"{t_digest:.3f} ms")
+
+    # 14. SASS census and the two bounds
+    census = sass_census()
+    if census is None:
+        say("SASS census: cuobjdump not found")
+    else:
+        for name, c in census.items():
+            say(f"SASS {name}: per {'signer' if name == 'agg_sig' else 'pair'} "
+                f"{json.dumps(c['body'])}; whole kernel {json.dumps(c['total'])}")
+        signers = int(bits.sum())
+        for name, units, measured in (("agg_sig", signers, k1_ms),
+                                      ("merkle_level", K2_LARGEST, k2[K2_LARGEST]["ms"]),
+                                      ("merkle_level", N_MAINNET, k2[N_MAINNET]["ms"])):
+            b = sass_bounds(census[name]["body"], units)
+            say(f"[{card}] {name} at {units} units: measured {measured:.4f} ms; bounds "
+                + ", ".join(f"{k} {v:.4f}" for k, v in b.items())
+                + f"; measured / int_pipe {b['int_pipe_ms'] / measured:.3f}")
+
     big = k2[K2_LARGEST]
     say(card)
     say(json.dumps({"kernels": [{
         "name": "agg_sig", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": launches["agg_sig"], "max_abs_err": max_abs_err, "matches_plain": True,
         "ms": k1_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None, "epoch_ms": epoch_ms}, {
+        "bound_by": bound_by, "library_ms": None, "epoch_ms": epoch_ms,
+        "dense_launches": dense_launches["agg_sig"], "dense_ms": dense_k1_ms,
+        "dense_plain_ms": dense_plain_ms, "dense_bound_ms": dense_bound["ms"],
+        "dense_max_abs_err": dense_k1_err}, {
         "name": "merkle_level", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
         "launches": root_launches["merkle_level"], "max_abs_err": k2_err,
         "matches_plain": True, "pairs": K2_LARGEST, "ms": big["ms"],
         "wrapper_ms": big["wrapper_ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound"]["ms"], "bound_by": big["bound"]["by"], "library_ms": None,
         "ms_1048576": k2[N_MAINNET]["ms"], "full_build_ms": builds[-1][0],
-        "update_ms": updates[-1][0]}]}))
+        "update_ms": updates[-1][0], "dense_launches": digest_k2}]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from pos_evolution_tpu_torch.config import (
@@ -58,6 +59,12 @@ class EpochResult(NamedTuple):
     justify_cur: torch.Tensor               # bool scalar
     new_justification_bits: torch.Tensor    # bool[4]
     finalize_epoch: torch.Tensor            # int64 scalar (-1 = no finalization)
+
+
+def masked_stake_host(mask: np.ndarray, weight: np.ndarray) -> int:
+    """Summed int64 stake where ``mask``, in numpy: the dense monitors'
+    evidence pricing on a single device."""
+    return int(np.sum(np.where(np.asarray(mask), np.asarray(weight), 0), dtype=np.int64))
 
 
 def isqrt_i64(x):

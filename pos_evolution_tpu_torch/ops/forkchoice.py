@@ -6,7 +6,8 @@ table (exact in any order), subtree sums by binary lifting over the
 parent array, and a greedy descent with the (weight, rank) tie-break.
 The descent runs a fixed ``capacity`` steps of ``torch.where`` on the
 device, which change nothing once a leaf is reached, so no step waits
-on the host.
+on the host. ``head_host`` is the numpy twin of the head query, the
+dense driver's independent oracle.
 """
 
 from __future__ import annotations
@@ -15,6 +16,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from pos_evolution_tpu_torch.ops.variant_tally import next_pow2
+
+__all__ = ["DenseStore", "head_and_weights", "head_from_buckets", "head_host",
+           "next_pow2", "rebuild_buckets"]
 
 
 class DenseStore(NamedTuple):
@@ -111,3 +117,45 @@ def head_and_weights(store: DenseStore, capacity: int, min_vote_epoch=None):
         store.justified_idx, vote_weight, store.boost_idx,
         store.boost_amount, capacity)
 
+
+def rebuild_buckets(msg_block, weight, capacity: int):
+    """Per-block vote buckets from the whole message table: one int64
+    ``index_add_`` (exact in any order) of ``weight`` by ``msg_block``,
+    -1 entries dropped -> int64[capacity]."""
+    valid = msg_block >= 0
+    seg = torch.where(valid, msg_block.long(), capacity)
+    return _segment_sum(torch.where(valid, weight.to(torch.int64), 0), seg,
+                        capacity + 1)[:capacity]
+
+
+def head_host(parent, real, rank, leaf_viable, justified_idx, vote_weight,
+              boost_idx, boost_amount) -> int:
+    """Numpy twin of ``head_from_buckets``: reverse-topological subtree
+    sums (a parent's index is below its child's) and the greedy
+    (weight, rank) descent -> the head's index."""
+    b = parent.shape[0]
+    subtree = vote_weight.astype(np.int64).copy()
+    boost_col = np.zeros(b, np.int64)
+    if boost_idx >= 0:
+        boost_col[boost_idx] = 1
+    is_parent = np.zeros(b, bool)
+    valid_parent = (parent >= 0) & real
+    is_parent[parent[valid_parent]] = True
+    leaf_ok = ((real & ~is_parent) & leaf_viable).astype(np.int64)
+    for i in range(b - 1, 0, -1):
+        p = parent[i]
+        if p >= 0 and real[i]:
+            subtree[p] += subtree[i]
+            boost_col[p] += boost_col[i]
+            leaf_ok[p] += leaf_ok[i]
+    subtree = subtree + boost_col * np.int64(boost_amount)
+    keep = leaf_ok > 0
+
+    head = int(justified_idx)
+    while True:
+        children = np.nonzero((parent == head) & keep & real)[0]
+        if children.size == 0:
+            return head
+        w = subtree[children]
+        tied = children[w == w.max()]
+        head = int(tied[np.argmax(rank[tied])])

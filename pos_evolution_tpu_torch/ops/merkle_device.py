@@ -19,10 +19,12 @@ Nodes are (N, 8) int32 big-endian words (``device.py``).
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
-from pos_evolution_tpu_torch.device import i32, words_to_torch
+from pos_evolution_tpu_torch.device import i32, resolve_device, rows_to_words
 from pos_evolution_tpu_torch.ops import kernels
 from pos_evolution_tpu_torch.ops.sha256 import sha256_pair_words
 from pos_evolution_tpu_torch.ssz.merkle import (
@@ -118,9 +120,10 @@ def pair_hash(left, right, *, plain: bool = False):
 
 # --- whole trees ------------------------------------------------------------------
 
-def merkleize(chunks, limit: int | None = None) -> bytes:
-    """``ssz.merkle.merkleize_chunks`` with every level through ``pair_hash``."""
-    return merkleize_chunks(chunks, limit, combine=pair_hash)
+def merkleize(chunks, limit: int | None = None, *, plain: bool = False) -> bytes:
+    """``ssz.merkle.merkleize_chunks`` with every level through ``pair_hash``
+    (``plain=True``: K2's plain version on any device)."""
+    return merkleize_chunks(chunks, limit, combine=partial(pair_hash, plain=plain))
 
 
 def merkleize_words_device(leaves, depth: int):
@@ -179,17 +182,24 @@ def multiproof(leaves, leaf_indices, depth: int) -> list[bytes]:
 
 # --- byte-blob digests --------------------------------------------------------------
 
-def digest_bytes(blob, device="cuda") -> bytes:
-    """Length-bound merkle digest of a byte string (``DIGEST_ALGO``),
-    hashed on ``device`` (CUDA unless the caller asks for another)."""
-    data = (np.frombuffer(blob, dtype=np.uint8)
-            if isinstance(blob, (bytes, bytearray, memoryview))
-            else np.ascontiguousarray(blob, dtype=np.uint8).reshape(-1))
-    n = int(data.size)
-    padded = np.zeros(-(-n // 32) * 32, dtype=np.uint8)
+def digest_bytes(blob, device="cuda", *, plain: bool = False) -> bytes:
+    """Length-bound merkle digest of a byte string (``DIGEST_ALGO``).
+
+    ``blob`` is bytes or a uint8 numpy array, hashed on ``device`` (CUDA
+    unless the caller asks for another), or a tensor of any dtype, whose
+    raw bytes are hashed where it lies. The chunks are packed on that device;
+    ``plain=True`` hashes with K2's plain version."""
+    if isinstance(blob, torch.Tensor):
+        data = blob.detach().contiguous().reshape(-1).view(torch.uint8)
+    else:
+        raw = (np.frombuffer(blob, dtype=np.uint8)
+               if isinstance(blob, (bytes, bytearray, memoryview))
+               else np.ascontiguousarray(blob, dtype=np.uint8).reshape(-1))
+        data = torch.from_numpy(raw.copy()).to(resolve_device(device))
+    n = data.numel()
+    padded = torch.zeros(-(-n // 32) * 32, dtype=torch.uint8, device=data.device)
     padded[:n] = data
-    words = padded.view(">u4").astype(np.uint32).reshape(-1, 8)
-    return mix_in_length(merkleize(words_to_torch(words, device)), n)
+    return mix_in_length(merkleize(rows_to_words(padded.reshape(-1, 32)), plain=plain), n)
 
 
 # --- lockstep batching --------------------------------------------------------------

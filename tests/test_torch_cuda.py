@@ -16,6 +16,8 @@ from pos_evolution_tpu_torch.ops.aggregation import (  # noqa: E402
     committee_aggregates,
 )
 from pos_evolution_tpu_torch.ops.merkle_device import _merkle_level, merkle_level  # noqa: E402
+from pos_evolution_tpu_torch.resilience import state_digest  # noqa: E402
+from pos_evolution_tpu_torch.sim.dense_driver import DenseSimulation  # noqa: E402
 from pos_evolution_tpu_torch.state_roots import run_state_roots  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -139,3 +141,21 @@ def test_small_state_roots_card_equals_cpu(cuda):
                              shuffle_rounds=10)
     a, b = run_state_roots(inp, "cpu"), run_state_roots(inp, cuda)
     assert (a.pre, a.post, a.dirty) == (b.pre, b.post, b.dirty)
+
+
+def test_small_dense_run_card_equals_cpu(cuda):
+    """One epoch of the dense driver at n = 256 on the card (K1 every slot,
+    K2 in the digest) equals the same run on the CPU."""
+    from pos_evolution_tpu_torch.config import mainnet_config
+    cfg = mainnet_config().replace(slots_per_epoch=8, max_committees_per_slot=4)
+    runs = []
+    for dev in ("cpu", cuda):
+        kernels.reset_launches()
+        sim = DenseSimulation(256, cfg, device=dev, seed=11, shuffle_rounds=6,
+                              check_walk_every=4)
+        sim.run_epochs(1)
+        runs.append((sim.metrics, sim.summary(), state_digest(sim), dict(kernels.launches)))
+    (m_cpu, s_cpu, d_cpu, l_cpu), (m_dev, s_dev, d_dev, l_dev) = runs
+    assert (m_dev, s_dev, d_dev) == (m_cpu, s_cpu, d_cpu)
+    assert l_cpu == {"agg_sig": 0, "merkle_level": 0}
+    assert l_dev["agg_sig"] == 2 * 8 and l_dev["merkle_level"] > 0

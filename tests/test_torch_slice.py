@@ -162,8 +162,9 @@ def test_blocker_blocks_only_whole_names():
 
 
 def test_port_runs_with_jax_blocked():
-    """Every module of the port imports, and a tiny epoch and its state
-    roots run on the CPU, with jax and pos_evolution_tpu impossible to
+    """Every module of the port imports, and a tiny epoch, its state
+    roots and a faulted dense simulation with its checkpoint and state
+    digest run on the CPU, with jax and pos_evolution_tpu impossible to
     import."""
     proc = _run_blocked("""
         import pkgutil, importlib
@@ -178,6 +179,19 @@ def test_port_runs_with_jax_blocked():
         from pos_evolution_tpu_torch.state_roots import run_state_roots
         roots = run_state_roots(inp, "cpu")
         assert roots.pre != roots.post and len(roots.post["balances"]) == 32
+        from pos_evolution_tpu_torch.config import mainnet_config
+        from pos_evolution_tpu_torch.resilience import state_digest
+        from pos_evolution_tpu_torch.sim.dense_driver import DenseSimulation
+        from pos_evolution_tpu_torch.sim.dense_monitors import default_dense_monitors
+        from pos_evolution_tpu_torch.sim.faults import DenseFaultPlan
+        cfg = mainnet_config().replace(slots_per_epoch=4, max_committees_per_slot=2)
+        sim = DenseSimulation(64, cfg, device="cpu", shuffle_rounds=4, check_walk_every=2,
+                              fault_plan=DenseFaultPlan(seed=1, drop_p=0.1),
+                              monitors=default_dense_monitors())
+        sim.run_epochs(2)
+        resumed = DenseSimulation.resume(sim.checkpoint(), device="cpu")
+        assert state_digest(resumed) == state_digest(sim)
+        assert sim.summary()["resident_head_equals_spec_walk"]
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
         print("ran", out.heads.tolist())
