@@ -47,28 +47,52 @@ Phases, in order; any mismatch or exception ends the run non-zero:
 13. time the dense path: seconds per simulated epoch, its phase budget,
     and the device's busy share under ``torch.profiler`` over one epoch;
     K1 at the path's shape against its bound;
-14. count the SASS instructions of both kernels (``cuobjdump -sass``), by
-    opcode group, per signer and per pair, and the two bounds they give.
+14. count the SASS instructions of every kernel (``cuobjdump -sass``), by
+    opcode group, per signer and per pair, and the two bounds they give;
+15. hold the field kernels K3 (``csrc/fp_modmul.cu``), K4
+    (``csrc/fp_addsub.cu``) and K5 (``csrc/alg_mul.cu``) against their
+    plain versions at the BLS path's shapes, digit for digit: K3 on the
+    4096 x 144 products of an Fq12 multiply over the doubled Miller batch
+    and on edge values, K4's four ops at [4096, 12, 32], K5 for d = 2, 6,
+    12 and the sparse line plan at 4096 lanes;
+16. drive the fourth slice's path once -- ``bls_verify.run`` at 2048
+    aggregates over 262,144 signers (BASELINE config 3): setup, signature
+    decompression, hash-to-G2, the batched pairing and the swapped-pair
+    negative control -- with the launch counts zeroed just before and read
+    just after: every aggregate verifies, exactly the swapped pair fails,
+    K3-K5 launched and K1, K2 not;
+17. hold that path at B = 2: the ``plain=True`` run on the card and the
+    CPU run equal the kernel run in the aggregate keys, Miller values,
+    final exponentiation and verdicts; 8 aggregates' hashed messages and
+    verdicts equal the port's oracle copy;
+18. time K3-K5 per launch at the path's shapes against their plain
+    versions and bounds, and the pairing stage under ``torch.profiler``;
+19. the integer bounds of K3 and K4 from their SASS counts.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and
 prints no result. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
+import contextlib
 import hashlib
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from pos_evolution_tpu_torch import bls_verify  # noqa: E402
 from pos_evolution_tpu_torch.convert import registry_to_torch  # noqa: E402
+from pos_evolution_tpu_torch.crypto import bls12_381 as oracle  # noqa: E402
 from pos_evolution_tpu_torch.device import (  # noqa: E402
     MASK32,
     checksum_tree,
@@ -84,7 +108,7 @@ from pos_evolution_tpu_torch.epoch import (  # noqa: E402
     load_inputs,
     run_epoch,
 )
-from pos_evolution_tpu_torch.ops import kernels  # noqa: E402
+from pos_evolution_tpu_torch.ops import fp, kernels, tower  # noqa: E402
 from pos_evolution_tpu_torch.ops.aggregation import (  # noqa: E402
     _committee_aggregates,
     aggregate_signatures_batch,
@@ -95,6 +119,10 @@ from pos_evolution_tpu_torch.ops.aggregation import (  # noqa: E402
 from pos_evolution_tpu_torch.ops import merkle_device  # noqa: E402
 from pos_evolution_tpu_torch.ops.epoch import FAR_FUTURE_I64, process_epoch_dense  # noqa: E402
 from pos_evolution_tpu_torch.ops.merkle_device import _merkle_level, merkle_level  # noqa: E402
+from pos_evolution_tpu_torch.ops.pairing import (  # noqa: E402
+    fast_aggregate_verify_batch,
+    g2_affine_encode,
+)
 from pos_evolution_tpu_torch.ops.shuffle import shuffle_permutation  # noqa: E402
 from pos_evolution_tpu_torch.ssz import incremental  # noqa: E402
 from pos_evolution_tpu_torch.ssz.merkle import (  # noqa: E402
@@ -155,6 +183,28 @@ DENSE_SMALL = dict(slots_per_epoch=8, max_committees_per_slot=4)
 # SM, where LOP3 and SHF issue and nowhere else
 H100_SMS, H100_CLOCK_HZ, INT32_LANES = 132, 1.98e9, 64
 INT_PIPE_LANE_OPS_PER_S = H100_SMS * INT32_LANES * H100_CLOCK_HZ
+
+# the BLS path (BASELINE config 3): 2048 aggregates of 128 lanes, 262,144
+# signers; its Miller loop runs the doubled batch of 4096 lanes
+BLS_AGGREGATES, BLS_SIGNERS = 2048, 262_144
+BLS_LANES = 2 * BLS_AGGREGATES
+BLS_SMALL, BLS_ORACLE = 2, 8
+FIELD_KERNELS = {   # name -> (source, the JAX function it replaces)
+    "fp_modmul": ("pos_evolution_tpu_torch/csrc/fp_modmul.cu", "pos_evolution_tpu/ops/fp.py:204"),
+    "fp_addsub": ("pos_evolution_tpu_torch/csrc/fp_addsub.cu", "pos_evolution_tpu/ops/fp.py:210"),
+    "alg_mul": ("pos_evolution_tpu_torch/csrc/alg_mul.cu", "pos_evolution_tpu/ops/tower.py:129"),
+}
+FQ_BYTES = 128                       # one element: 32 int32 digits
+# 32x32->64-bit partial products of one K3 product: 12 x 12 for a * b, 13 x 13
+# for the quotient estimate, 78 for its low product with p. Hopper issues 64
+# 32-bit integer multiplies per SM per clock (the CUDA guide's table, cc 9.0),
+# one IMAD.WIDE each at best.
+PP_MODMUL = 144 + 169 + 78
+IMUL_PER_S = H100_SMS * 64 * H100_CLOCK_HZ
+# (d, sparse slots) of K5's calls on the path: Fq2, Fq6, Fq12 and the line
+ALG_SHAPES = ((2, None), (6, None), (12, None), (12, (0, 1, 2, 3, 8, 9)))
+ADDSUB_OPS = {"modadd": fp.OP_ADD, "modsub": fp.OP_SUB, "modneg": fp.OP_NEG,   # K4's op codes
+              "canon": fp.OP_CANON}
 
 
 def say(*parts):
@@ -327,7 +377,7 @@ def root_stage_ms(inputs, dev) -> list:
 def profiled(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its wall ms (host clock,
     ending in a synchronize), the device's busy ms (kernel time summed) and
-    K1's and K2's shares of that."""
+    each kernel's share of that (``k1_ms``, ``k2_ms``, ``kernel_ms``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -336,15 +386,17 @@ def profiled(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = k1_us = k2_us = 0.0
+    busy = 0.0
+    per = {name: 0.0 for name in kernels.KERNELS}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:    # kernels and copies; host ops would count twice
             busy += e.self_device_time_total
-            if "merkle_level" in e.key:
-                k2_us += e.self_device_time_total
-            if "agg_sig" in e.key:
-                k1_us += e.self_device_time_total
-    return {"wall_ms": wall, "busy_ms": busy / 1e3, "k1_ms": k1_us / 1e3, "k2_ms": k2_us / 1e3}
+            for name in per:
+                if f"{name}_kernel" in e.key:
+                    per[name] += e.self_device_time_total
+    return {"wall_ms": wall, "busy_ms": busy / 1e3, "k1_ms": per["agg_sig"] / 1e3,
+            "k2_ms": per["merkle_level"] / 1e3,
+            "kernel_ms": {name: us / 1e3 for name, us in per.items()}}
 
 
 def sync_count(fn) -> int:
@@ -435,6 +487,7 @@ def sass_census() -> dict:
                 base = op.split(".")[0]
                 c[base if base in groups else "other"] += 1
             c["all"] = len(seq)
+            c["IMAD_WIDE"] = sum(op.startswith("IMAD.WIDE") for op in seq)   # within IMAD
             return c
         out[name] = {"body": census(body), "total": census(ops)}
     return out
@@ -449,7 +502,298 @@ def sass_bounds(census: dict, units: int) -> dict:
     int_only = units * (census["LOP3"] + census["SHF"]) / INT_PIPE_LANE_OPS_PER_S * 1e3
     int_iadd = units * (census["LOP3"] + census["SHF"] + census["IADD3"]) \
         / INT_PIPE_LANE_OPS_PER_S * 1e3
-    return {"issue_ms": issue, "int_pipe_ms": int_only, "int_pipe_with_iadd3_ms": int_iadd}
+    imul = units * census["IMAD"] / IMUL_PER_S * 1e3
+    return {"issue_ms": issue, "int_pipe_ms": int_only, "int_pipe_with_iadd3_ms": int_iadd,
+            "imad_ms": imul}
+
+
+def field_digits(rng, shape, edges: bool = True) -> torch.Tensor:
+    """Canonical int32 digits [*shape, 32] of seeded values in [0, 2p)
+    (the top digit drawn below 2p's), the edge values 0, 1, p-1, p, 2p-1
+    in the first rows."""
+    d = rng.integers(0, 1 << fp.BITS, (*shape, fp.L), dtype=np.int32)
+    d[..., -1] = rng.integers(0, int(fp.TWO_P[-1]), shape, dtype=np.int32)
+    if edges:
+        flat = d.reshape(-1, fp.L)
+        for i, v in enumerate((0, 1, fp.P_INT - 1, fp.P_INT, 2 * fp.P_INT - 1)[:len(flat)]):
+            flat[i] = fp.to_limbs(v)
+    return torch.from_numpy(d)
+
+
+def digit_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def field_bound(nbytes: int, partial_products: int, other_ops: int = 0) -> dict:
+    """Least ms for a field kernel's work: its bytes at the memory rate,
+    its partial products at the integer-multiply rate (plus any other lane
+    instructions at the issue rate), the larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (partial_products / IMUL_PER_S + other_ops / PEAK_LANE_OPS_PER_S) * 1e3
+    return {"ms": max(t_ops, t_bytes), "by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": nbytes, "partial_products": partial_products}
+
+
+def alg_mul_partial_products(d: int, slots) -> int:
+    """One K5 element's partial products: d * dy products as K3, then per
+    output component 12 words times each of its nonzero coefficients and
+    one Barrett reduction (K3's 169 + 78)."""
+    tpos, tneg, _, _ = tower._plan(d, slots)
+    nonzero = ((tpos + tneg) != 0).sum(axis=(0, 1))            # per output component
+    return d * tpos.shape[1] * PP_MODMUL + int((12 * nonzero + 169 + 78).sum())
+
+
+def oracle_check(job):
+    """The port's oracle copy on one aggregate (run in a worker process):
+    FastAggregateVerify of the compressed signature, and the hashed
+    message as digits."""
+    pubkeys, message, signature = job
+    return (oracle.PyBLS.FastAggregateVerify(pubkeys, message, signature),
+            g2_affine_encode(oracle.hash_to_g2(message)))
+
+
+class OpCount:
+    """Counts the aten ops that make a new tensor (about one kernel launch
+    each on the card) while the ``with`` block runs; views are not counted."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+        makes_tensor = {}          # op -> whether it returns a new tensor (schemas are slow to read)
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                new = makes_tensor.get(func)
+                if new is None:
+                    new = makes_tensor[func] = not any(r.alias_info for r in func._schema.returns)
+                counter.ops += new
+                return func(*args, **(kwargs or {}))
+
+        self.ops = 0
+        self._mode = _Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def bls_phases(dev, card: str, census) -> list:
+    """Phases 15-19: the field kernels K3-K5 and the real-BLS verify path
+    (BASELINE config 3). Returns K3-K5's rows of the kernels line."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rng = np.random.default_rng(15)
+    err = {}
+
+    # 15. K3-K5 against their plain versions at the path's shapes
+    shape3 = (BLS_LANES, 144)                     # an Fq12 multiply's products
+    a3, b3 = field_digits(rng, shape3).to(dev), field_digits(rng, shape3).to(dev)
+    got = fp.modmul(a3, b3)
+    ref = fp._modmul(a3, b3)
+    err["fp_modmul"] = digit_err(got, ref)
+    check(torch.equal(got, ref), f"K3 differs from its plain version at {shape3}")
+    edge_vals = [0, 1, 2, fp.P_INT - 1, fp.P_INT, fp.P_INT + 1, 2 * fp.P_INT - 2,
+                 2 * fp.P_INT - 1]
+    e = torch.from_numpy(np.stack([fp.to_limbs(v) for v in edge_vals])).to(dev)
+    got = fp.modmul(e[:, None], e[None])          # broadcast, products up to (2p - 1)^2
+    ref = fp._modmul(e[:, None], e[None])
+    err["fp_modmul"] = max(err["fp_modmul"], digit_err(got, ref))
+    check(torch.equal(got, ref), "K3 differs from its plain version on the edge values")
+    got_np = got.cpu().numpy()
+    for i, x in enumerate(edge_vals):
+        for j, y in enumerate(edge_vals):
+            v = fp.from_limbs(got_np[i, j])
+            check(v < 2 * fp.P_INT and v % fp.P_INT == x * y % fp.P_INT,
+                  f"K3 edge product {i} x {j} is wrong")
+    del got, ref
+    shape4 = (BLS_LANES, 12)
+    a4, b4 = field_digits(rng, shape4).to(dev), field_digits(rng, shape4).to(dev)
+    err["fp_addsub"] = 0
+    for op in ADDSUB_OPS:
+        args = (a4, b4) if op in ("modadd", "modsub") else (a4,)
+        got, ref = getattr(fp, op)(*args), getattr(fp, "_" + op)(*args)
+        err["fp_addsub"] = max(err["fp_addsub"], digit_err(got, ref))
+        check(torch.equal(got, ref), f"K4 {op} differs from its plain version at {shape4}")
+    alg_in = {}
+    err["alg_mul"] = 0
+    for d, slots in ALG_SHAPES:
+        dy = d if slots is None else len(slots)
+        x, y = field_digits(rng, (BLS_LANES, d)).to(dev), field_digits(rng, (BLS_LANES, dy)).to(dev)
+        alg_in[d, slots] = (x, y)
+        got, ref = tower.alg_mul(x, y, slots), tower._alg_mul(x, y, slots)
+        err["alg_mul"] = max(err["alg_mul"], digit_err(got, ref))
+        check(torch.equal(got, ref), f"K5 differs from its plain version at d={d} slots={slots}")
+    del got, ref
+    torch.cuda.empty_cache()
+    say(f"K3 vs plain at {shape3[0]} x {shape3[1]} products and {len(edge_vals)}^2 broadcast "
+        f"edge pairs (values checked mod p); K4 {', '.join(ADDSUB_OPS)} at {list(shape4)}; K5 "
+        f"at {BLS_LANES} lanes for d = 2, 6, 12 and the line plan: digit-equal "
+        f"(max abs digit error {err})")
+
+    # 16. the BLS path, counted
+    inputs = bls_verify.build_inputs(BLS_AGGREGATES, BLS_SIGNERS)
+    kernels.reset_launches()
+    bls = bls_verify.run(inputs, dev)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    s = bls.summary
+    check(all(launches[k] > 0 for k in FIELD_KERNELS)
+          and launches["agg_sig"] == 0 and launches["merkle_level"] == 0,
+          f"BLS path launches {launches}: want K3-K5, and neither K1 nor K2")
+    check(s["verified"] == BLS_AGGREGATES and s["negative_control_rejected"] == [0, 1]
+          and s["negative_control_passed"] == BLS_AGGREGATES - 2,
+          f"BLS verdicts: {s['verified']} verified, negative control {s['negative_control_rejected']}")
+    t = bls.tensors
+    for name, x in (("msg_g2", t.msg_g2), ("sig_g2", t.sig_g2)):
+        check(x.shape == (BLS_AGGREGATES, 2, 2, fp.L) and x.dtype == torch.int32
+              and bool(((x >= 0) & (x < 1 << fp.BITS)).all()), f"{name} is not canonical digits")
+    say(f"BLS path B={BLS_AGGREGATES} N={BLS_SIGNERS}: launches {launches}; all "
+        f"{s['verified']} aggregates verify; the swapped pair {s['negative_control_rejected']} "
+        f"fails, the other {s['negative_control_passed']} pass")
+    say(f"[{card}] BLS path summary: {json.dumps(s)}")
+
+    # 17. the path at B = 2: kernels == plain on the card == the CPU; the oracle
+    small = bls_verify.VerifyTensors(t.pk_table, *(x[:BLS_SMALL] for x in t[1:]))
+    runs = {}
+    for name, where, plain in (("kernel", dev, False), ("plain", dev, True), ("cpu", "cpu", False)):
+        args = [x.to(where) for x in small]
+        stages = {}
+        before = dict(kernels.launches)
+        counter = OpCount() if name != "plain" else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode(), counter:
+            ok = fast_aggregate_verify_batch(*args, plain=plain, stages=stages)
+        torch.cuda.synchronize()
+        runs[name] = {"ok": ok.cpu(), "stages": {k: v.cpu() for k, v in stages.items()},
+                      "s": time.perf_counter() - t0,
+                      "launches": {k: kernels.launches[k] - before[k] for k in FIELD_KERNELS},
+                      "ops": getattr(counter, "ops", None)}
+        del args
+    for name in ("plain", "cpu"):
+        check(torch.equal(runs[name]["ok"], runs["kernel"]["ok"]), f"B=2 verdicts: {name} differs")
+        bad = [k for k, v in runs["kernel"]["stages"].items()
+               if not torch.equal(runs[name]["stages"][k], v)]
+        check(not bad, f"B=2: the {name} run differs from the kernel run in {bad}")
+        check(not any(runs[name]["launches"].values()), f"the {name} run launched a field kernel")
+    check(runs["kernel"]["ok"].tolist() == [True] * BLS_SMALL, "B=2 verdicts")
+    say(f"[{card}] BLS path at B={BLS_SMALL}: plain=True on the card and the CPU == the kernel "
+        f"run (aggregate keys, Miller values, final exponentiation, verdicts); kernel run "
+        f"{runs['kernel']['s']:.3f} s, {runs['kernel']['launches']} field-kernel launches and "
+        f"{runs['kernel']['ops']} other ops (counted, so slower); plain run on the card "
+        f"{runs['plain']['s']:.3f} s, {runs['cpu']['ops']} ops (counted in the CPU run, "
+        f"{runs['cpu']['s']:.3f} s)")
+    sig_bytes = bls_verify._compress(t.sig_g2[:BLS_ORACLE])
+    k = len(inputs.pk_comp)
+    jobs = [([inputs.pk_comp[int(v) % k] for v, b in zip(inputs.committees[i], inputs.bits[i]) if b],
+             inputs.messages[i], bytes(sig_bytes[i])) for i in range(BLS_ORACLE)]
+    jobs += [(jobs[0][0], jobs[0][1], jobs[1][2]), (jobs[1][0], jobs[1][1], jobs[0][2])]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(min(len(jobs), os.cpu_count() or 1),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        results = list(pool.map(oracle_check, jobs))
+    oracle_s = time.perf_counter() - t0
+    check([r[0] for r in results] == [True] * BLS_ORACLE + [False, False],
+          f"oracle verdicts {[r[0] for r in results]}")
+    check(bls.verdicts[:BLS_ORACLE].all() and not bls.negative[:2].any(),
+          "device verdicts differ from the oracle's")
+    msg_np = t.msg_g2[:BLS_ORACLE].cpu().numpy()
+    check(all(np.array_equal(msg_np[i], results[i][1]) for i in range(BLS_ORACLE)),
+          "hashed messages differ from the oracle's hash_to_g2")
+    say(f"BLS path: {BLS_ORACLE} aggregates' hashed messages and verdicts, and the swapped "
+        f"pair's, == the port's oracle copy (PyBLS.FastAggregateVerify, {oracle_s:.3f} s)")
+
+    # 18. per-launch times against the plain versions and the bounds
+    rows = {}
+    n3 = BLS_LANES * 144
+    by_shape = {}
+    # the shape of phase 15, and the pk-sum tree's first level, K3's largest
+    # call on the path (K5 makes the Fq12 products itself)
+    for x, y in ((a3, b3), (a3[:BLS_AGGREGATES, :64], b3[:BLS_AGGREGATES, :64])):
+        x, y = x.contiguous(), y.contiguous()
+        n = x.numel() // fp.L
+        out3 = torch.empty_like(x)
+        by_shape["x".join(map(str, x.shape[:-1]))] = {
+            "ms": time_ms(lambda: kernels.launch("fp_modmul", x.data_ptr(), y.data_ptr(),
+                                                 out3.data_ptr(), n, stream), 20),
+            "plain_ms": time_ms(lambda: fp._modmul(x, y), 2),
+            "bound": field_bound(3 * FQ_BYTES * n, PP_MODMUL * n)}
+    rows["fp_modmul"] = dict(by_shape[f"{BLS_LANES}x144"], shape=list(shape3),
+                             wrapper_ms=time_ms(lambda: fp.modmul(a3, b3), 20),
+                             by_shape=by_shape)
+    n4 = BLS_LANES * 12
+    out4 = torch.empty_like(a4)
+    by_op = {}
+    for op, code in ADDSUB_OPS.items():
+        binary = op in ("modadd", "modsub")
+        other = b4 if binary else a4
+        args = (a4, b4) if binary else (a4,)
+        by_op[op] = {
+            "ms": time_ms(lambda: kernels.launch("fp_addsub", a4.data_ptr(), other.data_ptr(), code,
+                                                 out4.data_ptr(), n4, stream), 20),
+            "plain_ms": time_ms(lambda: getattr(fp, "_" + op)(*args), 5),
+            # two passes of 12-word carry chains, ~2 instructions a word
+            "bound": field_bound((3 if binary else 2) * FQ_BYTES * n4, 0, 48 * n4)}
+    rows["fp_addsub"] = dict(by_op["modadd"], shape=list(shape4), by_op=by_op,
+                             wrapper_ms=time_ms(lambda: fp.modadd(a4, b4), 20))
+    by_shape = {}
+    for (d, slots), (x, y) in alg_in.items():
+        coef, m = tower._device_plan(d, slots, dev)
+        dy = y.shape[-2]
+        out5 = torch.empty_like(x)
+        by_shape[f"d{d}" + ("_line" if slots else "")] = {
+            "ms": time_ms(lambda: kernels.launch("alg_mul", x.data_ptr(), y.data_ptr(),
+                                                 coef.data_ptr(), out5.data_ptr(), BLS_LANES,
+                                                 d, dy, m, stream), 20),
+            "plain_ms": time_ms(lambda: tower._alg_mul(x, y, slots), 2),
+            "bound": field_bound((2 * d + dy) * FQ_BYTES * BLS_LANES,
+                                 alg_mul_partial_products(d, slots) * BLS_LANES)}
+    x, y = alg_in[12, None]
+    rows["alg_mul"] = dict(by_shape["d12"], shape=[BLS_LANES, 12], by_shape=by_shape,
+                           wrapper_ms=time_ms(lambda: tower.alg_mul(x, y), 20))
+    for name, r in rows.items():
+        extra = r.get("by_op") or r["by_shape"]
+        say(f"[{card}] {name} per launch: " + "; ".join(
+            f"{k} kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound "
+            f"{v['bound']['ms']:.4f} ms ({v['bound']['by']}), {100 * v['bound']['ms'] / v['ms']:.1f}%"
+            f" of it" for k, v in extra.items()))
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        prof = profiled(lambda: fast_aggregate_verify_batch(*t))
+    say(f"[{card}] BLS pairing stage at B={BLS_AGGREGATES} under torch.profiler: wall "
+        f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms "
+        f"({100 * prof['busy_ms'] / prof['wall_ms']:.2f}%); by kernel "
+        + ", ".join(f"{k} {prof['kernel_ms'][k]:.3f} ms" for k in FIELD_KERNELS))
+    say(f"[{card}] BLS path: verify {s['verify_s']:.3f} s (signature decompression "
+        f"{s['sig_decompress_s']:.3f}, hash-to-G2 {s['hash_to_g2_s']:.3f}, pairing "
+        f"{s['pairing_s']:.3f}); {s['aggregates_per_s']:.3f} aggregates/s, "
+        f"{s['attestations_per_s']:.1f} attestations/s")
+
+    # 19. the SASS census's bounds for K3 (straight-line, one element a thread)
+    # and K4 (its four op branches together: over the count of any one op)
+    if census is not None:
+        for name, units, measured in (("fp_modmul", n3, rows["fp_modmul"]["ms"]),
+                                      ("fp_addsub", n4, rows["fp_addsub"]["ms"])):
+            b = sass_bounds(census[name]["body"], units)
+            say(f"[{card}] {name} at {units} elements: measured {measured:.4f} ms; bounds "
+                + ", ".join(f"{k} {v:.4f}" for k, v in b.items())
+                + f"; imad / measured {b['imad_ms'] / measured:.3f}")
+
+    out = []
+    for name, r in rows.items():
+        source, replaces = FIELD_KERNELS[name]
+        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                    "launches": launches[name], "max_abs_err": err[name], "matches_plain": True,
+                    "shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound"]["ms"], "bound_by": r["bound"]["by"],
+                    "library_ms": None, "launches_by_stage": {st: v[name] for st, v in
+                                                              s["launches"].items()},
+                    "wrapper_ms": r["wrapper_ms"],
+                    **({k: {kk: {"ms": vv["ms"], "plain_ms": vv["plain_ms"],
+                                 "bound_ms": vv["bound"]["ms"]} for kk, vv in r[k].items()}
+                        for k in ("by_op", "by_shape") if k in r})})
+    return out
 
 
 def main() -> int:
@@ -810,9 +1154,10 @@ def main() -> int:
     if census is None:
         say("SASS census: cuobjdump not found")
     else:
+        unit = {"agg_sig": "per signer", "merkle_level": "per pair"}
         for name, c in census.items():
-            say(f"SASS {name}: per {'signer' if name == 'agg_sig' else 'pair'} "
-                f"{json.dumps(c['body'])}; whole kernel {json.dumps(c['total'])}")
+            say(f"SASS {name}: {unit.get(name, 'whole kernel')} {json.dumps(c['body'])}; "
+                f"whole kernel {json.dumps(c['total'])}")
         signers = int(bits.sum())
         for name, units, measured in (("agg_sig", signers, k1_ms),
                                       ("merkle_level", K2_LARGEST, k2[K2_LARGEST]["ms"]),
@@ -821,6 +1166,8 @@ def main() -> int:
             say(f"[{card}] {name} at {units} units: measured {measured:.4f} ms; bounds "
                 + ", ".join(f"{k} {v:.4f}" for k, v in b.items())
                 + f"; measured / int_pipe {b['int_pipe_ms'] / measured:.3f}")
+
+    field_rows = bls_phases(dev, card, census)
 
     big = k2[K2_LARGEST]
     say(card)
@@ -838,7 +1185,7 @@ def main() -> int:
         "wrapper_ms": big["wrapper_ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound"]["ms"], "bound_by": big["bound"]["by"], "library_ms": None,
         "ms_1048576": k2[N_MAINNET]["ms"], "full_build_ms": builds[-1][0],
-        "update_ms": updates[-1][0], "dense_launches": digest_k2}]}))
+        "update_ms": updates[-1][0], "dense_launches": digest_k2}, *field_rows]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

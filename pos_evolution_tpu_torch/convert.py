@@ -7,7 +7,9 @@ NamedTuples of tensors on ``device``:
 CUDA unless the caller asks for another, raising without it (see
 ``device.resolve_device``). ``to_numpy`` takes them back to numpy. uint32
 word arrays become int32 bit-pattern tensors (see ``device.py``), uint64
-columns int64 bit patterns, and 32-byte chunk rows (N, 8) words.
+columns int64 bit patterns, and 32-byte chunk rows (N, 8) words. BLS12-381
+field elements and points travel as int32 [..., 32] base-2^12 digits in
+both packages (``limbs_to_torch`` / ``limbs_to_numpy``).
 """
 
 from __future__ import annotations
@@ -75,6 +77,21 @@ def chunks_to_torch(rows, device="cuda") -> torch.Tensor:
     converted there."""
     rows = np.array(rows, dtype=np.uint8, copy=True).reshape(-1, 32)
     return rows_to_words(torch.from_numpy(rows).to(resolve_device(device)))
+
+
+def limbs_to_torch(a, device="cuda") -> torch.Tensor:
+    """int32 [..., 32] base-field digit arrays (the JAX package's
+    ``pairing.g1_affine_encode``/``g2_affine_encode`` outputs, its pk
+    tables, its tower elements) -> an int32 tensor on ``device``."""
+    a = np.asarray(a)
+    if a.dtype != np.int32 or a.ndim == 0 or a.shape[-1] != 32:
+        raise ValueError(f"limbs must be int32 [..., 32], got {a.dtype} {a.shape}")
+    return torch.from_numpy(np.array(a, copy=True)).to(resolve_device(device))
+
+
+def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """The port's digit tensors -> int32 numpy, the JAX package's layout."""
+    return t.detach().cpu().numpy()
 
 
 def to_numpy(x):

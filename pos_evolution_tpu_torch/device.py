@@ -34,6 +34,21 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+def card_line(dev: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them
+    (``"cpu"`` for the CPU), for the JSON line of an entry point."""
+    if dev.type != "cuda":
+        return "cpu"
+    import subprocess
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True).stdout
+        return out.strip().splitlines()[dev.index or 0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return f"{torch.cuda.get_device_name(dev)}, power limit not read"
+
+
 def u32(x: torch.Tensor) -> torch.Tensor:
     """Words of any integer dtype -> int64 values in [0, 2^32)."""
     return x.to(torch.int64) & MASK32

@@ -33,6 +33,11 @@ KERNELS = {
                 [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]),
     "merkle_level": ("merkle_level.cu", "merkle_level_launch",
                      [_P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, ctypes.c_int, _P]),
+    "fp_modmul": ("fp_modmul.cu", "fp_modmul_launch", [_P, _P, _P, ctypes.c_int, _P]),
+    "fp_addsub": ("fp_addsub.cu", "fp_addsub_launch",
+                  [_P, _P, ctypes.c_int, _P, ctypes.c_int, _P]),
+    "alg_mul": ("alg_mul.cu", "alg_mul_launch",
+                [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
 }
 
 launches = {name: 0 for name in KERNELS}

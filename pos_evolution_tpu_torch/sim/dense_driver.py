@@ -60,7 +60,7 @@ import torch
 
 from pos_evolution_tpu_torch.config import Config, mainnet_config
 from pos_evolution_tpu_torch.convert import to_numpy
-from pos_evolution_tpu_torch.device import resolve_device, words_to_torch
+from pos_evolution_tpu_torch.device import card_line, resolve_device, words_to_torch
 from pos_evolution_tpu_torch.ops.aggregation import (
     aggregate_signatures_batch,
     aggregate_verify_batch,
@@ -997,20 +997,6 @@ class DenseSimulation:
         raise _not_ported("resume_latest", "item 7, the tooling")
 
 
-def _card(dev: torch.device) -> str:
-    """The card's name and power limit as ``nvidia-smi`` gives them."""
-    if dev.type != "cuda":
-        return "cpu"
-    import subprocess
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True).stdout
-        return out.strip().splitlines()[dev.index or 0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return f"{torch.cuda.get_device_name(dev)}, power limit not read"
-
-
 def main(argv=None) -> None:
     from pos_evolution_tpu_torch.resilience import state_digest
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1039,7 +1025,7 @@ def main(argv=None) -> None:
     out = sim.summary()
     out.update(state_digest=state_digest(sim), setup_seconds=t1 - t0,
                run_seconds=t2 - t1, seconds_per_epoch=(t2 - t1) * sim.S / sim.slot,
-               device=_card(dev))
+               device=card_line(dev))
     print(json.dumps(out))
 
 

@@ -10,7 +10,7 @@ torch = pytest.importorskip("torch")
 
 from pos_evolution_tpu_torch.device import words_to_torch  # noqa: E402
 from pos_evolution_tpu_torch.epoch import build_epoch_inputs, run_epoch  # noqa: E402
-from pos_evolution_tpu_torch.ops import kernels  # noqa: E402
+from pos_evolution_tpu_torch.ops import fp, kernels, tower  # noqa: E402
 from pos_evolution_tpu_torch.ops.aggregation import (  # noqa: E402
     _committee_aggregates,
     committee_aggregates,
@@ -157,5 +157,101 @@ def test_small_dense_run_card_equals_cpu(cuda):
         runs.append((sim.metrics, sim.summary(), state_digest(sim), dict(kernels.launches)))
     (m_cpu, s_cpu, d_cpu, l_cpu), (m_dev, s_dev, d_dev, l_dev) = runs
     assert (m_dev, s_dev, d_dev) == (m_cpu, s_cpu, d_cpu)
-    assert l_cpu == {"agg_sig": 0, "merkle_level": 0}
+    assert not any(l_cpu.values())
     assert l_dev["agg_sig"] == 2 * 8 and l_dev["merkle_level"] > 0
+
+
+# --- K3-K5: the field kernels ---------------------------------------------------
+
+_EDGES = [0, 1, fp.P_INT - 1, fp.P_INT, 2 * fp.P_INT - 1]
+
+
+def _field(shape, seed, top=2 * fp.P_INT, edges=True):
+    """int32 digits [*shape, 32] of seeded values in [0, top), the edge
+    values 0, 1, p-1, p, 2p-1 in the first rows."""
+    rng = np.random.default_rng(seed)
+    flat = [int.from_bytes(rng.bytes(49), "big") % top for _ in range(int(np.prod(shape)))]
+    if edges:
+        flat[:len(_EDGES)] = _EDGES[:len(flat)]
+    return torch.from_numpy(np.stack([fp.to_limbs(v) for v in flat]).reshape(*shape, fp.L))
+
+
+@pytest.mark.parametrize("sa,sb", [((5, 7), (5, 7)), ((300,), (300,)), ((4, 1, 3), (1, 6, 3)),
+                                   ((9, 2), (2,)), ((1,), (1,))])
+@pytest.mark.parametrize("top", [2 * fp.P_INT, 2**384])
+def test_k3_matches_plain(cuda, sa, sb, top):
+    """K3 on broadcast shapes, lazy residues and any canonical digits."""
+    a, b = _field(sa, 1, top).to(cuda), _field(sb, 2, top).to(cuda)
+    before = kernels.launches["fp_modmul"]
+    got = fp.modmul(a, b)
+    torch.cuda.synchronize()
+    assert kernels.launches["fp_modmul"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == torch.broadcast_shapes(a.shape, b.shape)
+    assert torch.equal(got, fp._modmul(a, b))
+    assert torch.equal(got.cpu(), fp._modmul(a.cpu(), b.cpu()))
+
+
+@pytest.mark.parametrize("op", ["modadd", "modsub", "modneg", "canon"])
+@pytest.mark.parametrize("top", [2 * fp.P_INT, 2**384])
+def test_k4_matches_plain(cuda, op, top):
+    a, b = _field((67, 3), 3, top).to(cuda), _field((3,), 4, top).to(cuda)
+    args = (a, b) if op in ("modadd", "modsub") else (a,)
+    before = kernels.launches["fp_addsub"]
+    got = getattr(fp, op)(*args)
+    torch.cuda.synchronize()
+    assert kernels.launches["fp_addsub"] == before + 1
+    assert torch.equal(got, getattr(fp, "_" + op)(*args))
+    assert torch.equal(got.cpu(), getattr(fp, "_" + op)(*(t.cpu() for t in args)))
+
+
+@pytest.mark.parametrize("d,slots", [(2, None), (6, None), (12, None),
+                                     (12, (0, 1, 2, 3, 8, 9))])
+@pytest.mark.parametrize("n", [1, 33, 257])
+def test_k5_matches_plain(cuda, d, slots, n):
+    dy = d if slots is None else len(slots)
+    x, y = _field((n, d), 5 * d + n).to(cuda), _field((n, dy), 6 * d + n).to(cuda)
+    before = kernels.launches["alg_mul"]
+    got = tower.alg_mul(x, y, slots)
+    torch.cuda.synchronize()
+    assert kernels.launches["alg_mul"] == before + 1
+    assert torch.equal(got, tower._alg_mul(x, y, slots))
+    assert torch.equal(got.cpu(), tower._alg_mul(x.cpu(), y.cpu(), slots))
+
+
+def test_k5_broadcast_operand(cuda):
+    """A constant right operand broadcast over the batch (the Frobenius
+    gammas, the eighth roots)."""
+    x, g = _field((40, 6, 2), 7).to(cuda), _field((6, 2), 8).to(cuda)
+    got = tower.alg_mul(x, g.expand(x.shape))
+    assert torch.equal(got, tower._alg_mul(x, g.expand(x.shape)))
+
+
+def test_field_kernels_empty_and_plain_mode(cuda):
+    a = _field((4,), 9).to(cuda)
+    before = dict(kernels.launches)
+    assert fp.modmul(a[:0], a[:0]).shape == (0, fp.L)
+    with fp.plain_mode():
+        assert torch.equal(fp.modmul(a, a), fp._modmul(a, a))
+        assert torch.equal(fp.modsub(a, a.flip(0)), fp._modsub(a, a.flip(0)))
+        x = a[:2].reshape(1, 2, fp.L)
+        assert torch.equal(tower.alg_mul(x, x), tower._alg_mul(x, x))
+    assert kernels.launches == before
+
+
+def test_small_verify_card_equals_cpu_and_plain(cuda):
+    """fast_aggregate_verify_batch at B = 2 on the card (K3-K5) equals the
+    plain=True run on the card and the CPU run, stage by stage."""
+    from pos_evolution_tpu_torch.bls_verify import build_inputs, oracle_tensors
+    from pos_evolution_tpu_torch.ops.pairing import fast_aggregate_verify_batch
+    inputs = build_inputs(2, 4, distinct_keys=2, seed=5)
+    runs = {}
+    for name, dev, plain in (("kernel", cuda, False), ("plain", cuda, True), ("cpu", "cpu", False)):
+        stages = {}
+        ok = fast_aggregate_verify_batch(*oracle_tensors(inputs, dev), plain=plain,
+                                         stages=stages)
+        runs[name] = (ok.cpu(), {k: v.cpu() for k, v in stages.items()})
+    for name in ("plain", "cpu"):
+        assert torch.equal(runs[name][0], runs["kernel"][0])
+        for k, v in runs["kernel"][1].items():
+            assert torch.equal(runs[name][1][k], v), (name, k)
+    assert runs["kernel"][0].tolist() == [True, True]

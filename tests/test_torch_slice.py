@@ -118,9 +118,17 @@ def test_default_device_raises_without_cuda():
     for carry, arg in ((convert.registry_to_torch, inp.registry),
                        (convert.store_to_torch, inp.store),
                        (convert.pk_states_to_torch, np.zeros((4, 8), np.uint32)),
-                       (words_to_torch, inp.msg_words)):
+                       (words_to_torch, inp.msg_words),
+                       (convert.limbs_to_torch, np.zeros((2, 32), np.int32))):
         with pytest.raises(RuntimeError, match="CUDA"):
             carry(arg)
+    from pos_evolution_tpu_torch import bls_verify
+    from pos_evolution_tpu_torch.ops.g2prep import hash_to_g2_batch
+    bls = bls_verify.build_inputs(2, 4, distinct_keys=2, seed=1)
+    for call in (lambda: bls_verify.run(bls), lambda: bls_verify.oracle_tensors(bls),
+                 lambda: hash_to_g2_batch([b"m"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 _BLOCKER = textwrap.dedent("""
@@ -163,8 +171,9 @@ def test_blocker_blocks_only_whole_names():
 
 def test_port_runs_with_jax_blocked():
     """Every module of the port imports, and a tiny epoch, its state
-    roots and a faulted dense simulation with its checkpoint and state
-    digest run on the CPU, with jax and pos_evolution_tpu impossible to
+    roots, a faulted dense simulation with its checkpoint and state
+    digest, and the BLS slice's key decompression and a tower multiply
+    run on the CPU, with jax and pos_evolution_tpu impossible to
     import."""
     proc = _run_blocked("""
         import pkgutil, importlib
@@ -192,6 +201,16 @@ def test_port_runs_with_jax_blocked():
         resumed = DenseSimulation.resume(sim.checkpoint(), device="cpu")
         assert state_digest(resumed) == state_digest(sim)
         assert sim.summary()["resident_head_equals_spec_walk"]
+        import numpy as np, torch
+        from pos_evolution_tpu_torch import bls_verify
+        from pos_evolution_tpu_torch.crypto import bls12_381 as oracle
+        from pos_evolution_tpu_torch.ops import fp, g2prep, tower
+        bls = bls_verify.build_inputs(2, 4, distinct_keys=2, seed=1)
+        xs, signs = bls_verify._pk_limbs(bls.pk_comp)
+        pk, ok = g2prep.g1_decompress_batch(torch.from_numpy(xs), torch.from_numpy(signs))
+        assert bool(ok.all()) and fp.from_limbs(pk[0, 1]) == oracle.g1_decompress(bls.pk_comp[0])[1]
+        x = pk[:, :, None, :].expand(2, 2, 6, 32).reshape(2, 12, 32)
+        assert tower.alg_mul(x, x).shape == (2, 12, 32)
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
         print("ran", out.heads.tolist())
