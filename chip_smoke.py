@@ -53,8 +53,10 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     (``csrc/fp_addsub.cu``) and K5 (``csrc/alg_mul.cu``) against their
     plain versions at the BLS path's shapes, digit for digit: K3 on the
     4096 x 144 products of an Fq12 multiply over the doubled Miller batch
-    and on edge values, K4's four ops at [4096, 12, 32], K5 for d = 2, 6,
-    12 and the sparse line plan at 4096 lanes;
+    and on edge values, every registered K4 tape over 4096 lanes (the
+    single ops at [4096, 12, 32]), K5 for d = 2, 6, 12 and the sparse line
+    plan at 4096 lanes and for the 9 Fq2 squarings of a cyclotomic
+    squaring;
 16. drive the fourth slice's path once -- ``bls_verify.run`` at 2048
     aggregates over 262,144 signers (BASELINE config 3): setup, signature
     decompression, hash-to-G2, the batched pairing and the swapped-pair
@@ -64,10 +66,14 @@ Phases, in order; any mismatch or exception ends the run non-zero:
 17. hold that path at B = 2: the ``plain=True`` run on the card and the
     CPU run equal the kernel run in the aggregate keys, Miller values,
     final exponentiation and verdicts; 8 aggregates' hashed messages and
-    verdicts equal the port's oracle copy;
+    verdicts equal the port's oracle copy; the field launches and other
+    aten ops of each verify stage at B = 2;
 18. time K3-K5 per launch at the path's shapes against their plain
-    versions and bounds, and the pairing stage under ``torch.profiler``;
-19. the integer bounds of K3 and K4 from their SASS counts.
+    versions and bounds (every K4 tape against the bytes of its rows, by
+    CUDA events and by ``torch.profiler``), the wrappers' calls, and the
+    pairing stage under ``torch.profiler``;
+19. the integer bound of K3 from its SASS count, and the SASS census of
+    K4 and K5.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and
@@ -108,7 +114,7 @@ from pos_evolution_tpu_torch.epoch import (  # noqa: E402
     load_inputs,
     run_epoch,
 )
-from pos_evolution_tpu_torch.ops import fp, kernels, tower  # noqa: E402
+from pos_evolution_tpu_torch.ops import fp, g2prep, kernels, tower  # noqa: E402
 from pos_evolution_tpu_torch.ops.aggregation import (  # noqa: E402
     _committee_aggregates,
     aggregate_signatures_batch,
@@ -203,8 +209,7 @@ PP_MODMUL = 144 + 169 + 78
 IMUL_PER_S = H100_SMS * 64 * H100_CLOCK_HZ
 # (d, sparse slots) of K5's calls on the path: Fq2, Fq6, Fq12 and the line
 ALG_SHAPES = ((2, None), (6, None), (12, None), (12, (0, 1, 2, 3, 8, 9)))
-ADDSUB_OPS = {"modadd": fp.OP_ADD, "modsub": fp.OP_SUB, "modneg": fp.OP_NEG,   # K4's op codes
-              "canon": fp.OP_CANON}
+ADDSUB_OPS = ("modadd", "modsub", "modneg", "canon")     # K4's one-step tapes
 
 
 def say(*parts):
@@ -397,6 +402,14 @@ def profiled(fn) -> dict:
     return {"wall_ms": wall, "busy_ms": busy / 1e3, "k1_ms": per["agg_sig"] / 1e3,
             "k2_ms": per["merkle_level"] / 1e3,
             "kernel_ms": {name: us / 1e3 for name, us in per.items()}}
+
+
+def device_ms(fn, kernel: str, reps: int):
+    """Mean device ms per launch of ``kernel`` over ``reps`` calls of ``fn``
+    under ``torch.profiler`` (its kernel time, not the host's); None where
+    the profiler recorded no time for the kernel."""
+    ms = profiled(lambda: [fn() for _ in range(reps)])["kernel_ms"][kernel]
+    return ms / reps if ms > 0 else None
 
 
 def sync_count(fn) -> int:
@@ -608,13 +621,17 @@ def bls_phases(dev, card: str, census) -> list:
                   f"K3 edge product {i} x {j} is wrong")
     del got, ref
     shape4 = (BLS_LANES, 12)
-    a4, b4 = field_digits(rng, shape4).to(dev), field_digits(rng, shape4).to(dev)
+    tape_in = {}
     err["fp_addsub"] = 0
-    for op in ADDSUB_OPS:
-        args = (a4, b4) if op in ("modadd", "modsub") else (a4,)
-        got, ref = getattr(fp, op)(*args), getattr(fp, "_" + op)(*args)
-        err["fp_addsub"] = max(err["fp_addsub"], digit_err(got, ref))
-        check(torch.equal(got, ref), f"K4 {op} differs from its plain version at {shape4}")
+    for name, tape in sorted(fp.TAPES.items()):
+        lanes = shape4 if name in ADDSUB_OPS else (BLS_LANES,)
+        args = [field_digits(rng, lanes + sh).to(dev) for sh in tape.in_shapes]
+        tape_in[name] = args
+        got, ref = fp.run_tape(tape, *args), fp._run_tape(tape, *args)
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        for g, r in zip(got, ref, strict=True):
+            err["fp_addsub"] = max(err["fp_addsub"], digit_err(g, r))
+            check(torch.equal(g, r), f"K4 tape {name} differs from its plain version at {lanes}")
     alg_in = {}
     err["alg_mul"] = 0
     for d, slots in ALG_SHAPES:
@@ -624,11 +641,16 @@ def bls_phases(dev, card: str, census) -> list:
         got, ref = tower.alg_mul(x, y, slots), tower._alg_mul(x, y, slots)
         err["alg_mul"] = max(err["alg_mul"], digit_err(got, ref))
         check(torch.equal(got, ref), f"K5 differs from its plain version at d={d} slots={slots}")
-    del got, ref
+    sq9 = fp.run_tape(fp.TAPES["fq12_cyclotomic_pre"], field_digits(rng, (BLS_LANES, 12)).to(dev))
+    got, ref = tower.alg_mul(sq9, sq9), tower._alg_mul(sq9, sq9)
+    err["alg_mul"] = max(err["alg_mul"], digit_err(got, ref))
+    check(torch.equal(got, ref), "K5 differs from its plain version on a cyclotomic squaring's 9")
+    del got, ref, sq9
     torch.cuda.empty_cache()
     say(f"K3 vs plain at {shape3[0]} x {shape3[1]} products and {len(edge_vals)}^2 broadcast "
-        f"edge pairs (values checked mod p); K4 {', '.join(ADDSUB_OPS)} at {list(shape4)}; K5 "
-        f"at {BLS_LANES} lanes for d = 2, 6, 12 and the line plan: digit-equal "
+        f"edge pairs (values checked mod p); K4's {len(tape_in)} tapes ({', '.join(ADDSUB_OPS)} "
+        f"at {list(shape4)}, the rest at {BLS_LANES} lanes); K5 at {BLS_LANES} lanes for d = 2, "
+        f"6, 12 and the line plan, and {BLS_LANES} x 9 Fq2 squarings: digit-equal "
         f"(max abs digit error {err})")
 
     # 16. the BLS path, counted
@@ -684,6 +706,22 @@ def bls_phases(dev, card: str, census) -> list:
         f"{runs['kernel']['ops']} other ops (counted, so slower); plain run on the card "
         f"{runs['plain']['s']:.3f} s, {runs['cpu']['ops']} ops (counted in the CPU run, "
         f"{runs['cpu']['s']:.3f} s)")
+    sig_x, sig_sign, _, _ = g2prep.g2_compressed_to_limbs(
+        bls_verify._compress(t.sig_g2[:BLS_SMALL]))
+    cand, _ = g2prep.hash_to_g2_candidates(inputs.messages[:BLS_SMALL])
+    stage_ops = {}
+    for stage, fn in (
+            ("sig_decompress", lambda: g2prep.g2_decompress_batch(
+                torch.from_numpy(sig_x).to(dev), torch.from_numpy(sig_sign).to(dev))),
+            ("hash_finish", lambda: g2prep.hash_to_g2_finish(torch.from_numpy(cand).to(dev))),
+            ("pairing", lambda: fast_aggregate_verify_batch(*(x.to(dev) for x in small)))):
+        before = dict(kernels.launches)
+        with torch.inference_mode(), OpCount() as counter:
+            fn()
+        stage_ops[stage] = {**{k: kernels.launches[k] - before[k] for k in FIELD_KERNELS},
+                            "aten_ops": counter.ops}
+    say(f"[{card}] BLS verify stages at B={BLS_SMALL}, field-kernel launches and aten ops "
+        f"(one per new tensor, the wrappers' outputs included): {json.dumps(stage_ops)}")
     sig_bytes = bls_verify._compress(t.sig_g2[:BLS_ORACLE])
     k = len(inputs.pk_comp)
     jobs = [([inputs.pk_comp[int(v) % k] for v, b in zip(inputs.committees[i], inputs.bits[i]) if b],
@@ -722,42 +760,54 @@ def bls_phases(dev, card: str, census) -> list:
     rows["fp_modmul"] = dict(by_shape[f"{BLS_LANES}x144"], shape=list(shape3),
                              wrapper_ms=time_ms(lambda: fp.modmul(a3, b3), 20),
                              by_shape=by_shape)
-    n4 = BLS_LANES * 12
-    out4 = torch.empty_like(a4)
-    by_op = {}
-    for op, code in ADDSUB_OPS.items():
-        binary = op in ("modadd", "modsub")
-        other = b4 if binary else a4
-        args = (a4, b4) if binary else (a4,)
-        by_op[op] = {
-            "ms": time_ms(lambda: kernels.launch("fp_addsub", a4.data_ptr(), other.data_ptr(), code,
-                                                 out4.data_ptr(), n4, stream), 20),
-            "plain_ms": time_ms(lambda: getattr(fp, "_" + op)(*args), 5),
-            # two passes of 12-word carry chains, ~2 instructions a word
-            "bound": field_bound((3 if binary else 2) * FQ_BYTES * n4, 0, 48 * n4)}
-    rows["fp_addsub"] = dict(by_op["modadd"], shape=list(shape4), by_op=by_op,
+    by_tape, raw, kept = {}, {}, []
+    for name, args in tape_in.items():
+        tape = fp.TAPES[name]
+        _, (largs, keep) = fp._tape_launch(tape, args)
+        kept.append(keep)                    # any input copies the raw launches read
+        n = largs[-1]
+        raw[name] = lambda largs=largs: kernels.launch("fp_addsub", *largs, stream)
+        by_tape[name] = {
+            "lanes": n, "rows": len(tape.rows) + sum(tape.out_rows), "steps": len(tape.steps),
+            "ms": time_ms(raw[name], 20),
+            "wrapper_ms": time_ms(lambda: fp.run_tape(tape, *args), 20),
+            "bound": field_bound((len(tape.rows) + sum(tape.out_rows)) * FQ_BYTES * n, 0)}
+        if name in ADDSUB_OPS:
+            plain = getattr(fp, "_" + name)
+            by_tape[name]["plain_ms"] = time_ms(lambda: plain(*args), 5)
+    for name, fn in raw.items():
+        by_tape[name]["device_ms"] = device_ms(fn, "fp_addsub", 10)
+    a4, b4 = tape_in["modadd"]
+    rows["fp_addsub"] = dict(by_tape["modadd"], shape=list(shape4), by_tape=by_tape,
                              wrapper_ms=time_ms(lambda: fp.modadd(a4, b4), 20))
     by_shape = {}
     for (d, slots), (x, y) in alg_in.items():
-        coef, m = tower._device_plan(d, slots, dev)
         dy = y.shape[-2]
         out5 = torch.empty_like(x)
+        q = tower._PLAN_ID[d, slots]
         by_shape[f"d{d}" + ("_line" if slots else "")] = {
-            "ms": time_ms(lambda: kernels.launch("alg_mul", x.data_ptr(), y.data_ptr(),
-                                                 coef.data_ptr(), out5.data_ptr(), BLS_LANES,
-                                                 d, dy, m, stream), 20),
+            "ms": time_ms(lambda: kernels.launch("alg_mul", x.data_ptr(), d * fp.L, y.data_ptr(),
+                                                 dy * fp.L, out5.data_ptr(), BLS_LANES, q,
+                                                 stream), 20),
             "plain_ms": time_ms(lambda: tower._alg_mul(x, y, slots), 2),
+            "wrapper_ms": time_ms(lambda: tower.alg_mul(x, y, slots), 20),
             "bound": field_bound((2 * d + dy) * FQ_BYTES * BLS_LANES,
                                  alg_mul_partial_products(d, slots) * BLS_LANES)}
+    for key, ((d, slots), (x, y)) in zip(by_shape, alg_in.items()):
+        by_shape[key]["device_ms"] = device_ms(lambda: tower.alg_mul(x, y, slots), "alg_mul", 10)
     x, y = alg_in[12, None]
     rows["alg_mul"] = dict(by_shape["d12"], shape=[BLS_LANES, 12], by_shape=by_shape,
                            wrapper_ms=time_ms(lambda: tower.alg_mul(x, y), 20))
     for name, r in rows.items():
-        extra = r.get("by_op") or r["by_shape"]
-        say(f"[{card}] {name} per launch: " + "; ".join(
-            f"{k} kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound "
-            f"{v['bound']['ms']:.4f} ms ({v['bound']['by']}), {100 * v['bound']['ms'] / v['ms']:.1f}%"
-            f" of it" for k, v in extra.items()))
+        extra = r.get("by_tape") or r["by_shape"]
+        say(f"[{card}] {name} per launch (CUDA events over 20; device_ms by torch.profiler): "
+            + "; ".join(
+                f"{k} kernel {v['ms']:.4f} ms, device {v.get('device_ms') or float('nan'):.4f} ms, "
+                f"wrapper {v.get('wrapper_ms', float('nan')):.4f} ms, plain "
+                f"{v.get('plain_ms', float('nan')):.4f} ms, bound {v['bound']['ms']:.4f} ms "
+                f"({v['bound']['by']}), {100 * v['bound']['ms'] / v['ms']:.1f}% of it"
+                + (f", {v['lanes']} lanes x {v['rows']} rows, {v['steps']} steps" if "rows" in v
+                   else "") for k, v in extra.items()))
     torch.cuda.empty_cache()
     with torch.inference_mode():
         prof = profiled(lambda: fast_aggregate_verify_batch(*t))
@@ -770,15 +820,16 @@ def bls_phases(dev, card: str, census) -> list:
         f"{s['pairing_s']:.3f}); {s['aggregates_per_s']:.3f} aggregates/s, "
         f"{s['attestations_per_s']:.1f} attestations/s")
 
-    # 19. the SASS census's bounds for K3 (straight-line, one element a thread)
-    # and K4 (its four op branches together: over the count of any one op)
+    # 19. the SASS census's bounds for K3 (straight-line, one element a thread),
+    # and the census of K4 (a tape interpreter) and K5
     if census is not None:
-        for name, units, measured in (("fp_modmul", n3, rows["fp_modmul"]["ms"]),
-                                      ("fp_addsub", n4, rows["fp_addsub"]["ms"])):
-            b = sass_bounds(census[name]["body"], units)
-            say(f"[{card}] {name} at {units} elements: measured {measured:.4f} ms; bounds "
-                + ", ".join(f"{k} {v:.4f}" for k, v in b.items())
-                + f"; imad / measured {b['imad_ms'] / measured:.3f}")
+        b = sass_bounds(census["fp_modmul"]["body"], n3)
+        measured = rows["fp_modmul"]["ms"]
+        say(f"[{card}] fp_modmul at {n3} elements: measured {measured:.4f} ms; bounds "
+            + ", ".join(f"{k} {v:.4f}" for k, v in b.items())
+            + f"; imad / measured {b['imad_ms'] / measured:.3f}")
+        for name in ("fp_addsub", "alg_mul"):
+            say(f"SASS {name} (whole kernel): {json.dumps(census[name]['total'])}")
 
     out = []
     for name, r in rows.items():
@@ -790,9 +841,11 @@ def bls_phases(dev, card: str, census) -> list:
                     "library_ms": None, "launches_by_stage": {st: v[name] for st, v in
                                                               s["launches"].items()},
                     "wrapper_ms": r["wrapper_ms"],
-                    **({k: {kk: {"ms": vv["ms"], "plain_ms": vv["plain_ms"],
+                    **({k: {kk: {"ms": vv["ms"], "device_ms": vv.get("device_ms"),
+                                 "plain_ms": vv.get("plain_ms"),
+                                 "wrapper_ms": vv.get("wrapper_ms"),
                                  "bound_ms": vv["bound"]["ms"]} for kk, vv in r[k].items()}
-                        for k in ("by_op", "by_shape") if k in r})})
+                        for k in ("by_tape", "by_shape") if k in r})})
     return out
 
 
@@ -814,6 +867,10 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"ptxas {name}: {line.strip()}")
+    for name in ("fp_addsub", "alg_mul"):         # the redesigned field kernels: no spills
+        spills = [line for line in reports[name].splitlines() if "spill" in line]
+        check(spills and all("0 bytes spill stores, 0 bytes spill loads" in line
+                             for line in spills), f"{name} spills registers: {spills}")
 
     # 2. K1 against its plain version at the main path's shapes
     inputs = build_epoch_inputs(N_MAINNET, seed=0)

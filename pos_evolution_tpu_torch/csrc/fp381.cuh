@@ -92,6 +92,29 @@ __device__ __forceinline__ void store(const uint32_t* w, int32_t* __restrict__ d
     o[k] = make_uint4(d[4 * k], d[4 * k + 1], d[4 * k + 2], d[4 * k + 3]);
 }
 
+// One element's digits from a row staged in shared memory (8 uint4).
+__device__ __forceinline__ void unstage(const uint4* row, uint32_t* w) {
+  uint32_t d[kDigits];
+#pragma unroll
+  for (int k = 0; k < kDigits / 4; ++k) {
+    const uint4 v = row[k];
+    d[4 * k] = v.x;
+    d[4 * k + 1] = v.y;
+    d[4 * k + 2] = v.z;
+    d[4 * k + 3] = v.w;
+  }
+  digits_to_words(d, w);
+}
+
+// One element's words to a staged row of digits in shared memory.
+__device__ __forceinline__ void stage(const uint32_t* w, uint4* row) {
+  uint32_t d[kDigits];
+  words_to_digits(w, d);
+#pragma unroll
+  for (int k = 0; k < kDigits / 4; ++k)
+    row[k] = make_uint4(d[4 * k], d[4 * k + 1], d[4 * k + 2], d[4 * k + 3]);
+}
+
 // r[0, NA+NB) = a * b, schoolbook by rows; t = a*b + r + c never exceeds 2^64 - 1.
 template <int NA, int NB>
 __device__ __forceinline__ void mul_full(const uint32_t* a, const uint32_t* b, uint32_t* r) {

@@ -16,7 +16,8 @@ come back as int32 (``sum`` is asked for int32 outright).
 
 The wrappers pick by the tensor's device. CUDA tensors go to the kernels,
 written by hand for Hopper (``csrc/fp_modmul.cu`` for ``modmul``,
-``csrc/fp_addsub.cu`` for ``modadd``/``modsub``/``modneg``/``canon``);
+``csrc/fp_addsub.cu`` for tapes of adds and subtracts, ``run_tape``, of
+which ``modadd``/``modsub``/``modneg``/``canon`` are one-step tapes);
 CPU tensors to the plain versions. Inside ``plain_mode()`` CUDA tensors
 take the plain versions too: the reference the kernels are held against.
 Nothing falls back: a kernel that fails to build or launch raises.
@@ -29,6 +30,10 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import ctypes
+import heapq
+import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -73,9 +78,6 @@ ONE = to_limbs(1)
 _P_MINUS_2_BITS = np.array(
     [(P_INT - 2) >> i & 1 for i in range(P_INT.bit_length())][::-1],
     dtype=bool)
-
-# K4's op codes (csrc/fp_addsub.cu)
-OP_ADD, OP_SUB, OP_NEG, OP_CANON = 0, 1, 2, 3
 
 
 # --- device, constants and the plain switch -------------------------------------
@@ -252,29 +254,354 @@ def _canon(a):
     return cond_sub(a, const(P, a.device))
 
 
-# --- K3 and K4 --------------------------------------------------------------------
+# --- K4: tapes of base-field adds and subtracts ------------------------------------
+#
+# A tape is a short static program run over every base-field lane: LOAD an
+# input row into a slot; ADD, SUB, NEG or CANON between slots, each exactly the
+# op of the plain versions above; STORE a slot to an output row. K4
+# (``csrc/fp_addsub.cu``) runs a whole tape in one launch, and ``_run_tape``
+# runs the same steps through ``_modadd``, ``_modsub``, ``_modneg`` and
+# ``_canon``. A fused caller's tape holds the same base-field ops on the same
+# operands as the code it replaces; each op is a pure function of its operands,
+# so the digits, lazy residues included, are the same.
+
+LOAD, ADD, SUB, NEG, CANON, STORE = range(6)
+TAPE_MAX_ROWS, TAPE_MAX_OUT_ROWS, TAPE_MAX_SLOTS, TAPE_MAX_STEPS = 32, 24, 8, 128
+_ARITY = {ADD: 2, SUB: 2, NEG: 1, CANON: 1}
+
+TAPES: dict = {}        # name -> Tape, every tape built so far (the path's are built at import)
+
+
+def _std_strides(dims: tuple) -> tuple:
+    out, acc = [], 1
+    for d in reversed(dims):
+        out.append(acc)
+        acc *= d
+    return tuple(reversed(out))
+
+
+@dataclass(frozen=True)
+class Tape:
+    """A K4 program. ``in_shapes`` and ``out_shapes`` give each input's and
+    output's component shape: () for a base-field tensor [..., 32], (2,)
+    for an Fq2 [..., 2, 32], (3, 2) for a twist point [..., 3, 2, 32].
+    ``rows``: (input, flat component) of each input row. ``steps``:
+    (op, dst, a, b), with LOAD slot dst <- row a; ADD and SUB dst <- a op b;
+    NEG and CANON dst <- op a; STORE output row dst <- slot a. Output rows
+    number the outputs' components in order."""
+    name: str
+    in_shapes: tuple
+    out_shapes: tuple
+    rows: tuple
+    steps: tuple
+
+    def __post_init__(self):
+        _validate(self)
+        set_ = object.__setattr__
+        set_(self, "in_dims", tuple(tuple(s) + (L,) for s in self.in_shapes))
+        set_(self, "in_std", tuple(_std_strides(d) for d in self.in_dims))
+        set_(self, "out_dims", tuple(tuple(s) + (L,) for s in self.out_shapes))
+        set_(self, "out_rows", tuple(math.prod(s) for s in self.out_shapes))
+        k = len(self.in_shapes)
+        out = [(k + j, c) for j, m in enumerate(self.out_rows) for c in range(m)]
+        # K4's program: (tensor, component) of each input row and output row, then the steps
+        set_(self, "prog", bytes(v for pair in (*self.rows, *out) for v in pair)
+             + bytes(v for step in self.steps for v in step))
+
+
+def _validate(t: Tape) -> None:
+    def bad(what):
+        raise ValueError(f"tape {t.name}: {what}")
+    if len(t.steps) > TAPE_MAX_STEPS:
+        bad(f"{len(t.steps)} steps, at most {TAPE_MAX_STEPS}")
+    if len(t.rows) > TAPE_MAX_ROWS:
+        bad(f"{len(t.rows)} input rows, at most {TAPE_MAX_ROWS}")
+    n_out = sum(math.prod(s) for s in t.out_shapes)
+    if not t.out_shapes or n_out > TAPE_MAX_OUT_ROWS:
+        bad(f"{n_out} output rows, 1 to {TAPE_MAX_OUT_ROWS}")
+    for i, c in t.rows:
+        if not (0 <= i < len(t.in_shapes) and 0 <= c < math.prod(t.in_shapes[i])):
+            bad(f"row ({i}, {c}) is no input component")
+    slot = range(TAPE_MAX_SLOTS)
+    written, stored = set(), set()
+    for op, dst, a, b in t.steps:
+        if op == LOAD:
+            if dst not in slot or not 0 <= a < len(t.rows):
+                bad(f"LOAD {dst} <- row {a}: at most {TAPE_MAX_SLOTS} slots, {len(t.rows)} rows")
+            written.add(dst)
+        elif op == STORE:
+            if not 0 <= dst < n_out or a not in written:
+                bad(f"STORE row {dst} <- slot {a}")
+            stored.add(dst)
+        elif op in _ARITY:
+            srcs = (a, b)[:_ARITY[op]]
+            if dst not in slot or any(s not in written for s in srcs):
+                bad(f"op {op} {dst} <- {srcs}: at most {TAPE_MAX_SLOTS} slots, sources written")
+            written.add(dst)
+        else:
+            bad(f"unknown op {op}")
+    if stored != set(range(n_out)):
+        bad(f"output rows {sorted(set(range(n_out)) - stored)} never stored")
+
+
+class _Sym:
+    """A value of a tape being traced: an input row, or an op's result."""
+    __slots__ = ("op", "args", "row")
+
+    def __init__(self, trace: list, op: int, args: tuple = (), row=None):
+        self.op, self.args, self.row = op, args, row
+        if op != LOAD:
+            trace.append(self)
+
+    def _new(self, op, *args):
+        return _Sym(_TRACE[-1], op, args)
+
+    def __add__(self, other):
+        return self._new(ADD, self, other)
+
+    def __sub__(self, other):
+        return self._new(SUB, self, other)
+
+    def __neg__(self):
+        return self._new(NEG, self)
+
+    def canon(self):
+        return self._new(CANON, self)
+
+
+_TRACE: list = []            # the trace of the tape being built
+
+
+def _sym_input(trace: list, i: int, shape: tuple):
+    """Input ``i``'s rows as nested lists of ``shape`` (one row for ())."""
+    syms = [_Sym(trace, LOAD, row=(i, c)) for c in range(math.prod(shape))]
+    for n in reversed(shape[1:]):
+        syms = [syms[k:k + n] for k in range(0, len(syms), n)]
+    return syms if shape else syms[0]
+
+
+def _flat(x) -> list:
+    return [x] if isinstance(x, _Sym) else [s for e in x for s in _flat(e)]
+
+
+def _schedule(name: str, trace: list, outs: list):
+    """(rows, steps) computing ``outs`` (output rows in order): the needed
+    ops in the order they were written, each input row loaded before its
+    first use, and a slot freed after its last read. Where all slots are
+    live, an input row not read by the step is dropped and loaded again at
+    its next use."""
+    needed, stack = set(), list(outs)
+    while stack:
+        s = stack.pop()
+        if id(s) not in needed:
+            needed.add(id(s))
+            stack.extend(s.args)
+    uses, store_at = {}, {}
+    for s in trace:
+        if id(s) in needed:
+            for a in s.args:
+                uses[id(a)] = uses.get(id(a), 0) + 1
+    for r, s in enumerate(outs):
+        uses[id(s)] = uses.get(id(s), 0) + 1
+        store_at.setdefault(id(s), []).append(r)
+    rows, row_index, steps = [], {}, []
+    live, free = {}, list(range(TAPE_MAX_SLOTS))     # live: id -> (sym, slot), oldest first
+
+    def alloc(keep):
+        if free:
+            return heapq.heappop(free)
+        for key, (sym, slot) in live.items():
+            if sym.op == LOAD and key not in keep:
+                del live[key]
+                return slot
+        raise ValueError(f"tape {name}: more than {TAPE_MAX_SLOTS} live slots")
+
+    def ensure(sym, keep):
+        if id(sym) not in live:
+            slot = alloc(keep)
+            r = row_index.setdefault(sym.row, len(rows))
+            if r == len(rows):
+                rows.append(sym.row)
+            steps.append((LOAD, slot, r, 0))
+            live[id(sym)] = (sym, slot)
+        return live[id(sym)][1]
+
+    def release(sym):
+        uses[id(sym)] -= 1
+        if uses[id(sym)] == 0 and id(sym) in live:
+            heapq.heappush(free, live.pop(id(sym))[1])
+
+    def store(sym, slot):
+        for r in store_at.get(id(sym), ()):
+            steps.append((STORE, r, slot, 0))
+            release(sym)
+
+    for s in dict.fromkeys(s for s in outs if s.op == LOAD):      # outputs that copy an input
+        store(s, ensure(s, ()))
+    for s in trace:
+        if id(s) not in needed:
+            continue
+        keep = {id(a) for a in s.args}
+        srcs = [ensure(a, keep) for a in s.args]
+        for a in s.args:
+            release(a)
+        dst = alloc(())
+        steps.append((s.op, dst, srcs[0], srcs[-1]))
+        live[id(s)] = (s, dst)
+        store(s, dst)
+    return tuple(rows), tuple(steps)
+
+
+def make_tape(name: str, in_shapes, out_shapes, fn) -> Tape:
+    """Trace ``fn`` on symbolic inputs of ``in_shapes`` (nested lists of
+    rows that take +, -, unary - and ``.canon()``) into a tape, and register
+    it under ``name``. ``fn`` returns one nested list per output shape (a
+    tuple of them where there are several outputs)."""
+    in_shapes = tuple(tuple(s) for s in in_shapes)
+    out_shapes = tuple(tuple(s) for s in out_shapes)
+    trace: list = []
+    _TRACE.append(trace)
+    try:
+        res = fn(*(_sym_input(trace, i, s) for i, s in enumerate(in_shapes)))
+    finally:
+        _TRACE.pop()
+    if len(out_shapes) == 1:
+        res = (res,)
+    outs = []
+    for shape, r in zip(out_shapes, res, strict=True):
+        flat = _flat(r)
+        if len(flat) != math.prod(shape):
+            raise ValueError(f"tape {name}: an output of shape {shape} has {len(flat)} rows")
+        outs += flat
+    rows, steps = _schedule(name, trace, outs)
+    tape = Tape(name, in_shapes, out_shapes, rows, steps)
+    if TAPES.get(name, tape) != tape:
+        raise ValueError(f"tape {name} is registered with other steps")
+    TAPES[name] = tape
+    return tape
+
+
+def _run_tape(tape: Tape, *inputs) -> torch.Tensor | tuple:
+    """Plain version of K4: the tape's steps through the plain ops."""
+    flat = [t if not s else t.flatten(-1 - len(s), -2) for t, s in zip(inputs, tape.in_shapes)]
+    rows = [flat[i] if not tape.in_shapes[i] else flat[i][..., c, :] for i, c in tape.rows]
+    slots, outs = [None] * TAPE_MAX_SLOTS, [None] * sum(tape.out_rows)
+    for op, dst, a, b in tape.steps:
+        if op == LOAD:
+            slots[dst] = rows[a]
+        elif op == STORE:
+            outs[dst] = slots[a]
+        elif op == ADD:
+            slots[dst] = _modadd(slots[a], slots[b])
+        elif op == SUB:
+            slots[dst] = _modsub(slots[a], slots[b])
+        elif op == NEG:
+            slots[dst] = _modneg(slots[a])
+        else:
+            slots[dst] = _canon(slots[a])
+    batch = torch.broadcast_shapes(*(t.shape[:t.dim() - len(d)]
+                                     for t, d in zip(inputs, tape.in_dims)))
+    results, k = [], 0
+    for dims, m in zip(tape.out_dims, tape.out_rows):
+        part = torch.stack([o.expand(batch + (L,)) for o in outs[k:k + m]], dim=-2)
+        results.append(part.reshape(batch + dims))
+        k += m
+    return results[0] if len(results) == 1 else tuple(results)
+
+
+def _batch_stride(batch, strides):
+    """The one element stride over the batch dims, or None where they do
+    not collapse to one (size-1 dims are skipped; a broadcast gives 0)."""
+    es, span = 0, None
+    for size, st in zip(reversed(batch), reversed(strides[:len(batch)])):
+        if size == 1:
+            continue
+        if span is None:
+            es = st
+        elif st != span:
+            return None
+        span = st * size
+    return es
+
+
+def element_rows(t: torch.Tensor, nb: int, std: tuple):
+    """(t, element stride): ``t`` read in place by one element stride over
+    its ``nb`` batch dims (0 where broadcast) where they collapse to one
+    and its trailing dims have the packed strides ``std``, 16-byte aligned;
+    else a contiguous copy."""
+    st = t.stride()
+    es = (st[0] if t.shape[0] > 1 else 0) if nb == 1 else _batch_stride(t.shape[:nb], st)
+    if es is None or es % 4 or st[nb:] != std or t.data_ptr() % 16:
+        t = t.clone(memory_format=torch.contiguous_format)
+        es = math.prod(t.shape[nb:])
+    return t, es
+
+
+def _tape_launch(tape: Tape, inputs):
+    """(outputs, the arguments of K4's launch or None where there are no
+    lanes): one row pointer and element stride per input row, read in place
+    where the batch dims collapse to one stride (0 broadcasts), a copy
+    otherwise; the outputs fresh and contiguous. The arguments keep the
+    copies alive."""
+    dev = inputs[0].device
+    shapes = []
+    for t, dims in zip(inputs, tape.in_dims):
+        sh = t.shape
+        nb = len(sh) - len(dims)
+        if nb < 0 or sh[nb:] != dims or t.dtype != torch.int32 or t.device != dev:
+            raise ValueError(f"tape {tape.name}: input {t.dtype} {tuple(sh)} on "
+                             f"{t.device}, want int32 [..., {', '.join(map(str, dims))}] on {dev}")
+        shapes.append(sh[:nb])
+    batch = shapes[0]
+    if any(s != batch for s in shapes):
+        batch = torch.broadcast_shapes(*shapes)
+    n = math.prod(batch)
+    outs = [torch.empty(batch + d, dtype=torch.int32, device=dev) for d in tape.out_dims]
+    if not n:
+        return outs, None
+    nb, vals, keep = len(batch), [], []
+    for t, s, dims, std in zip(inputs, shapes, tape.in_dims, tape.in_std):
+        t, es = element_rows(t if s == batch else t.expand(batch + dims), nb, std)
+        keep.append(t)
+        vals += (t.data_ptr(), es)
+    for o, m in zip(outs, tape.out_rows):
+        vals += (o.data_ptr(), m * L)
+    args = ((ctypes.c_longlong * len(vals))(*vals), len(vals) // 2, tape.prog, len(tape.rows),
+            sum(tape.out_rows), len(tape.steps), n)
+    return outs, (args, keep)
+
+
+def _tape_kernel(tape: Tape, inputs) -> torch.Tensor | tuple:
+    """K4: ``tape`` over ``inputs`` in one launch."""
+    outs, launch = _tape_launch(tape, inputs)
+    if launch is not None:
+        kernels.launch_on(inputs[0].device, "fp_addsub", *launch[0])
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def run_tape(tape: Tape, *inputs) -> torch.Tensor | tuple:
+    """Run ``tape`` over broadcast inputs: K4 in one launch for CUDA
+    tensors, the plain version for CPU tensors and in ``plain_mode``.
+    Returns the output tensor [..., *out_shape, 32], or a tuple of them."""
+    if len(inputs) != len(tape.in_shapes):
+        raise ValueError(f"tape {tape.name} takes {len(tape.in_shapes)} inputs, got {len(inputs)}")
+    if not use_kernel(inputs[0]):
+        return _run_tape(tape, *inputs)
+    return _tape_kernel(tape, inputs)
+
+
+# --- K3, and the single ops as one-step tapes ------------------------------------------
 
 def _operand(t: torch.Tensor, shape, name: str) -> torch.Tensor:
-    """``t`` broadcast to ``shape``, contiguous and 16-byte aligned."""
+    """``t`` broadcast to ``shape``, contiguous and 16-byte aligned; itself
+    where it already is."""
     if t.dtype != torch.int32:
         raise ValueError(f"{name}: digits must be int32, got {t.dtype}")
-    t = t.expand(shape).contiguous()
-    if t.data_ptr() % 16:
-        t = t.clone()
+    if t.shape != shape:
+        t = t.expand(shape)
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        t = t.clone(memory_format=torch.contiguous_format)
     return t
-
-
-def _launch_elementwise(name: str, out: torch.Tensor, *args) -> torch.Tensor:
-    n = out.numel() // L
-    if n == 0:
-        return out
-    if n >= 2**31:
-        raise ValueError(f"{name}: at most 2^31 - 1 elements, got {n}")
-    dev = out.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        kernels.launch(name, *args, out.data_ptr(), n, stream)
-    return out
 
 
 def _check_pair(a, b, name):
@@ -291,37 +618,40 @@ def modmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check_pair(a, b, "modmul")
     if not use_kernel(a):
         return _modmul(a, b)
-    shape = torch.broadcast_shapes(a.shape, b.shape)
+    shape = a.shape if a.shape == b.shape else torch.broadcast_shapes(a.shape, b.shape)
     a, b = _operand(a, shape, "modmul"), _operand(b, shape, "modmul")
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
-    return _launch_elementwise("fp_modmul", out, a.data_ptr(), b.data_ptr())
+    n = out.numel() // L
+    if n >= 2**31:
+        raise ValueError(f"modmul: at most 2^31 - 1 elements, got {n}")
+    if n:
+        kernels.launch_on(a.device, "fp_modmul", a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+    return out
 
 
-def _addsub(op: int, a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
-    shape = a.shape if b is None else torch.broadcast_shapes(a.shape, b.shape)
-    a = _operand(a, shape, "fp_addsub")
-    b = a if b is None else _operand(b, shape, "fp_addsub")
-    out = torch.empty(shape, dtype=torch.int32, device=a.device)
-    return _launch_elementwise("fp_addsub", out, a.data_ptr(), b.data_ptr(), op)
+_ADD = make_tape("modadd", ((), ()), ((),), lambda a, b: a + b)
+_SUB = make_tape("modsub", ((), ()), ((),), lambda a, b: a - b)
+_NEG = make_tape("modneg", ((),), ((),), lambda a: -a)
+_CANON = make_tape("canon", ((),), ((),), lambda a: a.canon())
 
 
 def modadd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check_pair(a, b, "modadd")
-    return _addsub(OP_ADD, a, b) if use_kernel(a) else _modadd(a, b)
+    return _tape_kernel(_ADD, (a, b)) if use_kernel(a) else _modadd(a, b)
 
 
 def modsub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check_pair(a, b, "modsub")
-    return _addsub(OP_SUB, a, b) if use_kernel(a) else _modsub(a, b)
+    return _tape_kernel(_SUB, (a, b)) if use_kernel(a) else _modsub(a, b)
 
 
 def modneg(a: torch.Tensor) -> torch.Tensor:
-    return _addsub(OP_NEG, a, None) if use_kernel(a) else _modneg(a)
+    return _tape_kernel(_NEG, (a,)) if use_kernel(a) else _modneg(a)
 
 
 def canon(a: torch.Tensor) -> torch.Tensor:
     """[0, 2p) -> [0, p): exact canonical form for equality/serialization."""
-    return _addsub(OP_CANON, a, None) if use_kernel(a) else _canon(a)
+    return _tape_kernel(_CANON, (a,)) if use_kernel(a) else _canon(a)
 
 
 def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

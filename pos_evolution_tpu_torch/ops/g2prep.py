@@ -28,14 +28,21 @@ import torch
 from pos_evolution_tpu_torch.crypto import bls12_381 as oracle
 from pos_evolution_tpu_torch.device import resolve_device
 from pos_evolution_tpu_torch.ops import fp
-from pos_evolution_tpu_torch.ops.pairing import _sel, g2_affine_encode
+from pos_evolution_tpu_torch.ops.pairing import (
+    _add,
+    _add_tapes,
+    _double,
+    _double_tapes,
+    _sel,
+    g2_affine_encode,
+)
 from pos_evolution_tpu_torch.ops.tower import (
     alg_eq,
+    alg_mul,
     alg_one,
     fq2_encode,
     fq2_inv,
     fq2_mul,
-    fq2_muli,
     fq2_sq,
 )
 
@@ -155,8 +162,7 @@ def g2_decompress_batch(x: torch.Tensor, sign_large: torch.Tensor):
     y, ok = fq2_sqrt_batch(rhs)
     flip = fq2_y_is_large(y) != sign_large
     y = _cond_negate(y, flip[..., None])
-    xc = torch.stack([fp.canon(x[..., 0, :]), fp.canon(x[..., 1, :])], dim=-2)
-    return torch.stack([xc, y], dim=-3), ok
+    return torch.stack([fp.canon(x), y], dim=-3), ok
 
 
 def g2_compressed_to_limbs(data: np.ndarray):
@@ -200,55 +206,23 @@ def g2_compressed_to_limbs(data: np.ndarray):
 # --- G2 (twist) Jacobian arithmetic ------------------------------------------
 
 
+_G2_DOUBLE = _double_tapes("g2_double", (2,))
+_G2_ADD = _add_tapes("g2_add", (2,))
+
+
 def g2_double_jac(P):
     """a=0 Jacobian doubling on E'(Fq2); P [..., 3, 2, 32]."""
-    X, Y, Z = P[..., 0, :, :], P[..., 1, :, :], P[..., 2, :, :]
-    A = fq2_sq(X)
-    B = fq2_sq(Y)
-    C = fq2_sq(B)
-    t = fp.modadd(X, B)
-    D = fq2_muli(fp.modsub(fp.modsub(fq2_sq(t), A), C), 2)
-    E = fq2_muli(A, 3)
-    X3 = fp.modsub(fq2_sq(E), fq2_muli(D, 2))
-    Y3 = fp.modsub(fq2_mul(E, fp.modsub(D, X3)), fq2_muli(C, 8))
-    Z3 = fq2_muli(fq2_mul(Y, Z), 2)
-    return torch.stack([X3, Y3, Z3], dim=-3)
+    return _double(P, alg_mul, _G2_DOUBLE)
 
 
 def _fq2_is_zero(x):
-    return fp.is_zero(x[..., 0, :]) & fp.is_zero(x[..., 1, :])
+    return fp.is_zero(x).all(-1)
 
 
 def g2_add_jac(P, Q_):
     """Unified branch-free Jacobian add on the twist: the case analysis of
     ``pairing.g1_add_jac`` lifted to Fq2."""
-    X1, Y1, Z1 = P[..., 0, :, :], P[..., 1, :, :], P[..., 2, :, :]
-    X2, Y2, Z2 = Q_[..., 0, :, :], Q_[..., 1, :, :], Q_[..., 2, :, :]
-    Z1Z1 = fq2_sq(Z1)
-    Z2Z2 = fq2_sq(Z2)
-    U1 = fq2_mul(X1, Z2Z2)
-    U2 = fq2_mul(X2, Z1Z1)
-    S1 = fq2_mul(Y1, fq2_mul(Z2, Z2Z2))
-    S2 = fq2_mul(Y2, fq2_mul(Z1, Z1Z1))
-    H = fp.modsub(U2, U1)
-    r = fp.modsub(S2, S1)
-    H2 = fq2_sq(H)
-    H3 = fq2_mul(H, H2)
-    V = fq2_mul(U1, H2)
-    X3 = fp.modsub(fp.modsub(fq2_sq(r), H3), fq2_muli(V, 2))
-    Y3 = fp.modsub(fq2_mul(r, fp.modsub(V, X3)), fq2_mul(S1, H3))
-    Z3 = fq2_mul(H, fq2_mul(Z1, Z2))
-    gen = torch.stack([X3, Y3, Z3], dim=-3)
-
-    p_inf = _fq2_is_zero(Z1)
-    q_inf = _fq2_is_zero(Z2)
-    same_x = _fq2_is_zero(H) & ~p_inf & ~q_inf
-    same_y = _fq2_is_zero(r)
-    out = _sel(same_x & same_y, g2_double_jac(P), gen)
-    out = _sel(same_x & ~same_y, torch.zeros_like(out), out)
-    out = _sel(p_inf, Q_, out)
-    out = _sel(q_inf & ~p_inf, P, out)
-    return out
+    return _add(P, Q_, alg_mul, _G2_ADD, g2_double_jac, -3)
 
 
 def g2_affine_to_jac(q_aff):
@@ -260,15 +234,11 @@ def g2_affine_to_jac(q_aff):
 def g2_jac_to_affine(P):
     """[..., 3, 2, 32] -> (affine [..., 2, 2, 32], inf mask [...])."""
     X, Y, Z = P[..., 0, :, :], P[..., 1, :, :], P[..., 2, :, :]
-    za = torch.stack([fp.canon(Z[..., 0, :]), fp.canon(Z[..., 1, :])], dim=-2)
-    zi = fq2_inv(za)
+    zi = fq2_inv(fp.canon(Z))
     zi2 = fq2_sq(zi)
     x = fq2_mul(X, zi2)
     y = fq2_mul(Y, fq2_mul(zi, zi2))
-    return (torch.stack([
-        torch.stack([fp.canon(x[..., 0, :]), fp.canon(x[..., 1, :])], dim=-2),
-        torch.stack([fp.canon(y[..., 0, :]), fp.canon(y[..., 1, :])], dim=-2),
-    ], dim=-3), _fq2_is_zero(Z))
+    return torch.stack([fp.canon(x), fp.canon(y)], dim=-3), _fq2_is_zero(Z)
 
 
 def g2_mul_static(q_aff: torch.Tensor, bits: np.ndarray) -> torch.Tensor:
@@ -336,8 +306,7 @@ def hash_to_g2_finish(x: torch.Tensor):
     y, is_sq = fq2_sqrt_batch(rhs)
     flip = fp_is_odd(y[..., 0, :])               # oracle sign: negate odd y.a
     y = _cond_negate(y, flip[..., None])
-    xc = torch.stack([fp.canon(x[..., 0, :]), fp.canon(x[..., 1, :])], dim=-2)
-    cleared = g2_mul_static(torch.stack([xc, y], dim=-3), _COFACTOR_BITS)
+    cleared = g2_mul_static(torch.stack([fp.canon(x), y], dim=-3), _COFACTOR_BITS)
     aff, inf = g2_jac_to_affine(cleared)
     return aff, is_sq & ~inf
 

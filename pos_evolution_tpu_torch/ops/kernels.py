@@ -8,7 +8,10 @@ shared headers and the flags, so an edited source is always rebuilt.
 ``build_all`` starts one ``nvcc`` per source, all at once.
 
 ``launches`` counts, per kernel, the launches its wrapper made; a wrapper
-adds one where it launches its kernel and nowhere else.
+adds one where it launches its kernel and nowhere else. Each entry point is
+bound once (``entry``); ``launch_on`` is the field kernels' lean launch: the
+raw current stream, and no device switch when the tensor is on the current
+device.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -35,13 +40,16 @@ KERNELS = {
                      [_P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, ctypes.c_int, _P]),
     "fp_modmul": ("fp_modmul.cu", "fp_modmul_launch", [_P, _P, _P, ctypes.c_int, _P]),
     "fp_addsub": ("fp_addsub.cu", "fp_addsub_launch",
-                  [_P, _P, ctypes.c_int, _P, ctypes.c_int, _P]),
+                  [_P, ctypes.c_int, ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, _P]),
     "alg_mul": ("alg_mul.cu", "alg_mul_launch",
-                [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
+                [_P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int,
+                 _P]),
 }
 
 launches = {name: 0 for name in KERNELS}
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict = {}          # kernel name -> its bound C entry point
 
 
 def reset_launches() -> None:
@@ -123,12 +131,30 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def entry(name: str):
+    """Kernel ``name``'s C entry point, bound once."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(library(name), KERNELS[name][1])
+    return fn
+
+
 def launch(name: str, *args) -> None:
     """Call kernel ``name``'s C entry point, raise if CUDA refused the
     launch, and count it."""
-    lib = library(name)
-    rc = getattr(lib, KERNELS[name][1])(*args)
+    rc = (_entries.get(name) or entry(name))(*args)
     if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        msg = getattr(library(name), f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
     launches[name] += 1
+
+
+def launch_on(device: torch.device, name: str, *args) -> None:
+    """``launch`` on ``device``'s current stream (the stream is the last
+    argument), switching devices only where ``device`` is not current."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        launch(name, *args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            launch(name, *args, torch._C._cuda_getCurrentRawStream(index))

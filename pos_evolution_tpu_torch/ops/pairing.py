@@ -41,7 +41,6 @@ from pos_evolution_tpu_torch.ops.tower import (
     alg_one,
     alg_select,
     fq2_mul,
-    fq2_muli,
     fq2_sq,
     fq12_conj,
     fq12_frob1,
@@ -50,6 +49,11 @@ from pos_evolution_tpu_torch.ops.tower import (
     fq12_mul,
     fq12_pow_bits_cyclotomic,
     fq12_sq,
+    tape_add,
+    tape_canon,
+    tape_muli,
+    tape_neg,
+    tape_sub,
 )
 
 BLS_X = oracle.BLS_X                      # |t|; t is negative
@@ -107,6 +111,127 @@ def g2_affine_encode(q) -> np.ndarray:
 _G1_GEN = g1_affine_encode(oracle.G1_GEN)
 
 
+# --- Jacobian doubling and addition as K4 tapes between multiplies ---------
+#
+# The a=0 Jacobian doubling (dbl-2009-l) and the unified addition, on G1
+# (components (), multiplies by K3) and on the twist (components (2,), by
+# K5): the multiplies that do not depend on each other run as one batched
+# call, and every add/sub chain between them as one K4 tape, which also
+# writes the next call's operands side by side. The values, op for op, are
+# the unfused code's (the JAX package's).
+
+
+def _double_tapes(name: str, comp: tuple, line: bool = False, triple=None):
+    """The four tapes of a doubling of points [..., 3, *comp, 32]; with
+    ``line`` also the tangent line's coefficients (the Miller loop).
+    ``triple`` forms E = 3A as the unfused code did (``fq2_muli(A, 3)``
+    by default)."""
+    pt, c = (3,) + comp, comp
+    k, j = (4, 2) if line else (2, 1)
+    triple = triple or (lambda a: tape_muli(a, 3))
+
+    def pre(S, sq1):                       # [B, X + B], to square
+        return [sq1[1], tape_add(S[0], sq1[1])]
+
+    def mid(S, sq1):                       # E = 3A; the operands of E^2, YZ (XA, A ZZ)
+        X, Y, Z = S
+        A, ZZ = sq1[0], sq1[2]
+        E = triple(A)
+        return ([E, Y, X, A], [E, Z, A, ZZ]) if line else ([E, Y], [E, Z])
+
+    def t3(xs, sq1, sq2, p1):              # D, X3; the operands of E (D - X3) (, YZ ZZ)
+        D = tape_muli(tape_sub(tape_sub(sq2[1], sq1[0]), sq2[0]), 2)
+        X3 = tape_sub(p1[0], tape_muli(D, 2))
+        DX = tape_sub(D, X3)
+        return ([xs[0], p1[1]], [DX, sq1[2]], X3) if line else ([xs[0]], [DX], X3)
+
+    def fin(X3, sq1, sq2, p1, p2):         # [X3, Y3, Z3] (, c0, [cx, cy])
+        Y3 = tape_sub(p2[0], tape_muli(sq2[0], 8))
+        Z3 = tape_muli(p1[1], 2)
+        if not line:
+            return [X3, Y3, Z3]
+        c0 = tape_sub(tape_muli(sq1[1], 2), tape_muli(p1[2], 3))
+        cxy = [tape_muli(p1[3], 3), tape_neg(tape_muli(p2[1], 2))]
+        return [X3, Y3, Z3], c0, cxy
+
+    kc, jc = (k,) + c, (j,) + c
+    return (fp.make_tape(f"{name}_pre", (pt, pt), ((2,) + c,), pre),
+            fp.make_tape(f"{name}_mid", (pt, pt), (kc, kc), mid),
+            fp.make_tape(f"{name}_t3", (kc, pt, (2,) + c, kc), (jc, jc, c), t3),
+            fp.make_tape(f"{name}_fin", (c, pt, (2,) + c, kc, jc),
+                         (pt, c, (2,) + c) if line else (pt,), fin))
+
+
+def _add_tapes(name: str, comp: tuple):
+    """The three tapes of a unified addition of points [..., 3, *comp, 32]."""
+    pt, c = (3,) + comp, comp
+
+    def hr(U1, U2, S1, S2, P, Q):          # H, r, and the canons the case analysis reads
+        H, r = tape_sub(U2, U1), tape_sub(S2, S1)
+        return H, r, tape_canon([P[2], Q[2], H, r])
+
+    def x3(rr, H3, V):                     # X3 = r^2 - H3 - 2V, and V - X3
+        X3 = tape_sub(tape_sub(rr, H3), tape_muli(V, 2))
+        return X3, tape_sub(V, X3)
+
+    def gen(X3, rv, sh, Z3):               # [X3, r (V - X3) - S1 H3, Z3]
+        return [X3, tape_sub(rv, sh), Z3]
+
+    return (fp.make_tape(f"{name}_hr", (c, c, c, c, pt, pt), (c, c, (4,) + c), hr),
+            fp.make_tape(f"{name}_x3", (c, c, c), (c, c), x3),
+            fp.make_tape(f"{name}_gen", (c, c, c, c), (pt,), gen))
+
+
+def _double(S, mul, tapes, pq=None):
+    """Doubling of Jacobian points S [..., 3, *comp, 32] through ``tapes``
+    (``_double_tapes``), ``mul`` the component multiply. With ``pq``, the
+    affine G1 coordinates [..., 2, 2, 32] ([xp, xp], [yp, yp]), also the
+    tangent line [..., 6, 32] (c0, cx xp, cy yp)."""
+    pre, mid, t3, fin = tapes
+    sq1 = mul(S, S)                                     # A, B, ZZ
+    p = fp.run_tape(pre, S, sq1)
+    sq2 = mul(p, p)                                     # C, (X + B)^2
+    xs, ys = fp.run_tape(mid, S, sq1)
+    p1 = mul(xs, ys)                                    # E^2, YZ (, XA, A ZZ)
+    xs2, ys2, X3 = fp.run_tape(t3, xs, sq1, sq2, p1)
+    p2 = mul(xs2, ys2)                                  # E (D - X3) (, YZ ZZ)
+    if pq is None:
+        return fp.run_tape(fin, X3, sq1, sq2, p1, p2)
+    S3, c0, cxy = fp.run_tape(fin, X3, sq1, sq2, p1, p2)
+    cxp, cyp = fp.modmul(cxy, pq).unbind(-3)
+    return S3, _line_embed(c0, cxp, cyp)
+
+
+def _add(P, Q, mul, tapes, double, axis: int):
+    """Unified branch-free Jacobian add of points whose coordinates lie on
+    ``axis`` (-2 on G1, -3 on the twist): either operand at infinity
+    (Z = 0), P == Q (``double``) and P == -Q (infinity), every case
+    computed and selected."""
+    hr, x3, gen_tape = tapes
+    X1, Y1, Z1 = P.unbind(axis)
+    X2, Y2, Z2 = Q.unbind(axis)
+    Z1Z1 = mul(Z1, Z1)
+    Z2Z2 = mul(Z2, Z2)
+    U1 = mul(X1, Z2Z2)
+    U2 = mul(X2, Z1Z1)
+    S1 = mul(Y1, mul(Z2, Z2Z2))
+    S2 = mul(Y2, mul(Z1, Z1Z1))
+    H, r, canons = fp.run_tape(hr, U1, U2, S1, S2, P, Q)
+    H2 = mul(H, H)
+    H3 = mul(H, H2)
+    V = mul(U1, H2)
+    X3, VX = fp.run_tape(x3, mul(r, r), H3, V)
+    gen = fp.run_tape(gen_tape, X3, mul(r, VX), mul(S1, H3), mul(H, mul(Z1, Z2)))
+
+    p_inf, q_inf, h_zero, r_zero = (canons == 0).flatten(axis + 1).all(-1).unbind(-1)
+    same_x = h_zero & ~p_inf & ~q_inf
+    out = _sel(same_x & r_zero, double(P), gen)
+    out = _sel(same_x & ~r_zero, torch.zeros_like(out), out)   # P + (-P)
+    out = _sel(p_inf, Q, out)
+    out = _sel(q_inf & ~p_inf, P, out)
+    return out
+
+
 # --- Miller loop --------------------------------------------------------------
 
 
@@ -114,6 +239,17 @@ def _line_embed(c0, cxp, cyp):
     """The three Fq2 line coefficients as the sparse [..., 6, 32] operand
     of ``alg_mul(..., y_slots=LINE_SLOTS)``."""
     return torch.cat([c0, cxp, cyp], dim=-2)
+
+
+_MILLER_DOUBLE = _double_tapes("miller_double", (2,), line=True)
+
+
+def _miller_add_x4(rr, H3, V):
+    X4 = tape_sub(tape_sub(rr, H3), tape_muli(V, 2))
+    return X4, tape_sub(V, X4)
+
+
+_MILLER_ADD_X4 = fp.make_tape("miller_add_x4", ((2,), (2,), (2,)), ((2,), (2,)), _miller_add_x4)
 
 
 def miller_loop(p_aff: torch.Tensor, q_aff: torch.Tensor,
@@ -130,42 +266,30 @@ def miller_loop(p_aff: torch.Tensor, q_aff: torch.Tensor,
     dev = xp.device
     one12 = alg_one(12, batch, dev)
     f = one12
-    X, Y, Z = xq, yq, alg_one(2, batch, dev)
+    S = torch.cat([q_aff, alg_one(2, batch, dev)[..., None, :, :]], dim=-3)   # X, Y, Z = xq, yq, 1
+    pq = p_aff[..., :, None, :].expand(batch + (2, 2, fp.L)).contiguous()
     for bit in _LOOP_BITS:
         # doubling step (a=0 Jacobian dbl-2009-l) + tangent line
-        A = fq2_sq(X)
-        B = fq2_sq(Y)
-        C = fq2_sq(B)
-        ZZ = fq2_sq(Z)
-        D = fq2_muli(fp.modsub(fp.modsub(fq2_sq(fp.modadd(X, B)), A), C), 2)
-        E = fq2_muli(A, 3)
-        X3 = fp.modsub(fq2_sq(E), fq2_muli(D, 2))
-        Y3 = fp.modsub(fq2_mul(E, fp.modsub(D, X3)), fq2_muli(C, 8))
-        YZ = fq2_mul(Y, Z)
-        Z3 = fq2_muli(YZ, 2)
-        c0 = fp.modsub(fq2_muli(B, 2), fq2_muli(fq2_mul(X, A), 3))
-        cx = fq2_muli(fq2_mul(A, ZZ), 3)
-        cy = fp.modneg(fq2_muli(fq2_mul(YZ, ZZ), 2))
-        line = _line_embed(c0, _fq2_scale_fq(cx, xp), _fq2_scale_fq(cy, yp))
+        S, line = _double(S, alg_mul, _MILLER_DOUBLE, pq)
         f = fq12_sq(f)
         f = alg_mul(f, line, y_slots=LINE_SLOTS)
-        X, Y, Z = X3, Y3, Z3
         if not bit:
             continue
         # mixed addition step (Q affine) + chord line
+        X, Y, Z = S.unbind(-3)
         ZZ = fq2_sq(Z)
         H = fp.modsub(fq2_mul(xq, ZZ), X)
         r = fp.modsub(fq2_mul(yq, fq2_mul(Z, ZZ)), Y)
         H2 = fq2_sq(H)
         H3 = fq2_mul(H, H2)
         V = fq2_mul(X, H2)
-        X4 = fp.modsub(fp.modsub(fq2_sq(r), H3), fq2_muli(V, 2))
-        Y4 = fp.modsub(fq2_mul(r, fp.modsub(V, X4)), fq2_mul(Y, H3))
+        X4, VX = fp.run_tape(_MILLER_ADD_X4, fq2_sq(r), H3, V)
+        Y4 = fp.modsub(fq2_mul(r, VX), fq2_mul(Y, H3))
         Z4 = fq2_mul(Z, H)
         c0 = fp.modsub(fq2_mul(Z4, yq), fq2_mul(r, xq))
         line = _line_embed(c0, _fq2_scale_fq(r, xp), _fq2_scale_fq(fp.modneg(Z4), yp))
         f = alg_mul(f, line, y_slots=LINE_SLOTS)
-        X, Y, Z = X4, Y4, Z4
+        S = torch.stack([X4, Y4, Z4], dim=-3)
     f = fq12_conj(f)                       # t < 0
     if inf is not None:
         f = alg_select(inf, one12, f)
@@ -204,60 +328,20 @@ def pairing(p_aff, q_aff, inf=None):
 # --- G1 arithmetic (pubkey aggregation) ---------------------------------------
 
 
-def _dbl(x):
-    return fp.modadd(x, x)
-
-
-def _mul8(x):
-    return _dbl(_dbl(_dbl(x)))
+_G1_DOUBLE = _double_tapes("g1_double", (), triple=lambda a: tape_add(tape_add(a, a), a))
+_G1_ADD = _add_tapes("g1_add", ())
 
 
 def g1_double_jac(P):
     """a=0 Jacobian doubling; P [..., 3, 32]."""
-    X, Y, Z = P[..., 0, :], P[..., 1, :], P[..., 2, :]
-    A = fp.modmul(X, X)
-    B = fp.modmul(Y, Y)
-    C = fp.modmul(B, B)
-    t = fp.modadd(X, B)
-    D = _dbl(fp.modsub(fp.modsub(fp.modmul(t, t), A), C))
-    E = fp.modadd(fp.modadd(A, A), A)
-    X3 = fp.modsub(fp.modmul(E, E), _dbl(D))
-    Y3 = fp.modsub(fp.modmul(E, fp.modsub(D, X3)), _mul8(C))
-    Z3 = _dbl(fp.modmul(Y, Z))
-    return torch.stack([X3, Y3, Z3], dim=-2)
+    return _double(P, fp.modmul, _G1_DOUBLE)
 
 
 def g1_add_jac(P, Q):
     """Unified branch-free Jacobian add: either operand at infinity
     (Z = 0), P == Q (doubling) and P == -Q (infinity), every case computed
     and selected."""
-    X1, Y1, Z1 = P[..., 0, :], P[..., 1, :], P[..., 2, :]
-    X2, Y2, Z2 = Q[..., 0, :], Q[..., 1, :], Q[..., 2, :]
-    Z1Z1 = fp.modmul(Z1, Z1)
-    Z2Z2 = fp.modmul(Z2, Z2)
-    U1 = fp.modmul(X1, Z2Z2)
-    U2 = fp.modmul(X2, Z1Z1)
-    S1 = fp.modmul(Y1, fp.modmul(Z2, Z2Z2))
-    S2 = fp.modmul(Y2, fp.modmul(Z1, Z1Z1))
-    H = fp.modsub(U2, U1)
-    r = fp.modsub(S2, S1)
-    H2 = fp.modmul(H, H)
-    H3 = fp.modmul(H, H2)
-    V = fp.modmul(U1, H2)
-    X3 = fp.modsub(fp.modsub(fp.modmul(r, r), H3), _dbl(V))
-    Y3 = fp.modsub(fp.modmul(r, fp.modsub(V, X3)), fp.modmul(S1, H3))
-    Z3 = fp.modmul(H, fp.modmul(Z1, Z2))
-    gen = torch.stack([X3, Y3, Z3], dim=-2)
-
-    p_inf = fp.is_zero(Z1)
-    q_inf = fp.is_zero(Z2)
-    same_x = fp.is_zero(H) & ~p_inf & ~q_inf
-    same_y = fp.is_zero(r)
-    out = _sel(same_x & same_y, g1_double_jac(P), gen)
-    out = _sel(same_x & ~same_y, torch.zeros_like(out), out)   # P + (-P)
-    out = _sel(p_inf, Q, out)
-    out = _sel(q_inf & ~p_inf, P, out)
-    return out
+    return _add(P, Q, fp.modmul, _G1_ADD, g1_double_jac, -2)
 
 
 def g1_sum_masked(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

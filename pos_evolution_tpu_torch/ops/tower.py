@@ -21,6 +21,9 @@ gamma_k[i] = xi^(i * (q^k - 1) / 6) over the w-power basis.
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import numpy as np
 import torch
 
@@ -101,18 +104,44 @@ def _plan(d: int, y_slots=None):
     return _PLANS[key]
 
 
-_DEVICE_PLANS: dict = {}
+# K5's plans: the (d, right operand's slots) of every call on the path; the
+# last is the Miller loop's line (``pairing.LINE_SLOTS``)
+K5_PLANS = ((2, None), (6, None), (12, None), (12, (0, 1, 2, 3, 8, 9)))
+_PLAN_ID = {key: q for q, key in enumerate(K5_PLANS)}
 
 
-def _device_plan(d: int, y_slots, device):
-    """K5's operands of a plan on ``device``: the signed coefficients
-    T[i, j, k] (int32, [d * dy * d], row-major) and m."""
-    key = (d, y_slots, torch.device(device))
-    if key not in _DEVICE_PLANS:
-        tpos, tneg, _, m = _plan(d, y_slots)
-        coef = np.ascontiguousarray((tpos - tneg).reshape(-1).astype(np.int32))
-        _DEVICE_PLANS[key] = (torch.from_numpy(coef).to(device), m)
-    return _DEVICE_PLANS[key]
+def _plan_tables():
+    """K5's constant tables: int32 [4, 16] (d, dy, m, and where each output
+    component's terms start and the last ends) and the terms, uint16
+    (i * dy + j) << 4 | (coefficient + 8), the nonzero T[i, j, k] by k."""
+    plans = np.zeros((len(K5_PLANS), 16), np.int32)
+    terms = []
+    for q, (d, slots) in enumerate(K5_PLANS):
+        tpos, tneg, _, m = _plan(d, slots)
+        T = tpos.astype(np.int64) - tneg
+        dy = T.shape[1]
+        plans[q, :3] = d, dy, m
+        for k in range(d):
+            plans[q, 3 + k] = len(terms)
+            terms += [(i * dy + j) << 4 | (int(T[i, j, k]) + 8)
+                      for i in range(d) for j in range(dy) if T[i, j, k]]
+        plans[q, 3 + d] = len(terms)
+    return plans, np.array(terms, np.uint16)
+
+
+_PLANS_ON: set = set()       # devices K5's plans were uploaded to
+
+
+def _upload_plans(device: torch.device) -> None:
+    plans, terms = _plan_tables()
+    fn = kernels.library("alg_mul").alg_mul_set_plans
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        rc = fn(plans.ctypes.data, terms.ctypes.data, len(terms))
+    if rc != 0:
+        raise RuntimeError(f"alg_mul: uploading the plans failed, CUDA error {rc}")
+    _PLANS_ON.add(device.index)
 
 
 # --- generic algebra ops ------------------------------------------------------
@@ -148,20 +177,29 @@ def alg_mul(x: torch.Tensor, y: torch.Tensor, y_slots: tuple | None = None) -> t
         raise ValueError(f"alg_mul: operands on {x.device} and {y.device}")
     if not fp.use_kernel(x):
         return _alg_mul(x, y, y_slots)
-    batch = torch.broadcast_shapes(x.shape[:-2], y.shape[:-2])
-    x = fp._operand(x, batch + (d, fp.L), "alg_mul")
-    y = fp._operand(y, batch + (dy, fp.L), "alg_mul")
+    q = _PLAN_ID.get((d, None if y_slots is None else tuple(y_slots)))
+    if q is None:
+        raise ValueError(f"alg_mul: K5 has no plan for d={d}, slots {y_slots}")
+    batch = x.shape[:-2]
+    if y.shape[:-2] != batch:
+        batch = torch.broadcast_shapes(batch, y.shape[:-2])
+    for t, name in ((x, "x"), (y, "y")):
+        if t.dtype != torch.int32:
+            raise ValueError(f"alg_mul: {name} digits must be int32, got {t.dtype}")
+    nb = len(batch)
+    x, sx = fp.element_rows(x if x.shape[:-2] == batch else x.expand(batch + (d, fp.L)),
+                            nb, (fp.L, 1))
+    y, sy = fp.element_rows(y if y.shape[:-2] == batch else y.expand(batch + (dy, fp.L)),
+                            nb, (fp.L, 1))
     out = torch.empty(batch + (d, fp.L), dtype=torch.int32, device=x.device)
-    n = out.numel() // (d * fp.L)
-    if n == 0:
-        return out
+    n = math.prod(batch)
     if n >= 2**31:
         raise ValueError(f"alg_mul: at most 2^31 - 1 elements, got {n}")
-    coef, m = _device_plan(d, y_slots, x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        kernels.launch("alg_mul", x.data_ptr(), y.data_ptr(), coef.data_ptr(), out.data_ptr(),
-                       n, d, dy, m, stream)
+    if n:
+        if x.device.index not in _PLANS_ON:
+            _upload_plans(x.device)
+        kernels.launch_on(x.device, "alg_mul", x.data_ptr(), sx, y.data_ptr(), sy,
+                          out.data_ptr(), n, q)
     return out
 
 
@@ -206,6 +244,48 @@ def embed(x, d: int, slots: tuple):
     return out
 
 
+# --- tape helpers ---------------------------------------------------------------
+#
+# The rows of a K4 tape being traced (``fp.make_tape``) are base-field values
+# or nested lists of them (an Fq2 is [a, b]); these helpers mirror the
+# tensor functions below op for op, componentwise.
+
+
+def tape_add(x, y):
+    return [tape_add(a, b) for a, b in zip(x, y)] if isinstance(x, list) else x + y
+
+
+def tape_sub(x, y):
+    return [tape_sub(a, b) for a, b in zip(x, y)] if isinstance(x, list) else x - y
+
+
+def tape_neg(x):
+    return [tape_neg(a) for a in x] if isinstance(x, list) else -x
+
+
+def tape_canon(x):
+    return [tape_canon(a) for a in x] if isinstance(x, list) else x.canon()
+
+
+def tape_xi(x):
+    """``fq2_mul_xi``: (a+bu)(1+u) = (a-b) + (a+b)u."""
+    a, b = x
+    return [a - b, a + b]
+
+
+def tape_muli(x, k: int):
+    """``fq2_muli``'s shift-adds, k >= 1; the doubling after the top bit,
+    which the JAX loop computes and discards, is not taken."""
+    acc, add = None, x
+    while k:
+        if k & 1:
+            acc = add if acc is None else tape_add(acc, add)
+        k >>= 1
+        if k:
+            add = tape_add(add, add)
+    return acc
+
+
 # --- Fq2 specifics ------------------------------------------------------------
 
 
@@ -217,14 +297,17 @@ def fq2_sq(x):
     return alg_mul(x, x)
 
 
+_CONJ = fp.make_tape("fq2_conj", ((2,),), ((2,),), lambda x: [x[0], -x[1]])
+_MUL_XI = fp.make_tape("fq2_mul_xi", ((2,),), ((2,),), tape_xi)
+
+
 def fq2_conj(x):
-    return torch.stack([x[..., 0, :], fp.modneg(x[..., 1, :])], dim=-2)
+    return fp.run_tape(_CONJ, x)
 
 
 def fq2_mul_xi(x):
-    """(a+bu)(1+u) = (a-b) + (a+b)u."""
-    a, b = x[..., 0, :], x[..., 1, :]
-    return torch.stack([fp.modsub(a, b), fp.modadd(a, b)], dim=-2)
+    """(a+bu)(1+u) = (a-b) + (a+b)u, one K4 launch."""
+    return fp.run_tape(_MUL_XI, x)
 
 
 def fq2_inv(x):
@@ -234,25 +317,39 @@ def fq2_inv(x):
     return torch.stack([fp.modmul(a, d), fp.modneg(fp.modmul(b, d))], dim=-2)
 
 
+_MULI: dict = {}
+
+
+def _muli_tape(k: int):
+    if k not in _MULI:
+        _MULI[k] = fp.make_tape(f"fq2_muli_{k}", ((),), ((),), lambda x: tape_muli(x, k))
+    return _MULI[k]
+
+
+for _k in range(2, 10):
+    _muli_tape(_k)
+
+
 def fq2_muli(x, k: int):
-    """Multiply by a small non-negative int (shift-add)."""
-    acc = None
-    add = x
-    while k:
-        if k & 1:
-            acc = add if acc is None else fp.modadd(acc, add)
-        add = fp.modadd(add, add)
-        k >>= 1
-    return acc if acc is not None else torch.zeros_like(x)
+    """Multiply by a small non-negative int (shift-add), componentwise over
+    any [..., 32] tensor: at most one K4 launch, none for k = 0 or 1."""
+    if k == 0:
+        return torch.zeros_like(x)
+    if k == 1:
+        return x
+    return fp.run_tape(_muli_tape(k), x)
 
 
 # --- Fq6 / Fq12 specifics -----------------------------------------------------
 
 
+_MUL_V = fp.make_tape("fq6_mul_v", ((6,),), ((6,),),
+                      lambda x: tape_xi(x[4:6]) + x[0:2] + x[2:4])
+
+
 def fq6_mul_v(x):
     """*v: (c0, c1, c2) -> (c2*xi, c0, c1) over [..., 6, 32]."""
-    c0, c1, c2 = x[..., 0:2, :], x[..., 2:4, :], x[..., 4:6, :]
-    return torch.cat([fq2_mul_xi(c2), c0, c1], dim=-2)
+    return fp.run_tape(_MUL_V, x)
 
 
 def fq6_inv(x):
@@ -274,10 +371,13 @@ def fq12_sq(x):
     return alg_mul(x, x)
 
 
+_FQ12_CONJ = fp.make_tape("fq12_conj", ((12,),), ((12,),), lambda x: x[0:6] + tape_neg(x[6:12]))
+
+
 def fq12_conj(x):
     """Conjugation = Frobenius^6: negate the w-part. For elements of the
     cyclotomic subgroup this is the inverse."""
-    return torch.cat([x[..., 0:6, :], fp.modneg(x[..., 6:12, :])], dim=-2)
+    return fp.run_tape(_FQ12_CONJ, x)
 
 
 def fq12_inv(x):
@@ -298,44 +398,53 @@ def fq12_pow_bits(x, bits: np.ndarray):
     return acc
 
 
-def _fp4_sq(a, b):
-    """(a + b*s)^2 in Fq4 = Fq2[s]/(s^2 - xi): (a^2 + xi*b^2,
-    (a+b)^2 - a^2 - b^2), 3 Fq2 squarings."""
-    a2 = fq2_sq(a)
-    b2 = fq2_sq(b)
-    c0 = fp.modadd(fq2_mul_xi(b2), a2)
-    c1 = fp.modsub(fp.modsub(fq2_sq(fp.modadd(a, b)), a2), b2)
-    return c0, c1
+# Granger-Scott: the Fq4 pairs in tower slot order are (z0, z1) = (x[0:2],
+# x[8:10]), (z2, z3) = (x[6:8], x[4:6]), (z4, z5) = (x[2:4], x[10:12])
+_Z_SLOTS = ((0, 1), (8, 9), (6, 7), (4, 5), (2, 3), (10, 11))
+
+
+def _cyclotomic_pre(x):
+    """The 9 Fq2 values squared: z0..z5 and the three pair sums z0+z1,
+    z2+z3, z4+z5 (the ``(a+b)`` of ``_fp4_sq``)."""
+    z = [[x[i], x[j]] for i, j in _Z_SLOTS]
+    return z + [tape_add(z[2 * p], z[2 * p + 1]) for p in range(3)]
+
+
+def _cyclotomic_tail(x, sq):
+    """From the 9 squares: each pair's (a^2 + xi*b^2, (a+b)^2 - a^2 - b^2)
+    (``_fp4_sq``), then 3t - 2z and 3t + 2z, in the output's slot order."""
+    z = [[x[i], x[j]] for i, j in _Z_SLOTS]
+
+    def fp4_sq(p):
+        a2, b2, s2 = sq[2 * p], sq[2 * p + 1], sq[6 + p]
+        return tape_add(tape_xi(b2), a2), tape_sub(tape_sub(s2, a2), b2)
+
+    def three_minus_two(t, zz):
+        return tape_sub(tape_muli(t, 3), tape_muli(zz, 2))
+
+    def three_plus_two(t, zz):
+        return tape_add(tape_muli(t, 3), tape_muli(zz, 2))
+
+    t0, t1 = fp4_sq(0)
+    n0, n1 = three_minus_two(t0, z[0]), three_plus_two(t1, z[1])
+    t0, t1 = fp4_sq(1)
+    n4, n5 = three_minus_two(t0, z[4]), three_plus_two(t1, z[5])
+    t2, t3 = fp4_sq(2)
+    n2, n3 = three_plus_two(tape_xi(t3), z[2]), three_minus_two(t2, z[3])
+    return n0 + n4 + n3 + n2 + n1 + n5
+
+
+_CYC_PRE = fp.make_tape("fq12_cyclotomic_pre", ((12,),), ((9, 2),), _cyclotomic_pre)
+_CYC_TAIL = fp.make_tape("fq12_cyclotomic_tail", ((12,), (9, 2)), ((12,),), _cyclotomic_tail)
 
 
 def fq12_cyclotomic_sq(x):
     """Granger-Scott squaring, valid only for x in the cyclotomic subgroup
-    (any easy-part output): 9 Fq2 squarings and adds. The Fq4 pairs in
-    tower slot order are (x[0:2], x[8:10]), (x[6:8], x[4:6]),
-    (x[2:4], x[10:12])."""
-    z0 = x[..., 0:2, :]
-    z4 = x[..., 2:4, :]
-    z3 = x[..., 4:6, :]
-    z2 = x[..., 6:8, :]
-    z1 = x[..., 8:10, :]
-    z5 = x[..., 10:12, :]
-
-    def three_minus_two(t, z):   # 3t - 2z
-        return fp.modsub(fq2_muli(t, 3), fq2_muli(z, 2))
-
-    def three_plus_two(t, z):    # 3t + 2z
-        return fp.modadd(fq2_muli(t, 3), fq2_muli(z, 2))
-
-    t0, t1 = _fp4_sq(z0, z1)
-    n0 = three_minus_two(t0, z0)
-    n1 = three_plus_two(t1, z1)
-    t0, t1 = _fp4_sq(z2, z3)
-    t2, t3 = _fp4_sq(z4, z5)
-    n4 = three_minus_two(t0, z4)
-    n5 = three_plus_two(t1, z5)
-    n2 = three_plus_two(fq2_mul_xi(t3), z2)
-    n3 = three_minus_two(t2, z3)
-    return torch.cat([n0, n4, n3, n2, n1, n5], dim=-2)
+    (any easy-part output): 9 Fq2 squarings and adds, in three launches on
+    the card: a K4 tape gathers the 9 values to square into one tensor, K5
+    squares them, and a K4 tape makes the 12 output components from them."""
+    pre = fp.run_tape(_CYC_PRE, x)
+    return fp.run_tape(_CYC_TAIL, x, alg_mul(pre, pre))
 
 
 def fq12_pow_bits_cyclotomic(x, bits: np.ndarray):
@@ -376,8 +485,7 @@ _G2C = _gamma_const(2)
 
 
 def fq12_frob1(x):
-    pairs = x.reshape(x.shape[:-2] + (6, 2, fp.L))
-    conj = torch.stack([pairs[..., 0, :], fp.modneg(pairs[..., 1, :])], dim=-2)
+    conj = fq2_conj(x.reshape(x.shape[:-2] + (6, 2, fp.L)))
     out = alg_mul(conj, fp.const(_G1C, x.device).expand(conj.shape))
     return out.reshape(x.shape)
 

@@ -3,6 +3,8 @@ version, bit for bit. Marked ``cuda``; each test skips without a CUDA
 device. On a GPU machine: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -10,7 +12,7 @@ torch = pytest.importorskip("torch")
 
 from pos_evolution_tpu_torch.device import words_to_torch  # noqa: E402
 from pos_evolution_tpu_torch.epoch import build_epoch_inputs, run_epoch  # noqa: E402
-from pos_evolution_tpu_torch.ops import fp, kernels, tower  # noqa: E402
+from pos_evolution_tpu_torch.ops import fp, g2prep, kernels, pairing, tower  # noqa: E402, F401
 from pos_evolution_tpu_torch.ops.aggregation import (  # noqa: E402
     _committee_aggregates,
     committee_aggregates,
@@ -206,7 +208,7 @@ def test_k4_matches_plain(cuda, op, top):
 
 @pytest.mark.parametrize("d,slots", [(2, None), (6, None), (12, None),
                                      (12, (0, 1, 2, 3, 8, 9))])
-@pytest.mark.parametrize("n", [1, 33, 257])
+@pytest.mark.parametrize("n", [1, 33, 257, 4096])
 def test_k5_matches_plain(cuda, d, slots, n):
     dy = d if slots is None else len(slots)
     x, y = _field((n, d), 5 * d + n).to(cuda), _field((n, dy), 6 * d + n).to(cuda)
@@ -220,10 +222,15 @@ def test_k5_matches_plain(cuda, d, slots, n):
 
 def test_k5_broadcast_operand(cuda):
     """A constant right operand broadcast over the batch (the Frobenius
-    gammas, the eighth roots)."""
+    gammas, the eighth roots), and strided component views, read in place."""
     x, g = _field((40, 6, 2), 7).to(cuda), _field((6, 2), 8).to(cuda)
     got = tower.alg_mul(x, g.expand(x.shape))
     assert torch.equal(got, tower._alg_mul(x, g.expand(x.shape)))
+    z = _field((40, 12), 9).to(cuda)
+    got = tower.alg_mul(z[:, 2:4], z[:, 8:10])
+    assert torch.equal(got, tower._alg_mul(z[:, 2:4], z[:, 8:10]))
+    p = _field((33, 3, 2), 10).to(cuda)
+    assert torch.equal(tower.alg_mul(p[:, 2], p[:, 1]), tower._alg_mul(p[:, 2], p[:, 1]))
 
 
 def test_field_kernels_empty_and_plain_mode(cuda):
@@ -255,3 +262,89 @@ def test_small_verify_card_equals_cpu_and_plain(cuda):
         for k, v in runs["kernel"][1].items():
             assert torch.equal(runs[name][1][k], v), (name, k)
     assert runs["kernel"][0].tolist() == [True, True]
+
+
+# --- K4 tapes -----------------------------------------------------------------
+
+TAPE_NAMES = sorted(fp.TAPES)
+
+
+def _tape_inputs(tape, n, seed, broadcast=False):
+    """Seeded inputs of ``tape`` over n lanes; with ``broadcast`` the last
+    input is one constant expanded over the lanes (element stride 0)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, s in enumerate(tape.in_shapes):
+        last = broadcast and i == len(tape.in_shapes) - 1
+        shape = ((1,) if last else (n,)) + s
+        d = rng.integers(0, 1 << fp.BITS, shape + (fp.L,), dtype=np.int32)
+        d[..., -1] = rng.integers(0, int(fp.TWO_P[-1]), shape, dtype=np.int32)   # below 2p
+        flat = d.reshape(-1, fp.L)
+        for r, v in enumerate(_EDGES[:len(flat)]):
+            flat[(r * 7 + i) % len(flat)] = fp.to_limbs(v)
+        t = torch.from_numpy(d)
+        out.append(t.expand((n,) + s + (fp.L,)) if last else t)
+    return out
+
+
+@pytest.mark.parametrize("name", TAPE_NAMES)
+@pytest.mark.parametrize("n,broadcast", [(1, False), (33, False), (4096, False), (33, True)])
+def test_tape_matches_plain(cuda, name, n, broadcast):
+    """Every registered tape on the card, one launch, equal to its plain
+    version; every output written as the components of one tensor."""
+    tape = fp.TAPES[name]
+    args = [t.to(cuda) for t in _tape_inputs(tape, n, len(name) + n, broadcast)]
+    before = kernels.launches["fp_addsub"]
+    got = fp.run_tape(tape, *args)
+    torch.cuda.synchronize()
+    assert kernels.launches["fp_addsub"] == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    with fp.plain_mode():
+        want = fp.run_tape(tape, *args)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w, shape in zip(got, want, tape.out_shapes, strict=True):
+        assert g.shape == (n,) + shape + (fp.L,) and g.is_contiguous()
+        assert torch.equal(g, w)
+
+
+def test_tape_strided_inputs(cuda):
+    """Component views read in place: a tape over x[..., 2:4, :] of an Fq12
+    and over a two-dim batch."""
+    x = _field((50, 12), 3).to(cuda)
+    got = tower.fq2_mul_xi(x[:, 2:4])
+    assert torch.equal(got, fp._run_tape(fp.TAPES["fq2_mul_xi"], x[:, 2:4]))
+    y = _field((7, 5, 2), 4).to(cuda)
+    assert torch.equal(tower.fq2_muli(y, 9), fp._run_tape(tower._muli_tape(9), y))
+
+
+def test_fused_callers_launch_counts(cuda):
+    """A cyclotomic squaring is at most 12 field-kernel launches (two tapes
+    and one K5); fq2_muli is one launch for any k >= 2 and none for 0, 1."""
+    x = _field((64, 12), 5).to(cuda)
+    before = dict(kernels.launches)
+    got = tower.fq12_cyclotomic_sq(x)
+    torch.cuda.synchronize()
+    used = {k: kernels.launches[k] - before[k] for k in before}
+    assert sum(used.values()) <= 12 and used == {**used, "fp_addsub": 2, "alg_mul": 1}
+    with fp.plain_mode():
+        assert torch.equal(got, tower.fq12_cyclotomic_sq(x))
+    y = x[:, :2]
+    for k in range(10):
+        before = kernels.launches["fp_addsub"]
+        out = tower.fq2_muli(y, k)
+        assert kernels.launches["fp_addsub"] == before + (k >= 2)
+        with fp.plain_mode():
+            assert torch.equal(out, tower.fq2_muli(y, k))
+
+
+def test_field_launch_failure_raises(cuda):
+    """A launch CUDA refuses raises, and is not counted."""
+    before = dict(kernels.launches)
+    io = (ctypes.c_longlong * 2)(0, 0)
+    with pytest.raises(RuntimeError, match="fp_addsub launch failed"):
+        kernels.launch_on(cuda, "fp_addsub", io, 1, bytes(2), 0, 1, 0, 1)     # no steps
+    tower.alg_mul(*(_field((2, 2), 6).to(cuda),) * 2)                       # plans uploaded
+    before = dict(kernels.launches)
+    with pytest.raises(RuntimeError, match="alg_mul launch failed"):
+        kernels.launch_on(cuda, "alg_mul", 0, 0, 0, 0, 0, 1, 7)               # no plan 7
+    assert kernels.launches == before
