@@ -51,29 +51,35 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     opcode group, per signer and per pair, and the two bounds they give;
 15. hold the field kernels K3 (``csrc/fp_modmul.cu``), K4
     (``csrc/fp_addsub.cu``) and K5 (``csrc/alg_mul.cu``) against their
-    plain versions at the BLS path's shapes, digit for digit: K3 on the
-    4096 x 144 products of an Fq12 multiply over the doubled Miller batch
-    and on edge values, every registered K4 tape over 4096 lanes (the
-    single ops at [4096, 12, 32]), K5 for d = 2, 6, 12 and the sparse line
-    plan at 4096 lanes and for the 9 Fq2 squarings of a cyclotomic
-    squaring;
+    plain versions at the BLS path's shapes, digit for digit: K3's product
+    at [2048], the G1 tree's level [2048, 64] (unbind views read in place),
+    the line evaluation [4096, 2, 2], a scalar broadcast over Fq2
+    components, and on edge values, at 1 and 4 lanes an element (and at
+    4096 x 144, off the path: K5 makes the Fq12 products); K3's ladders (the inversion and
+    square-root exponents) over 2048 elements in one launch; every
+    registered K4 tape over 4096 lanes (the single ops at [4096, 12, 32]),
+    K5 for d = 2, 6, 12 and the sparse line plan at 4096 lanes and for the
+    9 Fq2 squarings of a cyclotomic squaring;
 16. drive the fourth slice's path once -- ``bls_verify.run`` at 2048
     aggregates over 262,144 signers (BASELINE config 3): setup, signature
     decompression, hash-to-G2, the batched pairing and the swapped-pair
     negative control -- with the launch counts zeroed just before and read
     just after: every aggregate verifies, exactly the swapped pair fails,
-    K3-K5 launched and K1, K2 not;
+    K3-K5 launched and K1, K2 not, each of the 3 inversion chains of a
+    verify one K3 ladder launch;
 17. hold that path at B = 2: the ``plain=True`` run on the card and the
     CPU run equal the kernel run in the aggregate keys, Miller values,
     final exponentiation and verdicts; 8 aggregates' hashed messages and
     verdicts equal the port's oracle copy; the field launches and other
     aten ops of each verify stage at B = 2;
 18. time K3-K5 per launch at the path's shapes against their plain
-    versions and bounds (every K4 tape against the bytes of its rows, by
-    CUDA events and by ``torch.profiler``), the wrappers' calls, and the
-    pairing stage under ``torch.profiler``;
-19. the integer bound of K3 from its SASS count, and the SASS census of
-    K4 and K5.
+    versions and bounds: kernel ms by CUDA events over raw launches,
+    device ms by the replay of a CUDA graph of them, the wrappers' calls
+    (K3 at each of its shapes and ladders, at 1 and 4 lanes an element;
+    every K4 tape against the bytes of its rows); the pairing stage under
+    ``torch.profiler``;
+19. K3's SASS recounted per function and the bound it gives, and the
+    SASS census of K4 and K5.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and
@@ -83,6 +89,7 @@ prints no result. Run from the repository root: ``python3 chip_smoke.py``.
 import contextlib
 import hashlib
 import json
+import math
 import multiprocessing
 import os
 import subprocess
@@ -195,17 +202,23 @@ INT_PIPE_LANE_OPS_PER_S = H100_SMS * INT32_LANES * H100_CLOCK_HZ
 BLS_AGGREGATES, BLS_SIGNERS = 2048, 262_144
 BLS_LANES = 2 * BLS_AGGREGATES
 BLS_SMALL, BLS_ORACLE = 2, 8
-FIELD_KERNELS = {   # name -> (source, the JAX function it replaces)
+FIELD_KERNELS = {   # name -> (source, the JAX function it replaces): the kernels line's rows
     "fp_modmul": ("pos_evolution_tpu_torch/csrc/fp_modmul.cu", "pos_evolution_tpu/ops/fp.py:204"),
     "fp_addsub": ("pos_evolution_tpu_torch/csrc/fp_addsub.cu", "pos_evolution_tpu/ops/fp.py:210"),
     "alg_mul": ("pos_evolution_tpu_torch/csrc/alg_mul.cu", "pos_evolution_tpu/ops/tower.py:129"),
 }
+# K3's ladders (launch counter fp_pow, on K3's row) replace the jitted scans
+K3_LADDER_REPLACES = ("pos_evolution_tpu/ops/fp.py:244", "pos_evolution_tpu/ops/g2prep.py:66")
+K3_GROUPS = (1, 4)                   # lanes per element that phases 15 and 18 run
+LADDERS = {"modinv": fp._P_MINUS_2_BITS, "sqrt": g2prep._SQRT_FQ_BITS}
 FQ_BYTES = 128                       # one element: 32 int32 digits
 # 32x32->64-bit partial products of one K3 product: 12 x 12 for a * b, 13 x 13
-# for the quotient estimate, 78 for its low product with p. Hopper issues 64
+# for the quotient estimate, 78 for its low product with p; a squaring needs
+# 78 for a * a (12 squares, 66 cross products counted once). Hopper issues 64
 # 32-bit integer multiplies per SM per clock (the CUDA guide's table, cc 9.0),
 # one IMAD.WIDE each at best.
 PP_MODMUL = 144 + 169 + 78
+PP_MODSQR = 78 + 169 + 78
 IMUL_PER_S = H100_SMS * 64 * H100_CLOCK_HZ
 # (d, sparse slots) of K5's calls on the path: Fq2, Fq6, Fq12 and the line
 ALG_SHAPES = ((2, None), (6, None), (12, None), (12, (0, 1, 2, 3, 8, 9)))
@@ -404,12 +417,35 @@ def profiled(fn) -> dict:
             "kernel_ms": {name: us / 1e3 for name, us in per.items()}}
 
 
-def device_ms(fn, kernel: str, reps: int):
-    """Mean device ms per launch of ``kernel`` over ``reps`` calls of ``fn``
-    under ``torch.profiler`` (its kernel time, not the host's); None where
-    the profiler recorded no time for the kernel."""
-    ms = profiled(lambda: [fn() for _ in range(reps)])["kernel_ms"][kernel]
-    return ms / reps if ms > 0 else None
+def device_ms(fn, reps: int = 20):
+    """Mean device ms per call of ``fn`` with the host's launch rate taken
+    out: ``reps`` calls captured in a CUDA graph, the graph replayed once as
+    a warm-up, then once between two CUDA events. ``fn`` launches on the
+    current stream (``kernels.launch_on``). None where the capture fails."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+    except RuntimeError as exc:
+        say(f"device_ms: the CUDA graph capture failed ({exc}); not measured")
+        torch.cuda.synchronize()
+        return None
+
+
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
 
 
 def sync_count(fn) -> int:
@@ -470,12 +506,30 @@ def run_record(sim, epochs: int) -> dict:
             "digest": state_digest(sim)}
 
 
+def kernel_key(mangled: str) -> str:
+    """A kernel function's key from its mangled name: the last name of the
+    nested name without ``_kernel``, and ``_g<G>`` for a template argument
+    G (``fp_pow_g4``); the name itself where it is not mangled."""
+    import re
+    nested = mangled.startswith("_ZN")
+    if not nested and not mangled.startswith("_Z"):
+        return mangled
+    rest, last = mangled[3 if nested else 2:], mangled
+    while rest[:1].isdigit() and (nested or last is mangled):
+        digits = re.match(r"\d+", rest).group()
+        end = len(digits) + int(digits)
+        last, rest = rest[len(digits):end], rest[end:]
+    template = re.match(r"ILi(\d+)EE", rest)
+    return last.removesuffix("_kernel") + (f"_g{template.group(1)}" if template else "")
+
+
 def sass_census() -> dict:
-    """Each kernel's SASS from its built library (``cuobjdump -sass``), by
-    opcode group: {kernel: {"body": {...}, "total": {...}}}. K1's body is
-    what follows the block's barrier (every signer runs it; before it,
-    warp 0 builds the schedule once per block); K2's is the whole kernel
-    (one pair per thread, straight-line). None when cuobjdump is absent."""
+    """Each kernel function's SASS from its built library (``cuobjdump
+    -sass``), by opcode group: {kernel: {"body": {...}, "total": {...}}},
+    K3's functions as ``fp_modmul_g<G>`` and ``fp_pow_g<G>`` (G lanes an
+    element). K1's body is what follows the block's barrier (every signer
+    runs it; before it, warp 0 builds the schedule once per block); the
+    others' the whole function. None when cuobjdump is absent."""
     import re
     import shutil
     from pathlib import Path
@@ -484,25 +538,30 @@ def sass_census() -> dict:
         return None
     line_re = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)")
     groups = ("LOP3", "SHF", "IADD3", "IMAD")
+
+    def census(seq):
+        c = {g: 0 for g in (*groups, "other")}
+        for op in seq:
+            base = op.split(".")[0]
+            c[base if base in groups else "other"] += 1
+        c["all"] = len(seq)
+        c["IMAD_WIDE"] = sum(op.startswith("IMAD.WIDE") for op in seq)   # within IMAD
+        return c
+
     out = {}
-    for name in kernels.KERNELS:
-        text = subprocess.run([tool, "-sass", str(kernels._library_path(name))],
+    for name in dict.fromkeys(kernels.KERNELS[k][0] for k in kernels.KERNELS):
+        lib = next(k for k in kernels.KERNELS if kernels.KERNELS[k][0] == name)
+        text = subprocess.run([tool, "-sass", str(kernels._library_path(lib))],
                               capture_output=True, text=True, timeout=120, check=True).stdout
-        ops = line_re.findall(text)
-        if name == "agg_sig":
-            cut = next(i for i, op in enumerate(ops) if op.startswith("BAR"))
-            body = ops[cut + 1:]
-        else:
+        parts = re.split(r"Function : (\S+)", text)
+        for mangled, body_text in zip(parts[1::2], parts[2::2]):
+            key = kernel_key(mangled)
+            ops = line_re.findall(body_text)
             body = ops
-        def census(seq):
-            c = {g: 0 for g in (*groups, "other")}
-            for op in seq:
-                base = op.split(".")[0]
-                c[base if base in groups else "other"] += 1
-            c["all"] = len(seq)
-            c["IMAD_WIDE"] = sum(op.startswith("IMAD.WIDE") for op in seq)   # within IMAD
-            return c
-        out[name] = {"body": census(body), "total": census(ops)}
+            if key == "agg_sig":
+                cut = next(i for i, op in enumerate(ops) if op.startswith("BAR"))
+                body = ops[cut + 1:]
+            out[key] = {"body": census(body), "total": census(ops)}
     return out
 
 
@@ -535,6 +594,24 @@ def field_digits(rng, shape, edges: bool = True) -> torch.Tensor:
 
 def digit_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def distinct_rows(*ts) -> int:
+    """Rows of 32 digits that the views ``ts`` address between them, each
+    counted once: a broadcast row, or a row two operands share, is read once."""
+    addrs = []
+    for t in ts:
+        off = np.zeros((), np.int64)
+        for size, st in zip(t.shape[:-1], t.stride()[:-1]):
+            off = np.add.outer(off, np.arange(size, dtype=np.int64) * st)
+        addrs.append(t.data_ptr() // 4 + off.ravel())
+    return len(np.unique(np.concatenate(addrs)))
+
+
+def ladder_partial_products(n: int, bits) -> int:
+    """Partial products of a ladder over n elements: a squaring for every
+    bit, a product for every one bit."""
+    return n * (len(bits) * PP_MODSQR + int(np.sum(bits)) * PP_MODMUL)
 
 
 def field_bound(nbytes: int, partial_products: int, other_ops: int = 0) -> dict:
@@ -595,30 +672,76 @@ class OpCount:
 def bls_phases(dev, card: str, census) -> list:
     """Phases 15-19: the field kernels K3-K5 and the real-BLS verify path
     (BASELINE config 3). Returns K3-K5's rows of the kernels line."""
-    stream = torch.cuda.current_stream(dev).cuda_stream
     rng = np.random.default_rng(15)
     err = {}
 
-    # 15. K3-K5 against their plain versions at the path's shapes
-    shape3 = (BLS_LANES, 144)                     # an Fq12 multiply's products
+    # 15. K3-K5 against their plain versions at the path's shapes. K3: its
+    # product at each shape it has on the path, operands read in place (the
+    # G1 tree's unbind views, a broadcast scalar), by every lane split; its
+    # ladders (the inversion and square-root exponents) at 2048 elements
+    shape3 = (BLS_LANES, 144)          # an Fq12 multiply's products: off the path (K5 makes them)
     a3, b3 = field_digits(rng, shape3).to(dev), field_digits(rng, shape3).to(dev)
-    got = fp.modmul(a3, b3)
-    ref = fp._modmul(a3, b3)
-    err["fp_modmul"] = digit_err(got, ref)
-    check(torch.equal(got, ref), f"K3 differs from its plain version at {shape3}")
+
+    def tree_level(k):      # the G1 sum tree's Jacobian add at k lanes a committee
+        jac = field_digits(rng, (BLS_AGGREGATES, 2 * k, 3), edges=False).to(dev)
+        return jac[:, :k].unbind(-2)[0], jac[:, k:].unbind(-2)[2]
+
+    c2 = field_digits(rng, (BLS_LANES, 2)).to(dev)
+    k3_cases = {    # name -> (a, b): the products of the path, then the former headline
+        "2048": (field_digits(rng, (BLS_AGGREGATES,)).to(dev),
+                 field_digits(rng, (BLS_AGGREGATES,)).to(dev)),
+        "2048x64 tree level": tree_level(64),
+        "2048x32 tree level": tree_level(32),
+        "2048x16 tree level": tree_level(16),
+        "4096x2x2 line": (field_digits(rng, (BLS_LANES, 2, 2)).to(dev),
+                          field_digits(rng, (BLS_LANES, 2, 2)).to(dev)),
+        "4096x2 scale": (c2, c2[:, 0, None, :]),
+        "4096x144 (off the path)": (a3, b3),
+    }
+    err["fp_modmul"] = 0
+    for name, (x, y) in k3_cases.items():
+        ref = fp._modmul(x, y)
+        _, _, keep = fp._modmul_launch(x, y)
+        check(keep[0].data_ptr() == x.data_ptr() and keep[1].data_ptr() == y.data_ptr(),
+              f"K3 copies an operand at {name}")
+        for g in K3_GROUPS:
+            out, args, _ = fp._modmul_launch(x, y, g)
+            kernels.launch_on(dev, "fp_modmul", *args)
+            err["fp_modmul"] = max(err["fp_modmul"], digit_err(out, ref))
+            check(torch.equal(out, ref), f"K3 ({g} lanes an element) differs from plain at {name}")
+        check(torch.equal(fp.modmul(x, y), ref), f"K3 differs from its plain version at {name}")
     edge_vals = [0, 1, 2, fp.P_INT - 1, fp.P_INT, fp.P_INT + 1, 2 * fp.P_INT - 2,
                  2 * fp.P_INT - 1]
     e = torch.from_numpy(np.stack([fp.to_limbs(v) for v in edge_vals])).to(dev)
-    got = fp.modmul(e[:, None], e[None])          # broadcast, products up to (2p - 1)^2
-    ref = fp._modmul(e[:, None], e[None])
-    err["fp_modmul"] = max(err["fp_modmul"], digit_err(got, ref))
-    check(torch.equal(got, ref), "K3 differs from its plain version on the edge values")
+    ref = fp._modmul(e[:, None], e[None])       # broadcast, products up to (2p - 1)^2
+    for g in K3_GROUPS:
+        got, args, _ = fp._modmul_launch(e[:, None], e[None], g)
+        kernels.launch_on(dev, "fp_modmul", *args)
+        err["fp_modmul"] = max(err["fp_modmul"], digit_err(got, ref))
+        check(torch.equal(got, ref), f"K3 ({g} lanes) differs from plain on the edge values")
     got_np = got.cpu().numpy()
     for i, x in enumerate(edge_vals):
         for j, y in enumerate(edge_vals):
             v = fp.from_limbs(got_np[i, j])
             check(v < 2 * fp.P_INT and v % fp.P_INT == x * y % fp.P_INT,
                   f"K3 edge product {i} x {j} is wrong")
+    x_lad = field_digits(rng, (BLS_AGGREGATES,)).to(dev)
+    x_lad[len(edge_vals):2 * len(edge_vals)] = e
+    for name, bits in LADDERS.items():
+        ref = fp._pow_static(x_lad, bits)
+        for g in K3_GROUPS:
+            out, args, _ = fp._pow_launch(x_lad, bits, g)
+            kernels.launch_on(dev, "fp_pow", *args)
+            err["fp_modmul"] = max(err["fp_modmul"], digit_err(out, ref))
+            check(torch.equal(out, ref), f"K3's {name} ladder ({g} lanes) differs from plain")
+        k = int("".join("1" if b else "0" for b in bits), 2)
+        ref_np, x_np = ref.cpu().numpy(), x_lad.cpu().numpy()
+        for i in (0, 1, 2, 7, 8, 100, BLS_AGGREGATES - 1):
+            check(fp.from_limbs(ref_np[i]) % fp.P_INT
+                  == pow(fp.from_limbs(x_np[i]) % fp.P_INT, k, fp.P_INT),
+                  f"the {name} ladder's row {i} is not x^k mod p")
+    check(torch.equal(fp.modinv(x_lad), fp._pow_static(x_lad, fp._P_MINUS_2_BITS)),
+          "fp.modinv differs from the plain ladder")
     del got, ref
     shape4 = (BLS_LANES, 12)
     tape_in = {}
@@ -647,9 +770,12 @@ def bls_phases(dev, card: str, census) -> list:
     check(torch.equal(got, ref), "K5 differs from its plain version on a cyclotomic squaring's 9")
     del got, ref, sq9
     torch.cuda.empty_cache()
-    say(f"K3 vs plain at {shape3[0]} x {shape3[1]} products and {len(edge_vals)}^2 broadcast "
-        f"edge pairs (values checked mod p); K4's {len(tape_in)} tapes ({', '.join(ADDSUB_OPS)} "
-        f"at {list(shape4)}, the rest at {BLS_LANES} lanes); K5 at {BLS_LANES} lanes for d = 2, "
+    say(f"K3 vs plain at {', '.join(k3_cases)} (every operand read in place), by "
+        f"{', '.join(map(str, K3_GROUPS))} lanes an element, {len(edge_vals)}^2 broadcast edge "
+        f"pairs (values checked mod p), and the {' and '.join(LADDERS)} ladders at "
+        f"{BLS_AGGREGATES} elements in one launch (rows checked against pow); K4's "
+        f"{len(tape_in)} tapes ({', '.join(ADDSUB_OPS)} at {list(shape4)}, the rest at "
+        f"{BLS_LANES} lanes); K5 at {BLS_LANES} lanes for d = 2, "
         f"6, 12 and the line plan, and {BLS_LANES} x 9 Fq2 squarings: digit-equal "
         f"(max abs digit error {err})")
 
@@ -660,9 +786,12 @@ def bls_phases(dev, card: str, census) -> list:
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
     s = bls.summary
-    check(all(launches[k] > 0 for k in FIELD_KERNELS)
+    check(all(launches[k] > 0 for k in bls_verify.FIELD_KERNELS)
           and launches["agg_sig"] == 0 and launches["merkle_level"] == 0,
           f"BLS path launches {launches}: want K3-K5, and neither K1 nor K2")
+    vl = s["verify_launches"]
+    check(vl["fp_pow"] == 3, f"K3 ladder launches per verify: {vl['fp_pow']}, want 3 (the "
+          "inversions of g1_to_affine, the final exponentiation and the hash-to-G2 finish)")
     check(s["verified"] == BLS_AGGREGATES and s["negative_control_rejected"] == [0, 1]
           and s["negative_control_passed"] == BLS_AGGREGATES - 2,
           f"BLS verdicts: {s['verified']} verified, negative control {s['negative_control_rejected']}")
@@ -670,7 +799,8 @@ def bls_phases(dev, card: str, census) -> list:
     for name, x in (("msg_g2", t.msg_g2), ("sig_g2", t.sig_g2)):
         check(x.shape == (BLS_AGGREGATES, 2, 2, fp.L) and x.dtype == torch.int32
               and bool(((x >= 0) & (x < 1 << fp.BITS)).all()), f"{name} is not canonical digits")
-    say(f"BLS path B={BLS_AGGREGATES} N={BLS_SIGNERS}: launches {launches}; all "
+    say(f"BLS path B={BLS_AGGREGATES} N={BLS_SIGNERS}: K3 per verify {vl['fp_modmul']} products "
+        f"and {vl['fp_pow']} ladders (one a chain of 610 products); launches {launches}; all "
         f"{s['verified']} aggregates verify; the swapped pair {s['negative_control_rejected']} "
         f"fails, the other {s['negative_control_passed']} pass")
     say(f"[{card}] BLS path summary: {json.dumps(s)}")
@@ -690,7 +820,8 @@ def bls_phases(dev, card: str, census) -> list:
         torch.cuda.synchronize()
         runs[name] = {"ok": ok.cpu(), "stages": {k: v.cpu() for k, v in stages.items()},
                       "s": time.perf_counter() - t0,
-                      "launches": {k: kernels.launches[k] - before[k] for k in FIELD_KERNELS},
+                      "launches": {k: kernels.launches[k] - before[k]
+                                   for k in bls_verify.FIELD_KERNELS},
                       "ops": getattr(counter, "ops", None)}
         del args
     for name in ("plain", "cpu"):
@@ -718,7 +849,8 @@ def bls_phases(dev, card: str, census) -> list:
         before = dict(kernels.launches)
         with torch.inference_mode(), OpCount() as counter:
             fn()
-        stage_ops[stage] = {**{k: kernels.launches[k] - before[k] for k in FIELD_KERNELS},
+        stage_ops[stage] = {**{k: kernels.launches[k] - before[k]
+                               for k in bls_verify.FIELD_KERNELS},
                             "aten_ops": counter.ops}
     say(f"[{card}] BLS verify stages at B={BLS_SMALL}, field-kernel launches and aten ops "
         f"(one per new tensor, the wrappers' outputs included): {json.dumps(stage_ops)}")
@@ -742,31 +874,59 @@ def bls_phases(dev, card: str, census) -> list:
     say(f"BLS path: {BLS_ORACLE} aggregates' hashed messages and verdicts, and the swapped "
         f"pair's, == the port's oracle copy (PyBLS.FastAggregateVerify, {oracle_s:.3f} s)")
 
-    # 18. per-launch times against the plain versions and the bounds
+    # 18. per-launch times against the plain versions and the bounds: kernel
+    # ms by CUDA events over raw launches, device ms by the replay of a CUDA
+    # graph of them (the host's launch rate taken out), the wrappers' calls
     rows = {}
-    n3 = BLS_LANES * 144
     by_shape = {}
-    # the shape of phase 15, and the pk-sum tree's first level, K3's largest
-    # call on the path (K5 makes the Fq12 products itself)
-    for x, y in ((a3, b3), (a3[:BLS_AGGREGATES, :64], b3[:BLS_AGGREGATES, :64])):
-        x, y = x.contiguous(), y.contiguous()
-        n = x.numel() // fp.L
-        out3 = torch.empty_like(x)
-        by_shape["x".join(map(str, x.shape[:-1]))] = {
-            "ms": time_ms(lambda: kernels.launch("fp_modmul", x.data_ptr(), y.data_ptr(),
-                                                 out3.data_ptr(), n, stream), 20),
-            "plain_ms": time_ms(lambda: fp._modmul(x, y), 2),
-            "bound": field_bound(3 * FQ_BYTES * n, PP_MODMUL * n)}
-    rows["fp_modmul"] = dict(by_shape[f"{BLS_LANES}x144"], shape=list(shape3),
-                             wrapper_ms=time_ms(lambda: fp.modmul(a3, b3), 20),
+    kept = []           # every tensor a raw launch below reads or writes, kept alive
+    for name, (x, y) in k3_cases.items():
+        n = math.prod(torch.broadcast_shapes(x.shape, y.shape)[:-1])
+        entry = {"elements": n, "group": fp.k3_group(n)}
+        for g in K3_GROUPS:
+            out, args, keep = fp._modmul_launch(x, y, g)
+            kept.append((out, keep))         # the raw launches write out and read keep
+            raw = lambda args=args: kernels.launch_on(dev, "fp_modmul", *args)   # noqa: E731
+            entry[f"g{g}"] = {"ms": time_ms(raw, 20), "device_ms": device_ms(raw)}
+        entry.update(entry[f"g{entry['group']}"])
+        entry["wrapper_ms"] = time_ms(lambda: fp.modmul(x, y), 20)
+        entry["plain_ms"] = time_ms(lambda: fp._modmul(x, y), 2)
+        entry["bound"] = field_bound((distinct_rows(x, y) + n) * FQ_BYTES, PP_MODMUL * n)
+        by_shape[name] = entry
+    for name, bits in LADDERS.items():
+        n, steps = BLS_AGGREGATES, len(bits) + int(np.sum(bits))
+        entry = {"elements": n, "group": fp.k3_group(n), "steps": steps}
+        for g in K3_GROUPS:
+            out, args, keep = fp._pow_launch(x_lad, bits, g)
+            kept.append((out, keep))
+            raw = lambda args=args: kernels.launch_on(dev, "fp_pow", *args)      # noqa: E731
+            entry[f"g{g}"] = {"ms": time_ms(raw, 5), "device_ms": device_ms(raw, 5)}
+        entry.update(entry[f"g{entry['group']}"])
+        entry["wrapper_ms"] = time_ms(lambda: fp.pow_static(x_lad, bits), 5)
+        entry["plain_ms"] = time_ms(lambda: fp._pow_static(x_lad, bits), 1)
+        entry["bound"] = field_bound(2 * FQ_BYTES * n, ladder_partial_products(n, bits))
+        by_shape[f"{name} ladder {n}"] = entry
+    rows["fp_modmul"] = dict(by_shape["2048x64 tree level"], shape=[BLS_AGGREGATES, 64],
                              by_shape=by_shape)
-    by_tape, raw, kept = {}, {}, []
+    for key, v in by_shape.items():
+        say(f"[{card}] fp_modmul {key} ({v['elements']} elements"
+            + (f", {v['steps']} steps" if "steps" in v else "") + f"; {v['group']} lanes an "
+            f"element on the path): kernel {v['ms']:.4f} ms, device {fmt_ms(v['device_ms'])}, "
+            f"wrapper {v['wrapper_ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound "
+            f"{v['bound']['ms']:.4f} ms ({v['bound']['by']}), "
+            f"{100 * v['bound']['ms'] / v['ms']:.1f}% of it by kernel ms"
+            + ("" if v["device_ms"] is None else
+               f", {100 * v['bound']['ms'] / v['device_ms']:.1f}% by device ms")
+            + "; by lanes an element: "
+            + ", ".join(f"{g}: kernel {v[f'g{g}']['ms']:.4f} ms, device "
+                        f"{fmt_ms(v[f'g{g}']['device_ms'])}" for g in K3_GROUPS))
+    by_tape, raw = {}, {}
     for name, args in tape_in.items():
         tape = fp.TAPES[name]
-        _, (largs, keep) = fp._tape_launch(tape, args)
-        kept.append(keep)                    # any input copies the raw launches read
+        outs, (largs, keep) = fp._tape_launch(tape, args)
+        kept.append((outs, keep))            # the outputs and any input copies
         n = largs[-1]
-        raw[name] = lambda largs=largs: kernels.launch("fp_addsub", *largs, stream)
+        raw[name] = lambda largs=largs: kernels.launch_on(dev, "fp_addsub", *largs)
         by_tape[name] = {
             "lanes": n, "rows": len(tape.rows) + sum(tape.out_rows), "steps": len(tape.steps),
             "ms": time_ms(raw[name], 20),
@@ -776,7 +936,7 @@ def bls_phases(dev, card: str, census) -> list:
             plain = getattr(fp, "_" + name)
             by_tape[name]["plain_ms"] = time_ms(lambda: plain(*args), 5)
     for name, fn in raw.items():
-        by_tape[name]["device_ms"] = device_ms(fn, "fp_addsub", 10)
+        by_tape[name]["device_ms"] = device_ms(fn)
     a4, b4 = tape_in["modadd"]
     rows["fp_addsub"] = dict(by_tape["modadd"], shape=list(shape4), by_tape=by_tape,
                              wrapper_ms=time_ms(lambda: fp.modadd(a4, b4), 20))
@@ -785,27 +945,30 @@ def bls_phases(dev, card: str, census) -> list:
         dy = y.shape[-2]
         out5 = torch.empty_like(x)
         q = tower._PLAN_ID[d, slots]
+        raw = (lambda x=x, y=y, out5=out5, d=d, dy=dy, q=q: kernels.launch_on(   # noqa: E731
+            dev, "alg_mul", x.data_ptr(), d * fp.L, y.data_ptr(), dy * fp.L, out5.data_ptr(),
+            BLS_LANES, q))
         by_shape[f"d{d}" + ("_line" if slots else "")] = {
-            "ms": time_ms(lambda: kernels.launch("alg_mul", x.data_ptr(), d * fp.L, y.data_ptr(),
-                                                 dy * fp.L, out5.data_ptr(), BLS_LANES, q,
-                                                 stream), 20),
+            "ms": time_ms(raw, 20),
+            "device_ms": device_ms(raw),
             "plain_ms": time_ms(lambda: tower._alg_mul(x, y, slots), 2),
             "wrapper_ms": time_ms(lambda: tower.alg_mul(x, y, slots), 20),
             "bound": field_bound((2 * d + dy) * FQ_BYTES * BLS_LANES,
                                  alg_mul_partial_products(d, slots) * BLS_LANES)}
-    for key, ((d, slots), (x, y)) in zip(by_shape, alg_in.items()):
-        by_shape[key]["device_ms"] = device_ms(lambda: tower.alg_mul(x, y, slots), "alg_mul", 10)
     x, y = alg_in[12, None]
     rows["alg_mul"] = dict(by_shape["d12"], shape=[BLS_LANES, 12], by_shape=by_shape,
                            wrapper_ms=time_ms(lambda: tower.alg_mul(x, y), 20))
-    for name, r in rows.items():
+    for name in ("fp_addsub", "alg_mul"):
+        r = rows[name]
         extra = r.get("by_tape") or r["by_shape"]
-        say(f"[{card}] {name} per launch (CUDA events over 20; device_ms by torch.profiler): "
-            + "; ".join(
-                f"{k} kernel {v['ms']:.4f} ms, device {v.get('device_ms') or float('nan'):.4f} ms, "
+        say(f"[{card}] {name} per launch (CUDA events over 20; device ms by a CUDA graph's "
+            "replay): " + "; ".join(
+                f"{k} kernel {v['ms']:.4f} ms, device {fmt_ms(v.get('device_ms'))}, "
                 f"wrapper {v.get('wrapper_ms', float('nan')):.4f} ms, plain "
-                f"{v.get('plain_ms', float('nan')):.4f} ms, bound {v['bound']['ms']:.4f} ms "
+                f"{fmt_ms(v.get('plain_ms'))}, bound {v['bound']['ms']:.4f} ms "
                 f"({v['bound']['by']}), {100 * v['bound']['ms'] / v['ms']:.1f}% of it"
+                + ("" if v.get("device_ms") is None else
+                   f" ({100 * v['bound']['ms'] / v['device_ms']:.1f}% by device ms)")
                 + (f", {v['lanes']} lanes x {v['rows']} rows, {v['steps']} steps" if "rows" in v
                    else "") for k, v in extra.items()))
     torch.cuda.empty_cache()
@@ -814,38 +977,65 @@ def bls_phases(dev, card: str, census) -> list:
     say(f"[{card}] BLS pairing stage at B={BLS_AGGREGATES} under torch.profiler: wall "
         f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms "
         f"({100 * prof['busy_ms'] / prof['wall_ms']:.2f}%); by kernel "
-        + ", ".join(f"{k} {prof['kernel_ms'][k]:.3f} ms" for k in FIELD_KERNELS))
+        + ", ".join(f"{k} {prof['kernel_ms'][k]:.3f} ms" for k in bls_verify.FIELD_KERNELS))
     say(f"[{card}] BLS path: verify {s['verify_s']:.3f} s (signature decompression "
         f"{s['sig_decompress_s']:.3f}, hash-to-G2 {s['hash_to_g2_s']:.3f}, pairing "
         f"{s['pairing_s']:.3f}); {s['aggregates_per_s']:.3f} aggregates/s, "
         f"{s['attestations_per_s']:.1f} attestations/s")
 
-    # 19. the SASS census's bounds for K3 (straight-line, one element a thread),
-    # and the census of K4 (a tape interpreter) and K5
+    # 19. K3's SASS recounted: each function of its library (the product and
+    # the ladder at 1 and 4 lanes an element), the bounds of the product
+    # at one lane from its count at the tree level; the census of K4 (a tape
+    # interpreter) and K5
     if census is not None:
-        b = sass_bounds(census["fp_modmul"]["body"], n3)
-        measured = rows["fp_modmul"]["ms"]
-        say(f"[{card}] fp_modmul at {n3} elements: measured {measured:.4f} ms; bounds "
-            + ", ".join(f"{k} {v:.4f}" for k, v in b.items())
-            + f"; imad / measured {b['imad_ms'] / measured:.3f}")
+        for key in sorted(k for k in census if k.startswith(("fp_modmul_g", "fp_pow_g"))):
+            say(f"SASS {key} (whole function): {json.dumps(census[key]['total'])}")
+        head = rows["fp_modmul"]["by_shape"]["2048x64 tree level"]
+        if "fp_modmul_g1" in census:
+            b = sass_bounds(census["fp_modmul_g1"]["total"], head["elements"])
+            measured = head["g1"]["ms"]
+            say(f"[{card}] fp_modmul at {head['elements']} elements, one lane each: measured "
+                f"{measured:.4f} ms; bounds from the whole function's count "
+                + ", ".join(f"{k} {v:.4f}" for k, v in b.items())
+                + f"; imad / measured {b['imad_ms'] / measured:.3f}")
         for name in ("fp_addsub", "alg_mul"):
             say(f"SASS {name} (whole kernel): {json.dumps(census[name]['total'])}")
+
+    untimed = []            # every time phase 18 took: each shape or tape, and each lane split
+    for name, r in rows.items():
+        for k, v in (r.get("by_tape") or r["by_shape"]).items():
+            splits = [(f" at {g} lanes", v[f"g{g}"]) for g in K3_GROUPS if f"g{g}" in v]
+            untimed += [f"{name} {k}{at}" for at, t in [("", v), *splits]
+                        if t.get("device_ms") is None]
+    check(not untimed, f"no device time (the CUDA graph timer failed) for {untimed}")
 
     out = []
     for name, r in rows.items():
         source, replaces = FIELD_KERNELS[name]
-        out.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                    "launches": launches[name], "max_abs_err": err[name], "matches_plain": True,
-                    "shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-                    "bound_ms": r["bound"]["ms"], "bound_by": r["bound"]["by"],
-                    "library_ms": None, "launches_by_stage": {st: v[name] for st, v in
-                                                              s["launches"].items()},
-                    "wrapper_ms": r["wrapper_ms"],
-                    **({k: {kk: {"ms": vv["ms"], "device_ms": vv.get("device_ms"),
-                                 "plain_ms": vv.get("plain_ms"),
-                                 "wrapper_ms": vv.get("wrapper_ms"),
-                                 "bound_ms": vv["bound"]["ms"]} for kk, vv in r[k].items()}
-                        for k in ("by_tape", "by_shape") if k in r})})
+        counted = ("fp_modmul", "fp_pow") if name == "fp_modmul" else (name,)
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": sum(launches[k] for k in counted), "max_abs_err": err[name],
+               "matches_plain": True, "shape": r["shape"], "ms": r["ms"],
+               "device_ms": r.get("device_ms"), "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound"]["ms"], "bound_by": r["bound"]["by"],
+               "library_ms": None,
+               "launches_by_stage": {st: sum(v[k] for k in counted)
+                                     for st, v in s["launches"].items()},
+               "wrapper_ms": r["wrapper_ms"]}
+        if name == "fp_modmul":
+            row["launches_by_kind"] = {"product": launches["fp_modmul"],
+                                       "ladder": launches["fp_pow"]}
+            row["verify_launches_by_kind"] = {"product": s["verify_launches"]["fp_modmul"],
+                                              "ladder": s["verify_launches"]["fp_pow"]}
+            row["ladder_replaces"] = list(K3_LADDER_REPLACES)
+        for k in ("by_tape", "by_shape"):
+            if k in r:
+                row[k] = {kk: {"ms": vv["ms"], "device_ms": vv.get("device_ms"),
+                               "plain_ms": vv.get("plain_ms"), "wrapper_ms": vv.get("wrapper_ms"),
+                               "bound_ms": vv["bound"]["ms"],
+                               **{f"g{g}": vv[f"g{g}"] for g in K3_GROUPS if f"g{g}" in vv}}
+                          for kk, vv in r[k].items()}
+        out.append(row)
     return out
 
 
@@ -867,7 +1057,7 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"ptxas {name}: {line.strip()}")
-    for name in ("fp_addsub", "alg_mul"):         # the redesigned field kernels: no spills
+    for name in ("fp_modmul", "fp_addsub", "alg_mul"):    # the redesigned field kernels: no spills
         spills = [line for line in reports[name].splitlines() if "spill" in line]
         check(spills and all("0 bytes spill stores, 0 bytes spill loads" in line
                              for line in spills), f"{name} spills registers: {spills}")

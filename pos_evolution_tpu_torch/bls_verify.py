@@ -51,7 +51,7 @@ from pos_evolution_tpu_torch.ops.pairing import (
 )
 
 SEED = 0xC3
-FIELD_KERNELS = ("fp_modmul", "fp_addsub", "alg_mul")
+FIELD_KERNELS = ("fp_modmul", "fp_pow", "fp_addsub", "alg_mul")   # fp_pow: K3's ladders
 
 
 class BlsInputs(NamedTuple):

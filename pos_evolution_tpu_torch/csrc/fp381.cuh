@@ -210,4 +210,116 @@ __device__ __forceinline__ void modmul(const uint32_t* a, const uint32_t* b, uin
   barrett(x, r);
 }
 
+// --- the same product over a group of G lanes of one warp (K3) ---------------
+//
+// Each of the three products of modmul (a * b, the quotient estimate xh * MU
+// and q * p mod 2^384) is split by rows: lane g of the group multiplies the
+// words [R g, R g + R) of its left operand by the whole right operand,
+// schoolbook as mul_full, into a partial of R + N words. The group's lanes
+// write their partials to a shared-memory workspace, meet at __syncwarp, and
+// every lane adds the G partials, shifted by R g words, in the same order:
+// each lane ends with the whole exact product in registers, so the next
+// product's rows need no broadcast, and the carries resolve in one ripple
+// per partial. Everything after the products (the window of x, the
+// quotient's shift, the subtraction and the one conditional subtraction of
+// 2p) is barrett's own code on the same words. The digits are barrett's:
+// only the order in which the exact partial products are summed differs.
+//
+// Workspace: three buffers of G slots of kPartWords words per element, used
+// in turn by the three products. A buffer is written again only three
+// products later, after an intervening __syncwarp that every lane reaches
+// after its last read of it, so one __syncwarp per product suffices. Every
+// lane of the warp must call these routines together (idle groups on
+// dummy operands), as __syncwarp takes the whole warp.
+
+template <int G>
+struct Coop {
+  static_assert(G == 4, "a group is 4 lanes of a warp");
+  static constexpr int kRowsAB = kWords / G;          // rows of a * b and q * p per lane
+  static constexpr int kRowsMu = (13 + G - 1) / G;    // rows of xh * MU per lane
+  static constexpr int kPartWords = kRowsMu + 13;     // the largest partial
+  static constexpr int kBufWords = G * kPartWords;
+  // words of one element's workspace; odd, so the groups of a warp reading
+  // the same word of their own elements hit distinct banks
+  static constexpr int kWsWords = 3 * kBufWords + 1;
+};
+
+// s[m] = v[R g + m] (0 past N), selected from registers without local memory.
+template <int G, int R, int N>
+__device__ __forceinline__ void lane_slice(const uint32_t* v, int g, uint32_t* s) {
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    uint32_t w = 0;
+#pragma unroll
+    for (int h = 0; h < G; ++h)
+      if (R * h + m < N) w = g == h ? v[R * h + m] : w;
+    s[m] = w;
+  }
+}
+
+// out[0, NO) = sum over the group's lanes h of part_h * 2^(32 R h) mod
+// 2^(32 NO), each part_h NP words at buf + h * kPartWords.
+template <int G, int R, int NP, int NO>
+__device__ __forceinline__ void sum_parts(const uint32_t* buf, uint32_t* out) {
+  constexpr int kPart = Coop<G>::kPartWords;
+#pragma unroll
+  for (int k = 0; k < NO; ++k) out[k] = k < NP ? buf[k] : 0;
+#pragma unroll
+  for (int h = 1; h < G; ++h) {
+    uint32_t carry = 0;
+#pragma unroll
+    for (int w = 0; w < NO; ++w) {
+      if (R * h + w < NO) {
+        const uint64_t t = static_cast<uint64_t>(out[R * h + w])
+            + (w < NP ? buf[h * kPart + w] : 0u) + carry;
+        out[R * h + w] = static_cast<uint32_t>(t);
+        carry = static_cast<uint32_t>(t >> 32);
+      }
+    }
+  }
+}
+
+// One product of the group: lane g's rows of `left` (NL words) times
+// `right` (NR words), summed into out[0, NO) through workspace buffer `buf`.
+template <int G, int NL, int NR, int NO>
+__device__ __forceinline__ void coop_product(const uint32_t* left, const uint32_t* right,
+                                             uint32_t* buf, int g, uint32_t* out) {
+  constexpr int R = (NL + G - 1) / G;
+  constexpr int kPart = Coop<G>::kPartWords;
+  uint32_t s[R], part[R + NR];
+  lane_slice<G, R, NL>(left, g, s);
+  mul_full<R, NR>(s, right, part);
+#pragma unroll
+  for (int w = 0; w < R + NR; ++w) buf[g * kPart + w] = part[w];
+  __syncwarp();
+  sum_parts<G, R, R + NR, NO>(buf, out);
+}
+
+// r = a * b mod p in [0, 2p), the digits of modmul, computed by the G lanes
+// of a group (lane g = its index in the group), each holding the whole a
+// and b and receiving the whole r. ws: the element's workspace,
+// Coop<G>::kWsWords words of shared memory.
+template <int G>
+__device__ __forceinline__ void modmul_coop(const uint32_t* a, const uint32_t* b, uint32_t* r,
+                                            uint32_t* ws, int g) {
+  constexpr int kBuf = Coop<G>::kBufWords;
+  uint32_t x[24];
+  coop_product<G, kWords, kWords, 24>(a, b, ws, g, x);
+  uint32_t xh[13], mu[13], prod[25], q[kWords], p[kWords], qp[kWords];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) xh[i] = (x[11 + i] >> 20) | (x[12 + i] << 12);  // x / 2^372
+  xh[12] = x[23] >> 20;
+#pragma unroll
+  for (int i = 0; i < 13; ++i) mu[i] = kMu[i];
+  coop_product<G, 13, 13, 25>(xh, mu, ws + kBuf, g, prod);   // words 0..24 of xh * MU
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {                   // floor(. / 2^396) mod 2^384
+    q[i] = (prod[12 + i] >> 12) | (prod[13 + i] << 20);
+    p[i] = kP[i];
+  }
+  coop_product<G, kWords, kWords, kWords>(q, p, ws + 2 * kBuf, g, qp);   // q * p mod 2^384
+  sub(x, qp, r);                                       // r < 3p, exact mod 2^384
+  cond_sub(r, kTwoP);
+}
+
 }  // namespace fp381

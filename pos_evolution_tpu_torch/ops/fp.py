@@ -15,7 +15,8 @@ three carry folds, and the carry/borrow lookahead as explicit shifted
 come back as int32 (``sum`` is asked for int32 outright).
 
 The wrappers pick by the tensor's device. CUDA tensors go to the kernels,
-written by hand for Hopper (``csrc/fp_modmul.cu`` for ``modmul``,
+written by hand for Hopper (``csrc/fp_modmul.cu`` for ``modmul`` and the
+static-exponent ladders ``pow_static``/``modinv``, one launch each;
 ``csrc/fp_addsub.cu`` for tapes of adds and subtracts, ``run_tape``, of
 which ``modadd``/``modsub``/``modneg``/``canon`` are one-step tapes);
 CPU tensors to the plain versions. Inside ``plain_mode()`` CUDA tensors
@@ -524,17 +525,31 @@ def _batch_stride(batch, strides):
     return es
 
 
+def split_strides(t: torch.Tensor, nb: int, std: tuple, k: int = 0):
+    """(s_outer, s_inner): the element strides of ``t``'s batch dims [:k]
+    and [k:nb], each collapsed to one (size-1 dims skipped; no dims or a
+    broadcast give 0), where both collapse, both and ``t`` are 16-byte
+    aligned and its trailing dims have the packed strides ``std``; else
+    None. The one rule by which K3-K5 read rows in place."""
+    st, sh = t.stride(), t.shape
+    if st[nb:] != std or t.data_ptr() % 16:
+        return None
+    so = _batch_stride(sh[:k], st[:k]) if k else 0
+    si = _batch_stride(sh[k:nb], st[k:nb])
+    if so is None or si is None or so % 4 or si % 4:
+        return None
+    return so, si
+
+
 def element_rows(t: torch.Tensor, nb: int, std: tuple):
     """(t, element stride): ``t`` read in place by one element stride over
-    its ``nb`` batch dims (0 where broadcast) where they collapse to one
-    and its trailing dims have the packed strides ``std``, 16-byte aligned;
-    else a contiguous copy."""
-    st = t.stride()
-    es = (st[0] if t.shape[0] > 1 else 0) if nb == 1 else _batch_stride(t.shape[:nb], st)
-    if es is None or es % 4 or st[nb:] != std or t.data_ptr() % 16:
+    its ``nb`` batch dims (``split_strides`` at no split), else a
+    contiguous copy."""
+    s = split_strides(t, nb, std)
+    if s is None:
         t = t.clone(memory_format=torch.contiguous_format)
-        es = math.prod(t.shape[nb:])
-    return t, es
+        return t, math.prod(t.shape[nb:])
+    return t, s[1]
 
 
 def _tape_launch(tape: Tape, inputs):
@@ -590,18 +605,46 @@ def run_tape(tape: Tape, *inputs) -> torch.Tensor | tuple:
     return _tape_kernel(tape, inputs)
 
 
-# --- K3, and the single ops as one-step tapes ------------------------------------------
+# --- K3: products and static-exponent ladders ---------------------------------------
+#
+# K3 (``csrc/fp_modmul.cu``) reads each operand in place: element e =
+# (e_outer, e_inner) of the broadcast batch, e_inner < n_inner, at
+# data_ptr + e_outer * s_outer + e_inner * s_inner digits (0 broadcasts). The
+# batch dims are split once into outer and inner dims such that each operand's
+# collapse to one stride on each side (``split_strides``); an operand is copied
+# only where no split serves it. Its output is fresh and contiguous.
 
-def _operand(t: torch.Tensor, shape, name: str) -> torch.Tensor:
-    """``t`` broadcast to ``shape``, contiguous and 16-byte aligned; itself
-    where it already is."""
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name}: digits must be int32, got {t.dtype}")
-    if t.shape != shape:
-        t = t.expand(shape)
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        t = t.clone(memory_format=torch.contiguous_format)
-    return t
+def _k3_rows(ts: list, batch: tuple):
+    """(tensors, [(s_outer, s_inner)] per tensor, n_inner) for K3: ``ts``
+    (each already of shape batch + (32,)) read in place at one split of the
+    batch dims, copies made only of those that no common split serves."""
+    if all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts):
+        return ts, [(0, L)] * len(ts), math.prod(batch)      # one run of rows each
+    nb = len(batch)
+
+    def splits(t):
+        return {k: s for k in range(nb + 1) if (s := split_strides(t, nb, (1,), k)) is not None}
+
+    valid = [splits(t) for t in ts]
+    for i in sorted(range(len(ts)), key=lambda i: len(valid[i])):
+        if set.intersection(*(set(v) for v in valid)):
+            break
+        ts[i] = ts[i].clone(memory_format=torch.contiguous_format)
+        valid[i] = splits(ts[i])
+    k = min(set.intersection(*(set(v) for v in valid)))
+    return ts, [v[k] for v in valid], math.prod(batch[k:])
+
+
+# Elements below which a K3 launch gives each element a group of four lanes
+# (one lane from there): from the times of phase 18 of chip_smoke.py on the
+# H100, where four lanes win at 16,384 elements and one lane at 32,768 (the
+# table in csrc/fp_modmul.cu and PERF.md).
+K3_GROUP_BELOW = 32768
+
+
+def k3_group(n: int) -> int:
+    """Lanes per element of a K3 launch over n elements: 4 or 1."""
+    return 4 if n < K3_GROUP_BELOW else 1
 
 
 def _check_pair(a, b, name):
@@ -611,6 +654,25 @@ def _check_pair(a, b, name):
         raise ValueError(f"{name}: digit axis must be {L}, got {a.shape} and {b.shape}")
 
 
+def _modmul_launch(a: torch.Tensor, b: torch.Tensor, group: int | None = None):
+    """(out, the arguments of K3's product launch or None where there are no
+    elements, the tensors they point into): a and b read in place where
+    their batch dims allow, ``group`` lanes per element (``k3_group``)."""
+    shape = a.shape if a.shape == b.shape else torch.broadcast_shapes(a.shape, b.shape)
+    batch = shape[:-1]
+    (a, b), (sa, sb), n_inner = _k3_rows(
+        [a if a.shape == shape else a.expand(shape), b if b.shape == shape else b.expand(shape)],
+        batch)
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    n = math.prod(batch)
+    if n >= 2**31:
+        raise ValueError(f"modmul: at most 2^31 - 1 elements, got {n}")
+    if not n:
+        return out, None, ()
+    return out, (a.data_ptr(), *sa, b.data_ptr(), *sb, out.data_ptr(), n, n_inner,
+                 group or k3_group(n)), (a, b)
+
+
 def modmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a * b mod p over broadcast [..., 32] digits, residues in [0, 2p).
     K3 (``csrc/fp_modmul.cu``) for CUDA tensors, the plain version for
@@ -618,16 +680,78 @@ def modmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check_pair(a, b, "modmul")
     if not use_kernel(a):
         return _modmul(a, b)
-    shape = a.shape if a.shape == b.shape else torch.broadcast_shapes(a.shape, b.shape)
-    a, b = _operand(a, shape, "modmul"), _operand(b, shape, "modmul")
-    out = torch.empty(shape, dtype=torch.int32, device=a.device)
-    n = out.numel() // L
-    if n >= 2**31:
-        raise ValueError(f"modmul: at most 2^31 - 1 elements, got {n}")
-    if n:
-        kernels.launch_on(a.device, "fp_modmul", a.data_ptr(), b.data_ptr(), out.data_ptr(), n)
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise ValueError(f"modmul: digits must be int32, got {a.dtype} and {b.dtype}")
+    out, args, _keep = _modmul_launch(a, b)
+    if args is not None:
+        kernels.launch_on(a.device, "fp_modmul", *args)
     return out
 
+
+_BITS: dict = {}     # bit-string bytes -> (its K3 words, bit count)
+
+
+def _pack_bits(bits: np.ndarray):
+    """An MSB-first bit schedule as K3's argument: bit s at word s // 32,
+    bit s % 32 (a ctypes array of 12 uint32), and its length."""
+    bits = np.asarray(bits, dtype=bool)
+    key = bits.tobytes()
+    got = _BITS.get(key)
+    if got is None:
+        if not 1 <= len(bits) <= 384:
+            raise ValueError(f"pow_static: 1 to 384 bits, got {len(bits)}")
+        words = [0] * 12
+        for i in np.flatnonzero(bits).tolist():
+            words[i >> 5] |= 1 << (i & 31)
+        got = _BITS[key] = ((ctypes.c_uint32 * 12)(*words), len(bits))
+    return got
+
+
+def _pow_launch(x: torch.Tensor, bits: np.ndarray, group: int | None = None):
+    """(out, the arguments of K3's ladder launch or None where there are no
+    elements, the tensors they point into), as ``_modmul_launch``."""
+    (x,), (sx,), n_inner = _k3_rows([x], x.shape[:-1])
+    words, nbits = _pack_bits(bits)
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    n = math.prod(x.shape[:-1])
+    if n >= 2**31:
+        raise ValueError(f"pow_static: at most 2^31 - 1 elements, got {n}")
+    if not n:
+        return out, None, ()
+    return out, (x.data_ptr(), *sx, out.data_ptr(), n, n_inner, words, nbits,
+                 group or k3_group(n)), (x,)
+
+
+def _pow_static(x: torch.Tensor, bits: np.ndarray) -> torch.Tensor:
+    """Plain version of K3's ladder: x^e over the static MSB-first bit
+    string ``bits`` by square-and-multiply; a zero bit skips its multiply
+    (the JAX scan's select of the unmultiplied value, taken in Python)."""
+    acc = ones_like(x)
+    for bit in bits:
+        acc = _modmul(acc, acc)
+        if bit:
+            acc = _modmul(acc, x)
+    return acc
+
+
+def pow_static(x: torch.Tensor, bits: np.ndarray) -> torch.Tensor:
+    """x^e over the static MSB-first bit string ``bits`` (1 to 384 bits):
+    one K3 launch for CUDA tensors, each element in registers through every
+    square and multiply; the plain version for CPU tensors and in
+    ``plain_mode``."""
+    if x.shape[-1] != L:
+        raise ValueError(f"pow_static: digit axis must be {L}, got {tuple(x.shape)}")
+    if not use_kernel(x):
+        return _pow_static(x, bits)
+    if x.dtype != torch.int32:
+        raise ValueError(f"pow_static: digits must be int32, got {x.dtype}")
+    out, args, _keep = _pow_launch(x, bits)
+    if args is not None:
+        kernels.launch_on(x.device, "fp_pow", *args)
+    return out
+
+
+# --- the single ops as one-step tapes ----------------------------------------------
 
 _ADD = make_tape("modadd", ((), ()), ((),), lambda a, b: a + b)
 _SUB = make_tape("modsub", ((), ()), ((),), lambda a, b: a - b)
@@ -662,19 +786,8 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
     return (canon(a) == 0).all(-1)
 
 
-def pow_static(x: torch.Tensor, bits: np.ndarray) -> torch.Tensor:
-    """x^e over the static MSB-first bit string ``bits`` by
-    square-and-multiply; a zero bit skips its multiply (the JAX scan's
-    select of the unmultiplied value, taken in Python)."""
-    acc = ones_like(x)
-    for bit in bits:
-        acc = modmul(acc, acc)
-        if bit:
-            acc = modmul(acc, x)
-    return acc
-
-
 def modinv(a: torch.Tensor) -> torch.Tensor:
-    """a^(p-2) mod p over the static bit string of p-2 (380 squarings and
-    228 multiplies). Returns 0 for a = 0 (Fermat's convention)."""
+    """a^(p-2) mod p over the static bit string of p-2 (381 squarings and
+    229 multiplies, one K3 launch on the card). Returns 0 for a = 0
+    (Fermat's convention)."""
     return pow_static(a, _P_MINUS_2_BITS)

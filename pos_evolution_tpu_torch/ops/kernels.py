@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels, and count their launches.
 
 Each ``csrc/*.cu`` source becomes its own shared library with a plain C
-interface, compiled by ``nvcc`` for ``sm_90a`` at first use into
+interface (one or more entry points, each a kernel name here), compiled by
+``nvcc`` for ``sm_90a`` at first use into
 ``build/torch_kernels/`` at the repository root and loaded with
 ``ctypes``. A library's file name carries a hash of its source, the
 shared headers and the flags, so an edited source is always rebuilt.
@@ -32,13 +33,18 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
+_LL = ctypes.c_longlong
 # kernel name -> (source file, C entry point, its argtypes)
 KERNELS = {
     "agg_sig": ("agg_sig.cu", "agg_sig_launch",
                 [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]),
     "merkle_level": ("merkle_level.cu", "merkle_level_launch",
                      [_P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, ctypes.c_int, _P]),
-    "fp_modmul": ("fp_modmul.cu", "fp_modmul_launch", [_P, _P, _P, ctypes.c_int, _P]),
+    "fp_modmul": ("fp_modmul.cu", "fp_modmul_launch",
+                  [_P, _LL, _LL, _P, _LL, _LL, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
+    "fp_pow": ("fp_modmul.cu", "fp_pow_launch",
+               [_P, _LL, _LL, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int,
+                _P]),
     "fp_addsub": ("fp_addsub.cu", "fp_addsub_launch",
                   [_P, ctypes.c_int, ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_longlong, _P]),
@@ -48,7 +54,7 @@ KERNELS = {
 }
 
 launches = {name: 0 for name in KERNELS}
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[str, ctypes.CDLL] = {}     # source file -> its loaded library
 _entries: dict = {}          # kernel name -> its bound C entry point
 
 
@@ -74,60 +80,69 @@ def _library_path(name: str) -> Path:
     for path in [_CSRC / source, *sorted(_CSRC.glob("*.cuh"))]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, str]:
     """Compile every kernel not yet built, one ``nvcc`` per source, all
     started together. Returns each kernel's ptxas report (registers,
     shared memory, spills), from its build log when it was built before.
-    Raises with the compiler's output on failure."""
+    Kernels of one source share its report. Raises with the compiler's
+    output on failure."""
     names = list(KERNELS if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs, reports = {}, {}
+    jobs, by_source = {}, {}
     for name in names:
+        source = KERNELS[name][0]
+        if source in by_source:
+            continue
         target = _library_path(name)
         if target.exists():
             log = target.with_suffix(".log")
-            reports[name] = log.read_text() if log.exists() else ""
+            by_source[source] = log.read_text() if log.exists() else ""
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_CSRC / KERNELS[name][0])]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      tmp, target)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_CSRC / source)]
+        jobs[source] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp, target)
+        by_source[source] = None
     failed = []
-    for name, (proc, tmp, target) in jobs.items():
+    for source, (proc, tmp, target) in jobs.items():
         out, _ = proc.communicate()
-        reports[name] = out
+        by_source[source] = out
         target.with_suffix(".log").write_text(out)
         if proc.returncode != 0:
             os.unlink(tmp)
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+            failed.append(f"{source}: nvcc exited {proc.returncode}\n{out}")
         else:
             os.replace(tmp, target)   # atomic: a reader sees a whole library
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return reports
+    return {name: by_source[KERNELS[name][0]] for name in names}
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    lib = _libs.get(name)
+    """The loaded library of kernel ``name`` (its source's), built first
+    if needed, with every entry point of that source typed."""
+    source = KERNELS[name][0]
+    lib = _libs.get(source)
     if lib is None:
         path = _library_path(name)
         if not path.exists():
             build_all([name])
         lib = ctypes.CDLL(str(path))
-        _, entry, argtypes = KERNELS[name]
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _libs[name] = lib
+        for kname, (ksource, entry, argtypes) in KERNELS.items():
+            if ksource != source:
+                continue
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            err = getattr(lib, f"{kname}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+        _libs[source] = lib
     return lib
 
 

@@ -348,3 +348,103 @@ def test_field_launch_failure_raises(cuda):
     with pytest.raises(RuntimeError, match="alg_mul launch failed"):
         kernels.launch_on(cuda, "alg_mul", 0, 0, 0, 0, 0, 1, 7)               # no plan 7
     assert kernels.launches == before
+
+
+# --- K3: products read in place, lanes per element, and the ladder -----------------
+
+_K3_EDGES = [0, 1, fp.P_INT - 1, fp.P_INT, fp.P_INT + 1, 2 * fp.P_INT - 2, 2 * fp.P_INT - 1,
+             2**384 - 1]
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("n", [1, 7, 33, 2048])
+def test_k3_groups_match_plain(cuda, group, n):
+    """Both work splits (1 or 4 lanes an element) equal the plain
+    version, on every pair of the edge values (products up to (2^384 - 1)^2)
+    and on seeded residues."""
+    e = torch.from_numpy(np.stack([fp.to_limbs(v) for v in _K3_EDGES])).to(cuda)
+    a = torch.cat([e.repeat_interleave(len(_K3_EDGES), 0), _field((n,), 11 + n).to(cuda)])
+    b = torch.cat([e.repeat(len(_K3_EDGES), 1), _field((n,), 12 + n, 2**384).to(cuda)])
+    out, args, _keep = fp._modmul_launch(a, b, group)
+    before = kernels.launches["fp_modmul"]
+    kernels.launch_on(cuda, "fp_modmul", *args)
+    torch.cuda.synchronize()
+    assert kernels.launches["fp_modmul"] == before + 1 and args[-1] == group
+    assert torch.equal(out, fp._modmul(a, b))
+
+
+def test_k3_views_read_in_place(cuda):
+    """The G1 tree's unbind views, _fq2_scale_fq's broadcast scalar and an
+    Fq2 component view: read without copies, equal to the plain version."""
+    jac = _field((64, 8, 3), 13).to(cuda)
+    X1, Y1, Z1 = jac[:, :4].unbind(-2)
+    X2, Y2, Z2 = jac[:, 4:].unbind(-2)
+    c2, s = _field((300, 2), 14).to(cuda), _field((300,), 15).to(cuda)
+    for x, y in ((Z1, Z1), (X1, Z2), (Y1, Y2), (c2, s[..., None, :]), (c2[:, 0], c2[:, 1]),
+                 (c2, s[:1, None, :])):
+        out, args, keep = fp._modmul_launch(x, y)
+        assert keep[0].data_ptr() == x.data_ptr() and keep[1].data_ptr() == y.data_ptr()
+        got = fp.modmul(x, y)
+        assert torch.equal(got, fp._modmul(x, y))
+        assert torch.equal(got.cpu(), fp._modmul(x.cpu(), y.cpu()))
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("which", ["modinv", "sqrt"])
+def test_k3_ladder_matches_plain(cuda, group, which):
+    """The whole ladder in one launch equals the plain version at 2048
+    elements (the edge values among them) and at 33 as a component view."""
+    bits = fp._P_MINUS_2_BITS if which == "modinv" else g2prep._SQRT_FQ_BITS
+    x = _field((2048,), 16).to(cuda)
+    x[:len(_K3_EDGES) - 1] = torch.from_numpy(
+        np.stack([fp.to_limbs(v) for v in _K3_EDGES[:-1]])).to(cuda)
+    view = _field((33, 2), 17).to(cuda)[:, 1]
+    for t in (x, view):
+        out, args, _keep = fp._pow_launch(t, bits, group)
+        before = kernels.launches["fp_pow"]
+        kernels.launch_on(cuda, "fp_pow", *args)
+        torch.cuda.synchronize()
+        assert kernels.launches["fp_pow"] == before + 1
+        assert torch.equal(out, fp._pow_static(t, bits))
+
+
+def test_k3_ladder_short_schedules(cuda):
+    x = _field((100,), 18).to(cuda)
+    for bits in ([1], [0, 1], [1, 0, 1, 1, 0], [0, 0, 1, 0]):
+        bits = np.array(bits, dtype=bool)
+        assert torch.equal(fp.pow_static(x, bits), fp._pow_static(x, bits))
+
+
+def test_k3_launch_counts_of_the_inversions(cuda):
+    """fq2_inv and g1_to_affine: one ladder and four products each."""
+    for fn, arg in ((tower.fq2_inv, _field((2048, 2), 19)), (pairing.g1_to_affine,
+                                                            _field((2048, 3), 20))):
+        arg = arg.to(cuda)
+        before = dict(kernels.launches)
+        got = fn(arg)
+        torch.cuda.synchronize()
+        assert kernels.launches["fp_pow"] == before["fp_pow"] + 1
+        assert kernels.launches["fp_modmul"] == before["fp_modmul"] + 4
+        with fp.plain_mode():
+            want = fn(arg)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g, w)
+
+
+def test_k3_launch_failure_raises(cuda):
+    """A launch K3 refuses raises, and is not counted; a CUDA tensor in
+    plain_mode takes the plain ladder and launches nothing."""
+    x = _field((4,), 21).to(cuda)
+    out, args, _keep = fp._modmul_launch(x, x)
+    before = dict(kernels.launches)
+    with pytest.raises(RuntimeError, match="fp_modmul launch failed"):
+        kernels.launch_on(cuda, "fp_modmul", *args[:-1], 3)                  # no 3-lane split
+    words, _ = fp._pack_bits(fp._P_MINUS_2_BITS)
+    with pytest.raises(RuntimeError, match="fp_pow launch failed"):
+        kernels.launch_on(cuda, "fp_pow", x.data_ptr(), 0, fp.L, out.data_ptr(), 4, 4, words,
+                          0, 1)                                              # no bits
+    assert kernels.launches == before
+    with fp.plain_mode():
+        assert torch.equal(fp.modinv(x), fp._pow_static(x, fp._P_MINUS_2_BITS))
+    assert kernels.launches == before
