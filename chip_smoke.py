@@ -11,8 +11,9 @@ Phases, in order; any mismatch or exception ends the run non-zero:
 3. cross-check the whole epoch on the card against the CPU at a small size,
    and the shuffle against the spec's per-index swap-or-not;
 4. drive the main path once -- ``run_epoch`` on 2^20 validators on cuda --
-   with the launch counts zeroed just before and read just after, and hold
-   every output against the same epoch with the plain aggregation;
+   with the launch counts zeroed just before and read just after (K6 once
+   for the signers' midstates, K1 twice), and hold every output against the
+   same epoch with the plain aggregation;
 5. time K1, its plain version and the whole epoch with CUDA events after a
    warm-up, and work out K1's bound from this run's inputs;
 6. hold kernel K2 (``csrc/merkle_level.cu``) against its plain PyTorch
@@ -34,10 +35,10 @@ Phases, in order; any mismatch or exception ends the run non-zero:
 10. drive the third slice's path once -- ``DenseSimulation`` on 2^20
     validators, mainnet config, 90 shuffle rounds, ``run_epochs(4)``, then
     its ``state_digest`` -- with the launch counts zeroed just before and
-    read just after: K1 twice a slot, K2 in the digest, every walk check
-    true, 64 x 128 aggregates verified, finality reached; the same run with
-    ``plain=True`` gives identical metrics, summary and digest; K1 at the
-    path's shape (A=64, C=512) against its plain version;
+    read just after: K6 once at setup, K1 twice a slot, K2 in the digest,
+    every walk check true, 64 x 128 aggregates verified, finality reached;
+    the same run with ``plain=True`` gives identical metrics, summary and
+    digest; K1 at the path's shape (A=64, C=512) against its plain version;
 11. a faulted and adversarial run at 2^20 (drops, delays, a crash window,
     an equivocator controlling 1/16, the default monitors) for 2 epochs,
     and the same run checkpointed after epoch 1 and resumed on the card:
@@ -79,7 +80,36 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     every K4 tape against the bytes of its rows); the pairing stage under
     ``torch.profiler``;
 19. K3's SASS recounted per function and the bound it gives, and the
-    SASS census of K4 and K5.
+    SASS census of K4 and K5;
+20. hold kernels K6 (``csrc/sha256_blocks.cu``, multi-block SHA-256) and
+    K7 (``csrc/gf256_matmul.cu``, the batched GF(2^8) product) against
+    their plain versions at the sync and DAS path's shapes (PeerDAS cells
+    of 2,048 bytes, 33 blocks; 1-block blob streams, client digests and
+    signature midstates; a 9-blob extension and regrid), K6 against
+    hashlib on spot rows;
+21. the sync verify at 2,048 updates of 512 lanes equal to
+    ``verify_batch_host`` and to its ``plain=True`` run, rejecting exactly
+    the forged, short, empty, misproved and unproved updates; one K6, one
+    K1 and 11 K2 launches a batch;
+22. the DAS sample verify at 1,152 and 36,864 samples (one block's and one
+    epoch's cells) equal to ``verify_samples_host``, rejecting exactly the
+    corrupted rows, and its host/card crossover at 8-36,864 samples;
+23. the reconstruction of 9 blobs (k = 64) equal to the host's from the
+    parity halves and from mixed subsets; a corrupted cell of a whole grid
+    flips exactly its blob;
+24. drive the slice's dense path once -- ``DenseSimulation`` at 2^20,
+    mainnet config with the PeerDAS geometry, 90 shuffle rounds, 4 epochs,
+    a DAS rider (9 blobs, 100,000 clients sampling 8 cells) and 100,000
+    light clients -- with the launch counts zeroed just before and read
+    just after: 9 sidecars built and verified a proposal, no failure or
+    miss, every light client on the finalized checkpoint, K1, K2, K6 and
+    K7 launched as the path says; the same run without riders; equal to
+    its checkpoint-resumed twin; equal to its ``plain=True`` run at 1 slot,
+    and the same composition under Goldfish (whose light clients adopt a
+    head every slot) to its ``plain=True`` run at 2 slots;
+25. time K6 and K7 per launch at the path's shapes (kernel ms by events,
+    device ms by the CUDA graph timer, wrapper, plain) against their
+    bounds, K6 also against its SASS count.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and
@@ -127,6 +157,8 @@ from pos_evolution_tpu_torch.ops.aggregation import (  # noqa: E402
     aggregate_signatures_batch,
     aggregate_verify_batch,
     committee_aggregates,
+    messages_to_words,
+    pk_blocks,
     precompute_pk_states,
 )
 from pos_evolution_tpu_torch.ops import merkle_device  # noqa: E402
@@ -157,6 +189,13 @@ from pos_evolution_tpu_torch.sim.dense_adversary import DenseEquivocator  # noqa
 from pos_evolution_tpu_torch.sim.dense_driver import DenseSimulation  # noqa: E402
 from pos_evolution_tpu_torch.sim.dense_monitors import default_dense_monitors  # noqa: E402
 from pos_evolution_tpu_torch.sim.faults import DenseCrashWindow, DenseFaultPlan  # noqa: E402
+from pos_evolution_tpu_torch.sim.dense_variants import dense_rider_from_config  # noqa: E402
+from pos_evolution_tpu_torch.das.engine import BlobEngine  # noqa: E402
+from pos_evolution_tpu_torch.das.erasure import extension_matrix  # noqa: E402
+from pos_evolution_tpu_torch.das.erasure import gf_matmul as gf_matmul_host  # noqa: E402
+from pos_evolution_tpu_torch.ops import das_verify, sync_verify  # noqa: E402
+from pos_evolution_tpu_torch.ops.sha256 import sha256_blocks  # noqa: E402
+from pos_evolution_tpu_torch.ssz.hash import _pad_messages  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 flops
@@ -223,6 +262,44 @@ IMUL_PER_S = H100_SMS * 64 * H100_CLOCK_HZ
 # (d, sparse slots) of K5's calls on the path: Fq2, Fq6, Fq12 and the line
 ALG_SHAPES = ((2, None), (6, None), (12, None), (12, (0, 1, 2, 3, 8, 9)))
 ADDSUB_OPS = ("modadd", "modsub", "modneg", "canon")     # K4's one-step tapes
+
+# the sync and DAS slice: PeerDAS geometry (EIP-7594: 128 extended cells of
+# 2,048 bytes, k = 64; EIP-7691: 9 blobs a block), 100,000 sampling clients
+# and 100,000 light clients (das/sampler.py's range), sync batches of 2,048
+# updates of 512 lanes (K1's epoch shape)
+PEERDAS = dict(das_cells_per_blob=64, das_cell_bytes=2048, das_max_blobs_per_block=9)
+DAS_BLOBS, DAS_K, DAS_CELL, DAS_CLIENTS = 9, 64, 2048, 100_000
+DAS_RIDERS = ({"kind": "das", "scheme": "merkle", "n_blobs": DAS_BLOBS,
+               "n_clients": DAS_CLIENTS, "samples_per_client": 8, "seed": 0, "verify_every": 1},
+              {"kind": "lightclient", "n_clients": DAS_CLIENTS, "seed": 0})
+RIDER_EPOCHS = 4              # Gasper finalizes epoch 2 at the boundary into epoch 4
+# the plain=True rider twins' variants and depths (plain K6 at 33 blocks is slow); Goldfish
+# confirms every slot, so its light clients adopt heads at once
+RIDER_PLAIN_RUNS = (("gasper", 1), ("goldfish", 2))
+SYNC_B, SYNC_S, SYNC_FIN_DEPTH, SYNC_SC_DEPTH = 2048, 512, 6, 5
+BACKFILL_BLOCKS = 32          # one epoch's blocks: 32 x 9 x 128 = 36,864 samples
+SAMPLE_SIZES = (8, 64, 128, 256, 512, 1152, 36_864)
+K6_SOURCE = "pos_evolution_tpu_torch/csrc/sha256_blocks.cu"
+K6_REPLACES = "pos_evolution_tpu/ops/sha256.py:95"
+K7_SOURCE = "pos_evolution_tpu_torch/csrc/gf256_matmul.cu"
+K7_REPLACES = "pos_evolution_tpu/ops/das_verify.py:147"
+# K6's shapes on the path, (messages, bytes each; None: one unpadded block,
+# a signature midstate): the cell leaves of a
+# proposal's commitments, the blobs' counter streams, the sampling clients'
+# digests, a backfilled epoch's samples, the sync batch's lanes
+K6_SHAPES = {"cell leaves": (DAS_BLOBS * 2 * DAS_K, DAS_CELL),
+             "blob streams": (DAS_BLOBS * 4096, 52),
+             "client digests": (DAS_CLIENTS, 49),
+             "backfill samples": (BACKFILL_BLOCKS * DAS_BLOBS * 2 * DAS_K, DAS_CELL),
+             "sync lanes": (SYNC_B * SYNC_S, None)}
+K6_MAIN = "cell leaves"
+# K7's shapes on the path, (groups of A, groups, rows, k, width): a
+# proposal's extension (one matrix for every blob) and its verifier's regrid
+K7_SHAPES = {"extension": (1, DAS_BLOBS, DAS_K, DAS_K, DAS_CELL),
+             "regrid": (DAS_BLOBS, DAS_BLOBS, 2 * DAS_K, DAS_K, DAS_CELL)}
+K7_MAIN = "regrid"
+# 32 four-byte shared-memory loads per SM per clock on the H100
+SHARED_LOOKUPS_PER_S = H100_SMS * 32 * H100_CLOCK_HZ
 
 
 def say(*parts):
@@ -1039,6 +1116,444 @@ def bls_phases(dev, card: str, census) -> list:
     return out
 
 
+def k6_bound(n: int, blocks: int) -> dict:
+    """Least time for K6's work: n messages of ``blocks`` blocks, each block
+    one compression with its schedule; each message byte read once, each
+    digest written once."""
+    t_ops = n * blocks * (OPS_COMPRESS_ROUNDS + OPS_SCHEDULE) / PEAK_LANE_OPS_PER_S * 1e3
+    t_bytes = n * (64 * blocks + 32) / HBM_BYTES_PER_S * 1e3
+    return {"ms": max(t_ops, t_bytes), "by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def k7_bound(ga: int, g: int, r: int, k: int, w: int) -> dict:
+    """Least time for K7's work: an exp lookup in shared memory per output
+    byte and inner index, a log lookup per byte of B; A, B read once and
+    the output written once."""
+    t_ops = (g * r * w * k + g * k * w) / SHARED_LOOKUPS_PER_S * 1e3
+    t_bytes = (ga * r * k + g * k * w + g * r * w) / HBM_BYTES_PER_S * 1e3
+    return {"ms": max(t_ops, t_bytes), "by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def wall_ms(fn, reps: int) -> list:
+    """Host wall ms of each of ``reps`` calls of ``fn``, each ending in a
+    synchronize (after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def results_equal(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                                    for k in a)
+
+
+def sync_batch(rng, dev) -> sync_verify.SyncUpdateBatch:
+    """SYNC_B updates of SYNC_S lanes: seeded pubkeys, 0.9 participation,
+    honest aggregates signed through K6 and K1 on the card (the host oracle
+    checks them independently), seeded branches with their roots by the
+    host walk."""
+    b, s = SYNC_B, SYNC_S
+    pubkeys = rng.integers(0, 256, (b, s, 48), dtype=np.uint8)
+    bits = rng.random((b, s)) < 0.9
+    messages = rng.integers(0, 256, (b, 32), dtype=np.uint8)
+    pk = precompute_pk_states(pubkeys.reshape(b * s, 48), dev)
+    sigs = aggregate_signatures_batch(
+        pk, torch.arange(b * s, dtype=torch.int32, device=dev).reshape(b, s),
+        torch.from_numpy(bits).to(dev),
+        torch.from_numpy(messages_to_words(messages).view(np.int32)).to(dev))
+    signatures = words_to_numpy(sigs).astype(">u4").view(np.uint8).reshape(b, 96)
+    groups = {}
+    for name, depth in (("fin", SYNC_FIN_DEPTH), ("sc", SYNC_SC_DEPTH)):
+        leaf = rng.integers(0, 256, (b, 32), dtype=np.uint8)
+        branch = rng.integers(0, 256, (b, depth, 32), dtype=np.uint8)
+        index = rng.integers(0, 1 << depth, b).astype(np.int64)
+        groups.update({f"{name}_leaf": leaf, f"{name}_branch": branch, f"{name}_index": index,
+                       f"{name}_root": sync_verify.merkle_roots_host(leaf, branch, index),
+                       f"{name}_present": np.ones(b, bool)})
+    return sync_verify.SyncUpdateBatch(
+        pubkeys=pubkeys, bits=bits, weights=rng.integers(1, 2**35, (b, s)).astype(np.int64),
+        messages=messages, signatures=signatures, **groups)
+
+
+def rider_sim(dev, **kw) -> DenseSimulation:
+    """The rider path's run: 2^20 validators, mainnet config with the
+    PeerDAS geometry, 90 shuffle rounds, both riders."""
+    return DenseSimulation(N_MAINNET, mainnet_config().replace(**PEERDAS), device=dev,
+                           shuffle_rounds=90, riders=[dense_rider_from_config(dict(d))
+                                                      for d in DAS_RIDERS], **kw)
+
+
+def rider_record(sim) -> dict:
+    """What two rider runs must agree on."""
+    summary = sim.summary()
+    summary.pop("dense_phases", None)
+    das, lc = sim.riders
+    return {"metrics": [dict(m) for m in sim.metrics], "summary": summary,
+            "das": das.state_meta(),
+            "lightclient": (lc.state_meta(), lc.head_slot.tolist(), lc.head_idx.tolist()),
+            "digest": state_digest(sim)}
+
+
+def das_sync_phases(dev, card: str, census) -> list:
+    """Phases 20-25, the sync and DAS slice: K6 and K7 against their plain
+    versions at the path's shapes; the sync verify at 2,048 x 512, the DAS
+    sample verify at 1,152 and 36,864 samples (and the host/card crossover)
+    and the 9-blob reconstruction against their host oracles; the dense run
+    at 2^20 with both riders, counted, against its plain=True run and its
+    checkpoint-resumed twin, and without riders; K6 and K7 timed against
+    their bounds. Returns the kernels line's K6 and K7 rows."""
+    rng = np.random.default_rng(20)
+
+    # 20. K6 and K7 against their plain versions at the path's shapes
+    k6_in, k6_err = {}, 0
+    for name, (n, length) in K6_SHAPES.items():
+        if length is None:      # one unpadded block: the lanes' signature midstates
+            msgs = rng.integers(0, 256, (n, 48), dtype=np.uint8)
+            words = torch.from_numpy(pk_blocks(msgs).view(np.int32)).to(dev)
+        else:
+            msgs = rng.integers(0, 256, (n, length), dtype=np.uint8)
+            words = torch.from_numpy(_pad_messages(msgs).view(np.int32)).to(dev)
+        got = sha256_blocks(words)
+        ref = sha256_blocks(words, plain=True)
+        torch.cuda.synchronize()
+        err = int(((got.long() & MASK32) - (ref.long() & MASK32)).abs().max())
+        k6_err = max(k6_err, err)
+        check(err == 0 and torch.equal(got, ref), f"K6 differs from its plain version at {name}")
+        rows = words_to_numpy(got).astype(">u4").view(np.uint8).reshape(n, 32)
+        for i in (0, n // 2, n - 1) if length is not None else ():
+            check(rows[i].tobytes() == hashlib.sha256(msgs[i].tobytes()).digest(),
+                  f"K6 {name} row {i} differs from hashlib")
+        k6_in[name] = words
+        del msgs
+    say("K6 vs plain at " + ", ".join(f"{k} {w.shape[0]} x {w.shape[1] // 16}"
+                                      for k, w in k6_in.items())
+        + " (messages x blocks): bit-equal; 3 rows of each hashed message == hashlib")
+    k7_in, k7_err = {}, 0
+    half = np.zeros(2 * DAS_K, bool)
+    half[DAS_K:] = True
+    ext = extension_matrix(DAS_K)[None]
+    regrid = das_verify._regrid_matrix(tuple(range(DAS_K, 2 * DAS_K)), DAS_K)[None]
+    for name, (ga, g, r, k, w) in K7_SHAPES.items():
+        a = torch.from_numpy(np.repeat(ext if name == "extension" else regrid, ga, 0)).to(dev)
+        b = rng.integers(0, 256, (g, k, w), dtype=np.uint8)
+        b[0, 3] = 0
+        b[-1, :, w // 3] = 0
+        b = torch.from_numpy(b).to(dev)
+        got = das_verify.gf_matmul(a, b)
+        ref = das_verify.gf_matmul(a, b, plain=True)
+        torch.cuda.synchronize()
+        err = int((got.int() - ref.int()).abs().max())
+        k7_err = max(k7_err, err)
+        check(err == 0 and torch.equal(got, ref), f"K7 differs from its plain version at {name}")
+        check(np.array_equal(got[-1].cpu().numpy(),
+                             gf_matmul_host(a[-1 if ga > 1 else 0].cpu().numpy(),
+                                            b[-1].cpu().numpy())),
+              f"K7 {name} differs from the host product")
+        k7_in[name] = (a, b)
+    say("K7 vs plain at " + ", ".join(f"{k} ({ga}|{g}, {r}, {kk}) x ({g}, {kk}, {w})"
+                                      for k, (ga, g, r, kk, w) in K7_SHAPES.items())
+        + ": bit-equal; the last group == the host product")
+
+    # 21. the sync verify at 2,048 x 512
+    batch = sync_batch(rng, dev)
+    batch.signatures[3, 0] ^= 1                   # a forged aggregate
+    lane = int(np.nonzero(batch.bits[6])[0][0])
+    batch.bits[6, lane] = False                   # a lane dropped after signing
+    batch.bits[9] = False                         # an empty bitlist
+    batch.fin_branch[12, 2, 5] ^= 1               # a corrupted finality branch
+    batch.sc_root[15, 0] ^= 1                     # a wrong attested root
+    batch.fin_present[18] = False                 # an absent finality proof
+    before = dict(kernels.launches)
+    got = sync_verify.verify_batch_device(batch, dev)
+    sync_launches = {k: v - before[k] for k, v in kernels.launches.items() if v > before[k]}
+    t0 = time.perf_counter()
+    host = sync_verify.verify_batch_host(batch)
+    host_s = time.perf_counter() - t0
+    plain = sync_verify.verify_batch_device(batch, dev, plain=True)
+    check(results_equal(got, host) and results_equal(got, plain),
+          "sync verify differs from verify_batch_host or its plain=True run")
+    check(np.nonzero(~got["sig_ok"])[0].tolist() == [3, 6, 9]
+          and np.nonzero(~got["fin_ok"])[0].tolist() == [12, 18]
+          and np.nonzero(~got["sc_ok"])[0].tolist() == [15],
+          "sync verify: the corrupted updates and only they must be rejected")
+    check(sync_launches == {"sha256_blocks": 1, "agg_sig": 1,
+                            "merkle_level": SYNC_FIN_DEPTH + SYNC_SC_DEPTH},
+          f"sync verify launches {sync_launches}")
+    sync_ms = wall_ms(lambda: sync_verify.verify_batch_device(batch, dev), 3)
+    say(f"sync verify B={SYNC_B} S={SYNC_S}: == verify_batch_host ({host_s:.3f} s) and the "
+        f"plain=True run; rejects exactly sig [3, 6, 9], fin [12, 18], sc [15]; launches "
+        f"{sync_launches}")
+    say(f"[{card}] sync verify B={SYNC_B} S={SYNC_S}: " + ", ".join(f"{x:.3f}" for x in sync_ms)
+        + f" ms wall per call ({SYNC_B / (min(sync_ms) / 1e3):.1f} updates/s at the best)")
+    del batch, got, host, plain
+
+    # 22. the DAS sample verify at 1,152 and 36,864 samples, and the crossover
+    cfg = mainnet_config().replace(**PEERDAS)
+    engine = BlobEngine(cfg, seed=1, device=dev)
+    cells, branches, idx, coms = [], [], [], []
+    cell_idx = np.arange(2 * DAS_K)
+    block_grids = None
+    for blk in range(BACKFILL_BLOCKS):
+        grids, commitments = engine.build_batch(blk + 1, hashlib.sha256(bytes([blk])).digest())
+        if blk == 0:
+            block_grids = grids.clone()
+        host_grids = grids.cpu().numpy()
+        for i in range(DAS_BLOBS):
+            _, br = engine.scheme.branches(grids[i], cell_idx)
+            cells.append(host_grids[i])
+            branches.append(br)
+            idx.append(cell_idx)
+            coms.append(np.frombuffer(commitments[i] * len(cell_idx), np.uint8).reshape(-1, 32))
+    big = das_verify.DasSampleBatch(cells=np.concatenate(cells), branches=np.concatenate(branches),
+                                    indices=np.concatenate(idx).astype(np.int64),
+                                    commitments=np.concatenate(coms))
+    del cells, branches
+    n = big.size
+    bad_rows = {7: "cell", n // 300: "cell", n // 18: "branch", n * 5 // 6: "commitment"}
+    big.cells[7, 0] ^= 1
+    big.cells[n // 300, 5] ^= 1
+    big.branches[n // 18, 3, 7] ^= 1
+    big.commitments[n * 5 // 6, 0] ^= 1
+    das_out = {}
+    for s in (DAS_BLOBS * 2 * DAS_K, big.size):
+        sub = das_verify.DasSampleBatch(big.cells[:s], big.branches[:s], big.indices[:s],
+                                        big.commitments[:s])
+        before = dict(kernels.launches)
+        got = das_verify.verify_samples_device(sub, dev)
+        das_launches = {k: v - before[k] for k, v in kernels.launches.items() if v > before[k]}
+        t0 = time.perf_counter()
+        host = das_verify.verify_samples_host(sub)
+        host_once_ms = (time.perf_counter() - t0) * 1e3
+        check(results_equal(got, host), f"DAS verify at {s} samples differs from the host")
+        want = sorted(r for r in bad_rows if r < s)
+        check(np.nonzero(~got["ok"])[0].tolist() == want,
+              f"DAS verify at {s}: rejected {np.nonzero(~got['ok'])[0].tolist()}, want {want}")
+        check(das_launches == {"sha256_blocks": 1, "merkle_level": 7},
+              f"DAS verify launches {das_launches}")
+        das_out[s] = das_launches
+    say(f"DAS verify at {DAS_BLOBS * 2 * DAS_K} and {big.size} samples (PeerDAS cells, "
+        f"{BACKFILL_BLOCKS} blocks of {DAS_BLOBS} blobs): == verify_samples_host; rejects "
+        f"exactly the corrupted rows {sorted(bad_rows)}; launches {das_out[big.size]} a batch")
+    crossover = {}
+    for s in SAMPLE_SIZES:
+        sub = das_verify.DasSampleBatch(big.cells[:s], big.branches[:s], big.indices[:s],
+                                        big.commitments[:s])
+        card_ms = wall_ms(lambda: das_verify.verify_samples_device(sub, dev), 3)
+        # the largest batch's host time is its oracle call above (~9 s a call)
+        host_ms = ([host_once_ms] if s == big.size
+                   else wall_ms(lambda: das_verify.verify_samples_host(sub), 3))
+        crossover[s] = {"card_ms": card_ms, "host_ms": host_ms}
+        say(f"[{card}] DAS verify at {s} samples: card {', '.join(f'{x:.3f}' for x in card_ms)} "
+            f"ms; host {', '.join(f'{x:.3f}' for x in host_ms)} ms (wall per call)")
+    del big
+
+    # 23. the reconstruction of 9 blobs at k = 64 x 2,048
+    present = np.repeat(half[None], DAS_BLOBS, 0)
+    ok, data = das_verify.reconstruct_check_batch(block_grids, present)
+    check(bool(ok.all()) and torch.equal(data, block_grids[:, :DAS_K]),
+          "9-blob reconstruction from the parity halves must give back the data")
+    host_grids = block_grids.cpu().numpy()
+    mixed = rng.random((3, 2 * DAS_K)) < 0.6
+    mixed[:, :DAS_K] |= rng.random((3, DAS_K)) < 0.5
+    for j in range(3):
+        if mixed[j].sum() < DAS_K:
+            mixed[j, :DAS_K] = True
+    garbled = host_grids[:3].copy()
+    garbled[~mixed] = rng.integers(0, 256, (int((~mixed).sum()), DAS_CELL), dtype=np.uint8)
+    # with exactly k cells present any values lie on some polynomial, so the
+    # corrupted grid is checked whole: every cell present
+    corrupt = host_grids.copy()
+    corrupt[4, DAS_K + DAS_K // 2 + DAS_K // 16, 17] ^= 1
+    whole = np.ones_like(present)
+    for label, grids_np, pres in (("parity halves", host_grids, present),
+                                  ("mixed subsets", garbled, mixed),
+                                  ("whole grids, one cell corrupted", corrupt, whole)):
+        ok, data = das_verify.reconstruct_check_batch(torch.from_numpy(grids_np).to(dev), pres)
+        ok_np, data_np = ok.cpu().numpy(), data.cpu().numpy()
+        for j in range(grids_np.shape[0]):
+            h_ok, h_data = das_verify.reconstruct_check_host(grids_np[j], pres[j])
+            check(bool(ok_np[j]) == h_ok and np.array_equal(data_np[j], h_data),
+                  f"reconstruction ({label}) blob {j} differs from the host")
+    check(np.nonzero(~ok_np)[0].tolist() == [4], "one corrupted cell must flip its blob's verdict")
+    recon_ms = wall_ms(lambda: das_verify.reconstruct_check_batch(block_grids, present), 5)
+    say(f"reconstruction of {DAS_BLOBS} blobs (k={DAS_K}, {DAS_CELL} bytes): == "
+        "reconstruct_check_host from the parity halves and from mixed subsets; of whole "
+        f"grids, one corrupted cell flips exactly its blob; [{card}] "
+        + ", ".join(f"{x:.3f}" for x in recon_ms)
+        + " ms wall per 9-blob check")
+
+    # 24. the dense run with both riders at 2^20, counted
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sim = rider_sim(dev, phase_profile=8)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sim.run_epochs(RIDER_EPOCHS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rider_launches = dict(kernels.launches)
+    rec = rider_record(sim)
+    phases = sim.phases.summary()
+    slots = sim.slot
+    das, lc = rec["summary"]["workload"]["das"], rec["summary"]["workload"]["lightclient"]
+    check(das["sidecar_failures"] == 0 and das["sample_misses"] == 0
+          and das["sidecars_built"] == das["sidecars_verified"] == DAS_BLOBS * slots
+          and das["samples_drawn"] == DAS_CLIENTS * 8 * slots,
+          f"DAS rider stats {das} after {slots} proposals")
+    check(lc["updates_applied"] > 0 and lc["clients_synced"] == DAS_CLIENTS
+          and lc["max_head_slot"] > 0, f"light-client rider stats {lc} after {slots} slots")
+    check(rider_launches["agg_sig"] == 2 * slots and rider_launches["gf256_matmul"] == 2 * slots
+          and rider_launches["merkle_level"] == 14 * slots
+          and rider_launches["sha256_blocks"] == 4 * slots + 2,
+          f"rider run launches {rider_launches} over {slots} proposals")
+    check(all(sim.walk_checks), "rider run walk checks")
+    per_proposal = {k: rider_launches[k] / slots
+                    for k in ("agg_sig", "merkle_level", "sha256_blocks", "gf256_matmul")}
+    say(f"rider run n={N_MAINNET}, {RIDER_EPOCHS} epochs ({slots} proposals): launches "
+        f"{rider_launches} (per proposal {per_proposal}; K6 also twice at setup: the signers' "
+        f"midstates and the light clients' lags); das {das}; lightclient {lc}; "
+        f"digest {rec['digest']}")
+    base = DenseSimulation(N_MAINNET, mainnet_config().replace(**PEERDAS), device=dev,
+                           shuffle_rounds=90, phase_profile=8)
+    t3 = time.perf_counter()
+    base.run_epochs(RIDER_EPOCHS)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    base_phases = base.phases.summary()
+    del base
+    prof_riders = profiled(lambda: sim.run_epochs(RIDER_EPOCHS + 1))
+    with_s, without_s = (t2 - t1) / RIDER_EPOCHS, (t4 - t3) / RIDER_EPOCHS
+    work = phases["phases"].get("workload", {})
+    say(f"[{card}] dense path with riders: setup {t1 - t0:.3f} s, {with_s:.3f} s per simulated "
+        f"epoch; without riders (same process) {without_s:.3f} s; workload phase "
+        f"{work.get('total_ms')} ms = {work.get('share_pct')}% of the rider run's wall; one more "
+        f"epoch under torch.profiler wall {prof_riders['wall_ms']:.3f} ms, device busy "
+        f"{prof_riders['busy_ms']:.3f} ms "
+        f"({100 * prof_riders['busy_ms'] / prof_riders['wall_ms']:.2f}%), by kernel "
+        + json.dumps({k: round(v, 3) for k, v in prof_riders["kernel_ms"].items() if v}))
+    say(f"[{card}] rider run phase budget: " + json.dumps(phases))
+    say(f"[{card}] riderless run phase budget: " + json.dumps(base_phases))
+    del sim
+    twins = []
+    for variant, depth in RIDER_PLAIN_RUNS:
+        short = rider_sim(dev, variant=variant)
+        short_p = rider_sim(dev, variant=variant, plain=True)
+        t5 = time.perf_counter()
+        for _ in range(depth):
+            short_p.run_slot()
+        ref = rider_record(short_p)
+        plain_s = time.perf_counter() - t5
+        for _ in range(depth):
+            short.run_slot()
+        check(rider_record(short) == ref, f"rider run ({variant}) differs from its plain=True run")
+        plain_lc = short_p.riders[1].stats()
+        check(variant != "goldfish"
+              or (plain_lc["updates_applied"] > 0 and plain_lc["clients_synced"] > 0),
+              f"the {variant} rider run's light clients adopted nothing: {plain_lc}")
+        twins.append(f"{variant} at {depth} slots ({plain_lc['clients_synced']} light clients "
+                     f"synced; {plain_s:.3f} s plain)")
+        del short, short_p
+    half_sim = rider_sim(dev)
+    half_sim.run_epochs(1)
+    data = half_sim.checkpoint()
+    del half_sim
+    resumed = DenseSimulation.resume(data, device=dev)
+    resumed.run_epochs(RIDER_EPOCHS)
+    bad = [k for k, v in rider_record(resumed).items() if v != rec[k]]
+    check(not bad, f"rider run: the resumed run differs from the uninterrupted one in {bad}")
+    del resumed
+    say(f"rider runs == their plain=True twins (metrics, summary, rider state, light-client "
+        f"heads, digest): {'; '.join(twins)}; the Gasper run checkpointed after epoch 1 "
+        f"({len(data)} bytes) and resumed on the card == uninterrupted")
+
+    # 25. K6 and K7 per launch at the path's shapes, against their bounds
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    k6 = {}
+    for name, words in k6_in.items():
+        n, nb = words.shape[0], words.shape[1] // 16
+        out = torch.empty((n, 8), dtype=torch.int32, device=dev)
+
+        def raw(words=words, out=out, n=n, nb=nb):
+            kernels.launch_on(dev, "sha256_blocks", words.data_ptr(), 16 * nb, nb,
+                              out.data_ptr(), n)
+
+        k6[name] = {"n": n, "blocks": nb, "ms": time_ms(raw, 20), "device_ms": device_ms(raw),
+                    "wrapper_ms": time_ms(lambda w=words: sha256_blocks(w), 20),
+                    "plain_ms": time_ms(lambda w=words: sha256_blocks(w, plain=True), 1),
+                    "bound": k6_bound(n, nb), "out": out}
+        r = k6[name]
+        say(f"[{card}] K6 {name} ({n} x {nb} blocks): kernel {r['ms']:.4f} ms, device "
+            f"{fmt_ms(r['device_ms'])}, wrapper {r['wrapper_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound']['ms']:.4f} ms ({r['bound']['by']})")
+    k7 = {}
+    tables = das_verify._gf_tables(dev)
+    for name, (a, b) in k7_in.items():
+        ga, g, r_, k, w = K7_SHAPES[name]
+        out = torch.empty((g, r_, w), dtype=torch.uint8, device=dev)
+
+        def raw(a=a, b=b, out=out, ga=ga, g=g, r_=r_, k=k, w=w):
+            kernels.launch_on(dev, "gf256_matmul", tables.data_ptr(), a.data_ptr(),
+                              r_ * k if ga > 1 else 0, b.data_ptr(), k * w, out.data_ptr(),
+                              g, r_, k, w)
+
+        k7[name] = {"ms": time_ms(raw, 20), "device_ms": device_ms(raw),
+                    "wrapper_ms": time_ms(lambda a=a, b=b: das_verify.gf_matmul(a, b), 20),
+                    "plain_ms": time_ms(lambda a=a, b=b: das_verify.gf_matmul(a, b, plain=True),
+                                        2),
+                    "bound": k7_bound(ga, g, r_, k, w), "out": out}
+        r = k7[name]
+        say(f"[{card}] K7 {name} ({ga}|{g}, {r_}, {k}) x ({g}, {k}, {w}): kernel "
+            f"{r['ms']:.4f} ms, device {fmt_ms(r['device_ms'])}, wrapper {r['wrapper_ms']:.4f} "
+            f"ms, plain {r['plain_ms']:.3f} ms, bound {r['bound']['ms']:.4f} ms "
+            f"({r['bound']['by']})")
+    untimed = [f"K6 {k}" for k, v in k6.items() if v["device_ms"] is None] + \
+        [f"K7 {k}" for k, v in k7.items() if v["device_ms"] is None]
+    check(not untimed, f"no device time (the CUDA graph timer failed) for {untimed}")
+    if census is not None:
+        for name in ("sha256_blocks", "gf256_matmul"):
+            say(f"SASS {name} (whole kernel): {json.dumps(census[name]['total'])}")
+        for name, r in k6.items():
+            units = r["n"] * r["blocks"]
+            b = sass_bounds(census["sha256_blocks"]["total"], units)
+            say(f"[{card}] sha256_blocks {name} at {units} blocks: measured device "
+                f"{r['device_ms']:.4f} ms; bounds (the whole kernel's count a block) "
+                + ", ".join(f"{k} {v:.4f}" for k, v in b.items())
+                + f"; int_pipe / measured {b['int_pipe_ms'] / r['device_ms']:.3f}")
+
+    def shapes(d):
+        return {k: {kk: v[kk] for kk in ("ms", "device_ms", "wrapper_ms", "plain_ms")}
+                | {"bound_ms": v["bound"]["ms"], "bound_by": v["bound"]["by"]}
+                for k, v in d.items()}
+
+    common = {"route": "cuda", "matches_plain": True, "library_ms": None,
+              "rider_epoch_s": with_s, "riderless_epoch_s": without_s}
+    return [
+        {"name": "sha256_blocks", "source": K6_SOURCE, "replaces": K6_REPLACES,
+         "launches": rider_launches["sha256_blocks"], "max_abs_err": k6_err,
+         "shape": f"{K6_SHAPES[K6_MAIN][0]} x {k6[K6_MAIN]['blocks']} blocks",
+         "ms": k6[K6_MAIN]["ms"], "device_ms": k6[K6_MAIN]["device_ms"],
+         "wrapper_ms": k6[K6_MAIN]["wrapper_ms"], "plain_ms": k6[K6_MAIN]["plain_ms"],
+         "bound_ms": k6[K6_MAIN]["bound"]["ms"], "bound_by": k6[K6_MAIN]["bound"]["by"],
+         "launches_per_proposal": per_proposal["sha256_blocks"], "by_shape": shapes(k6),
+         "sync_verify_ms": sync_ms, "das_verify_crossover_ms": crossover, **common},
+        {"name": "gf256_matmul", "source": K7_SOURCE, "replaces": K7_REPLACES,
+         "launches": rider_launches["gf256_matmul"], "max_abs_err": k7_err,
+         "shape": "({0}, {2}, {3}) x ({1}, {3}, {4})".format(*K7_SHAPES[K7_MAIN]),
+         "ms": k7[K7_MAIN]["ms"], "device_ms": k7[K7_MAIN]["device_ms"],
+         "wrapper_ms": k7[K7_MAIN]["wrapper_ms"], "plain_ms": k7[K7_MAIN]["plain_ms"],
+         "bound_ms": k7[K7_MAIN]["bound"]["ms"], "bound_by": k7[K7_MAIN]["bound"]["by"],
+         "launches_per_proposal": per_proposal["gf256_matmul"], "by_shape": shapes(k7),
+         "reconstruct_9_blobs_ms": recon_ms, **common},
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs one GPU",
@@ -1116,7 +1631,8 @@ def main() -> int:
     out = run_epoch(inputs, dev)
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
-    check(launches["agg_sig"] == 2, f"K1 launches on the main path: {launches}")
+    check(launches["agg_sig"] == 2 and launches["sha256_blocks"] == 1,
+          f"K1 and K6 launches on the main path: {launches}")
     check(bool(out.ok.all()), "every honest aggregate must verify on the main path")
     check(out.heads.shape == (inputs.slots,)
           and out.weights.shape == (inputs.slots, inputs.capacity), "head output shapes")
@@ -1303,8 +1819,9 @@ def main() -> int:
     digest_k2 = dense_launches["merkle_level"] - before_digest["merkle_level"]
     slots = sim.slot
     check(slots == DENSE_EPOCHS * 32, f"dense path ran {slots} slots")
-    check(run_launches["agg_sig"] == 2 * slots and run_launches["merkle_level"] == 0,
-          f"dense run launches {run_launches}, want K1 twice a slot ({2 * slots})")
+    check(run_launches["agg_sig"] == 2 * slots and run_launches["merkle_level"] == 0
+          and run_launches["sha256_blocks"] == 1,
+          f"dense run launches {run_launches}, want K1 twice a slot ({2 * slots}), K6 once")
     check(digest_k2 > 0 and dense_launches["agg_sig"] == 2 * slots,
           f"state_digest launches {dense_launches}")
     check(all(sim.walk_checks) and summary["resident_head_equals_spec_walk"],
@@ -1415,6 +1932,7 @@ def main() -> int:
                 + f"; measured / int_pipe {b['int_pipe_ms'] / measured:.3f}")
 
     field_rows = bls_phases(dev, card, census)
+    das_rows = das_sync_phases(dev, card, census)
 
     big = k2[K2_LARGEST]
     say(card)
@@ -1432,7 +1950,7 @@ def main() -> int:
         "wrapper_ms": big["wrapper_ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound"]["ms"], "bound_by": big["bound"]["by"], "library_ms": None,
         "ms_1048576": k2[N_MAINNET]["ms"], "full_build_ms": builds[-1][0],
-        "update_ms": updates[-1][0], "dense_launches": digest_k2}, *field_rows]}))
+        "update_ms": updates[-1][0], "dense_launches": digest_k2}, *field_rows, *das_rows]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

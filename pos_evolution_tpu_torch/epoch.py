@@ -4,8 +4,8 @@ The port's main path: the workload of ``bench.py`` and of one epoch of
 ``sim/dense_driver.DenseSimulation`` in the JAX package, composed of the
 port's own functions:
 
-1. registry setup: tables to the device, pubkey midstates
-   (``load_inputs``);
+1. registry setup: tables to the device, pubkey midstates (kernel K6,
+   ``load_inputs``);
 2. committees: the swap-or-not shuffle, ``perm[:A*C].reshape(A, C)``
    (``epoch_committees``);
 3. sign: the honest committee aggregates (kernel K1);
@@ -155,14 +155,15 @@ def build_epoch_inputs(n: int = N_MAINNET, seed: int = 0, *, slots: int = 32,
         cfg=cfg)
 
 
-def load_inputs(inputs: EpochInputs, device="cuda") -> EpochTensors:
+def load_inputs(inputs: EpochInputs, device="cuda", *, plain: bool = False) -> EpochTensors:
     """Stage 1: the registry, store, bitlists and messages to ``device``,
-    and each validator's pubkey midstate."""
+    and each validator's pubkey midstate (kernel K6; ``plain=True``: its
+    plain version)."""
     dev = resolve_device(device)
     return EpochTensors(
         registry=registry_to_torch(inputs.registry, dev),
         store=store_to_torch(inputs.store, dev),
-        pk_states=precompute_pk_states(inputs.pubkeys, dev),
+        pk_states=precompute_pk_states(inputs.pubkeys, dev, plain=plain),
         bits=torch.from_numpy(inputs.agg_bits).to(dev),
         msg_words=words_to_torch(inputs.msg_words, dev))
 
@@ -196,11 +197,10 @@ def head_passes(store: DenseStore, inputs: EpochInputs):
 
 def run_epoch(inputs: EpochInputs, device="cuda", *, plain: bool = False) -> EpochOutputs:
     """Run one epoch on ``device`` (CUDA unless asked otherwise; raises
-    without it). ``plain=True`` runs the aggregation's plain PyTorch
-    version instead of kernel K1 on any device: the reference the kernel
-    is held against."""
+    without it). ``plain=True`` runs the plain PyTorch versions of kernels
+    K1 and K6 on any device: the reference the kernels are held against."""
     dev = resolve_device(device)
-    t = load_inputs(inputs, dev)
+    t = load_inputs(inputs, dev, plain=plain)
     committees = epoch_committees(inputs, dev)
     aggregates = aggregate_signatures_batch(t.pk_states, committees, t.bits, t.msg_words,
                                             plain=plain)

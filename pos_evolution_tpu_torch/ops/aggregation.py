@@ -20,7 +20,7 @@ import torch
 
 from pos_evolution_tpu_torch.device import i32, resolve_device, u32
 from pos_evolution_tpu_torch.ops import kernels
-from pos_evolution_tpu_torch.ops.sha256 import h0_state, sha256_compress
+from pos_evolution_tpu_torch.ops.sha256 import h0_state, sha256_blocks, sha256_compress
 
 _PREFIX = b"fakebls-sig-pad!"  # FakeBLS.SIG_PREFIX of the reference scheme
 
@@ -45,23 +45,33 @@ def _msg_block2(msg_words):
     return _pad_block(msg_words, 96 * 8)
 
 
-def precompute_pk_states(pubkeys_u8: np.ndarray, device="cuda") -> torch.Tensor:
-    """Per-validator midstate: the SHA-256 state after (prefix | pubkey),
-    the first block of every signature the validator makes.
-    (N, 48) uint8 -> (N, 8) int32 words on ``device``."""
-    dev = resolve_device(device)
+def pk_blocks(pubkeys_u8: np.ndarray) -> np.ndarray:
+    """The first signature block of each validator, (prefix | pubkey):
+    (N, 48) uint8 -> (N, 16) big-endian uint32 words."""
     n = pubkeys_u8.shape[0]
     block = np.zeros((n, 64), dtype=np.uint8)
     block[:, 0:16] = np.frombuffer(_PREFIX, dtype=np.uint8)
     block[:, 16:64] = pubkeys_u8
-    words = block.view(">u4").astype(np.int64)
-    state = sha256_compress(h0_state((n,), dev), torch.from_numpy(words).to(dev))
-    return i32(state)
+    return block.view(">u4").astype(np.uint32)
+
+
+def precompute_pk_states(pubkeys_u8: np.ndarray, device="cuda", *,
+                         plain: bool = False) -> torch.Tensor:
+    """Per-validator midstate: the SHA-256 state after (prefix | pubkey),
+    the first block of every signature the validator makes, by kernel K6
+    (``sha256_blocks`` over that block alone, unpadded, leaves exactly this
+    state). (N, 48) uint8 -> (N, 8) int32 words on ``device``;
+    ``plain=True`` takes K6's plain version."""
+    blocks = torch.from_numpy(pk_blocks(np.ascontiguousarray(pubkeys_u8, dtype=np.uint8))
+                              .view(np.int32))
+    return sha256_blocks(blocks.to(resolve_device(device)), plain=plain)
 
 
 def _xor_reduce(x, dim: int):
     """XOR of ``x`` along ``dim`` by halving (torch has no XOR reduction)."""
     x = x.movedim(dim, 0)
+    if x.shape[0] == 0:
+        return torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
     while x.shape[0] > 1:
         if x.shape[0] % 2:
             x = torch.cat([x, torch.zeros_like(x[:1])])
@@ -148,6 +158,15 @@ def aggregate_signatures_batch(pk_states, committees, bits, msg_words,
     """The signer side: the honest committee aggregates (A, 24) int32, from
     the same pipeline the verifier recomputes."""
     return _aggregates(plain)(pk_states, committees, bits, msg_words)
+
+
+def aggregate_bits_and_weights(bits, committee_weights):
+    """The aggregation duty's tally: bits (A, C) bool, committee_weights
+    (A, C) int64 -> (participation counts int32[A], participating weight
+    int64[A])."""
+    count = bits.sum(dim=-1, dtype=torch.int32)
+    weight = torch.where(bits, committee_weights.to(torch.int64), 0).sum(dim=-1)
+    return count, weight
 
 
 def messages_to_words(messages_u8: np.ndarray) -> np.ndarray:

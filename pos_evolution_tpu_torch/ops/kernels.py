@@ -51,6 +51,11 @@ KERNELS = {
     "alg_mul": ("alg_mul.cu", "alg_mul_launch",
                 [_P, ctypes.c_longlong, _P, ctypes.c_longlong, _P, ctypes.c_int, ctypes.c_int,
                  _P]),
+    "sha256_blocks": ("sha256_blocks.cu", "sha256_blocks_launch",
+                      [_P, _LL, ctypes.c_int, _P, ctypes.c_int, _P]),
+    "gf256_matmul": ("gf256_matmul.cu", "gf256_matmul_launch",
+                     [_P, _P, _LL, _P, _LL, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, _P]),
 }
 
 launches = {name: 0 for name in KERNELS}

@@ -6,6 +6,12 @@ over every leading axis at once. Words are int64 values in [0, 2^32)
 inside (see ``device.py``); inputs may be any integer dtype, outputs are
 int64 values. This is the plain path, on the CPU and the card alike; the
 port's CUDA kernels carry the same rounds in ``csrc/sha256.cuh``.
+
+``sha256_blocks`` is the wrapper of kernel K6 (``csrc/sha256_blocks.cu``),
+SHA-256 of many equal-length pre-padded messages, whose plain version is
+``sha256_words``; ``sha256_rows`` pads byte messages on their device
+(``pad_words``) and hashes them through it, the device twin of
+``ssz/hash.sha256_batch``.
 """
 
 from __future__ import annotations
@@ -13,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pos_evolution_tpu_torch.device import MASK32, u32
+from pos_evolution_tpu_torch.device import MASK32, i32, resolve_device, u32, words_to_rows
+from pos_evolution_tpu_torch.ops import kernels
 
 _K = np.array([
     0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1,
@@ -91,3 +98,69 @@ def sha256_pair_words(left, right):
     state = sha256_compress(h0_state((n,), left.device),
                             torch.cat([u32(left), u32(right)], dim=-1))
     return sha256_compress(state, pad)
+
+
+# --- kernel K6 and its plain version ----------------------------------------------
+
+def _sha256_blocks(words):
+    """Plain version of K6: ``sha256_words`` as (N, 8) int32 words."""
+    return i32(sha256_words(words))
+
+
+def sha256_blocks(words, *, plain: bool = False):
+    """K6's wrapper: SHA-256 of N pre-padded messages, (N, 16 * blocks)
+    int32 big-endian words -> (N, 8) int32 digest words. CUDA tensors:
+    launch ``csrc/sha256_blocks.cu`` on the current stream, or raise; rows
+    may be strided, each 16-byte aligned. CPU tensors, or ``plain=True`` on
+    any device: the plain version. N = 0 returns an empty result without a
+    launch."""
+    dev = words.device
+    if plain or dev.type == "cpu":
+        return _sha256_blocks(words)
+    if dev.type != "cuda":
+        raise ValueError(f"sha256_blocks: no kernel for device {dev}")
+    if words.dim() != 2 or words.dtype != torch.int32 or words.shape[1] % 16 \
+            or not words.shape[1]:
+        raise ValueError(f"sha256_blocks: words must be int32 (N, 16 * blocks), blocks >= 1, "
+                         f"got {words.dtype} {tuple(words.shape)}")
+    if words.stride(1) != 1 or words.stride(0) % 4 or words.data_ptr() % 16:
+        raise ValueError(f"sha256_blocks: rows must be contiguous words, 16-byte aligned "
+                         f"(strides {words.stride()})")
+    n = words.shape[0]
+    out = torch.empty((n, 8), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    if n >= 2**31:
+        raise ValueError(f"sha256_blocks: at most 2^31 - 1 messages, got {n}")
+    kernels.launch_on(dev, "sha256_blocks", words.data_ptr(), words.stride(0),
+                      words.shape[1] // 16, out.data_ptr(), n)
+    return out
+
+
+def pad_words(msgs: torch.Tensor) -> torch.Tensor:
+    """SHA-256 padding of (N, L) uint8 messages on their device -> (N, 16 *
+    blocks) int32 big-endian words (``ssz/hash._pad_messages``'s bytes)."""
+    n, length = msgs.shape
+    total = ((length + 1 + 8 + 63) // 64) * 64
+    padded = torch.zeros((n, total), dtype=torch.uint8, device=msgs.device)
+    padded[:, :length] = msgs
+    padded[:, length] = 0x80
+    padded[:, -8:] = torch.tensor(list((length * 8).to_bytes(8, "big")), dtype=torch.uint8,
+                                  device=msgs.device)
+    return padded.reshape(n, -1, 4).flip(-1).contiguous().view(torch.int32).reshape(n, -1)
+
+
+def sha256_rows(msgs, device="cuda", *, plain: bool = False) -> torch.Tensor:
+    """SHA-256 of N equal-length byte messages through K6: (N, L) uint8 ->
+    (N, 32) uint8 digest rows, the bytes of ``ssz/hash.sha256_batch``. A
+    numpy array goes to ``device`` (CUDA unless the caller asks for
+    another), a tensor stays where it lies; either is padded there
+    (``pad_words``) and hashed. ``plain=True``: K6's plain version."""
+    if not isinstance(msgs, torch.Tensor):
+        msgs = np.ascontiguousarray(msgs, dtype=np.uint8)
+        if msgs.ndim != 2:
+            raise ValueError("sha256_rows expects a (N, L) uint8 array")
+        msgs = torch.from_numpy(msgs).to(resolve_device(device))
+    if msgs.shape[0] == 0:
+        return torch.empty((0, 32), dtype=torch.uint8, device=msgs.device)
+    return words_to_rows(sha256_blocks(pad_words(msgs), plain=plain))

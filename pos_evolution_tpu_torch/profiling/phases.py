@@ -38,6 +38,7 @@ DENSE_PHASES = (
     "head_descent",       # _head: head_from_buckets descent
     "vote_apply",         # _deliver_batch/_apply_batch vote landing
     "variant_tally",      # dense variant plane: per-slot tallies and gadgets
+    "workload",           # riders: DAS sidecar build, verification, sampling; light clients
     "aggregate_verify",   # _verify_slot committee aggregates (K1)
     "monitors",           # dense monitor sweep over the tallies
     "host_audit",         # head_host_walk parity check

@@ -28,7 +28,9 @@ slot; the monitors of ``sim/dense_monitors.py`` read the origination
 masks; ``n_groups=2`` splits the network into per-view tables over one
 shared block tree. The policies of ``sim/dense_variants.py`` (Goldfish,
 RLMD-GHOST, SSF) change the duty, the head window and the per-slot
-gadgets.
+gadgets. Workload riders (``das/dense_rider.py``, the DAS sidecar plane;
+``lightclient/population.py``, light-client followers) act on each slot's
+proposals and at each slot's end, charged to the ``workload`` phase.
 
 Everything is integer math, so a run equals the JAX package's
 single-device run bit for bit, on the CPU and on the card, and
@@ -40,10 +42,13 @@ against.
 
 Not ported here, each raising ``ValueError`` when asked for: a device
 mesh, telemetry, the flight recorder, autocheckpoint and
-``resume_latest``, and workload riders.
+``resume_latest``.
 
 Run: ``python -m pos_evolution_tpu_torch.sim.dense_driver --n 1048576
---epochs 4 [--device cuda]``
+--epochs 4 [--device cuda]``; with the PeerDAS geometry and both riders:
+``--das-cells 64 --das-cell-bytes 2048 --das-max-blobs 9 --riders
+'[{"kind": "das", "n_blobs": 9, "n_clients": 100000, "samples_per_client":
+8}, {"kind": "lightclient", "n_clients": 100000}]'``
 """
 
 from __future__ import annotations
@@ -151,8 +156,6 @@ class DenseSimulation:
         if telemetry is not None or flight_recorder is not None or autocheckpoint is not None:
             raise _not_ported("telemetry, the flight recorder or autocheckpoint",
                               "item 7, the tooling")
-        if any(r is not None for r in riders):
-            raise _not_ported("a workload rider", "item 5, sync, DAS and KZG")
         self.device = resolve_device(device)
         self.plain = bool(plain)
         self.cfg = cfg or mainnet_config()
@@ -173,6 +176,7 @@ class DenseSimulation:
         self.adversaries = list(adversaries)
         self.monitors = list(monitors)
         self.variant = dense_variant_from_config(variant)
+        self.riders = [r for r in riders if r is not None]
         # per-view proposer-boost candidate: the newest timely (visible)
         # proposal; None while withheld or before the first slot
         self._boost: list[int | None] = [None] * self.n_groups
@@ -226,11 +230,13 @@ class DenseSimulation:
         # same host draw as the JAX package)
         rng = np.random.default_rng(self.seed)
         self.pk_states = precompute_pk_states(
-            rng.integers(0, 256, (self.n, 48)).astype(np.uint8), dev)
+            rng.integers(0, 256, (self.n, 48)).astype(np.uint8), dev, plain=self.plain)
 
         self._append_block(_hash(b"genesis", self.seed), -1, 0)
 
         self.variant.bind(self)
+        for r in self.riders:
+            r.bind(self)
         for adv in self.adversaries:
             adv.bind(self)
         for mon in self.monitors:
@@ -659,6 +665,11 @@ class DenseSimulation:
             # slot's proposal, unless withheld
             for g in range(self.n_groups):
                 self._boost[g] = new_idx[g] if self.views[g].vis_host[new_idx[g]] else None
+        if self.riders:
+            with pt.phase("workload"):
+                for r in self.riders:
+                    if hasattr(r, "on_proposals"):
+                        r.on_proposals(self, s, new_idx)
 
         # --- votes: pending (delayed) first, then honest, then adversarial
         with pt.phase("vote_apply"):
@@ -715,6 +726,11 @@ class DenseSimulation:
 
         with pt.phase("variant_tally"):
             self.variant.on_slot_end(self, s, vote_targets)
+        if self.riders:
+            with pt.phase("workload"):
+                for r in self.riders:
+                    if hasattr(r, "on_slot_end"):
+                        r.on_slot_end(self, s)
 
         with pt.phase("monitors"):
             for mon in self.monitors:
@@ -784,6 +800,8 @@ class DenseSimulation:
             vs = self.variant.summary_fields(self)
             if vs:
                 out["variant_state"] = vs
+        if self.riders:
+            out["workload"] = {r.kind: r.stats() for r in self.riders}
         if self.monitors or self.adversaries:
             out["monitor_violations"] = len(self.monitor_violations)
             out["violation_kinds"] = sorted({v["kind"] for v in self.monitor_violations})
@@ -854,11 +872,14 @@ class DenseSimulation:
                 "monitors": [{"config": m.describe(), "state": m.state_meta()}
                              for m in self.monitors],
             }
+        for i, r in enumerate(self.riders):
+            for name, arr in r.state_arrays().items():
+                cols[f"rider{i}_{name}"] = np.array(arr, copy=True)
         meta = {
             "version": 3, "n": self.n, "seed": self.seed,
             "variant": self.variant.describe(),
             "variant_state": self.variant.state_meta(),
-            "riders": [],
+            "riders": [{"config": r.describe(), "state": r.state_meta()} for r in self.riders],
             "boost": [None if b is None else int(b) for b in self._boost],
             "shuffle_rounds": self.shuffle_rounds,
             "verify_aggregates": self.verify_aggregates,
@@ -980,6 +1001,10 @@ class DenseSimulation:
                     k[len(f"mon{i}_"):]: v for k, v in arrays.items()
                     if k.startswith(f"mon{i}_")})
         sim.variant.restore_state(meta.get("variant_state", {}))
+        for i, (r, rm) in enumerate(zip(sim.riders, meta.get("riders", []))):
+            r.restore_state(rm.get("state", {}), {
+                k[len(f"rider{i}_"):]: v for k, v in arrays.items()
+                if k.startswith(f"rider{i}_")})
         boost = meta.get("boost")
         if boost is not None:
             sim._boost = [None if b is None else int(b) for b in boost]
@@ -1010,13 +1035,26 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--plain", action="store_true",
                     help="the kernels' plain PyTorch versions")
+    ap.add_argument("--riders", default="[]",
+                    help="JSON list of rider configs, e.g. '[{\"kind\": \"das\", \"n_blobs\": 9}, "
+                         "{\"kind\": \"lightclient\", \"n_clients\": 100000}]'")
+    ap.add_argument("--das-cells", type=int, default=None,
+                    help="data cells per blob, k (config das_cells_per_blob; PeerDAS: 64)")
+    ap.add_argument("--das-cell-bytes", type=int, default=None,
+                    help="bytes per cell (config das_cell_bytes; PeerDAS: 2048)")
+    ap.add_argument("--das-max-blobs", type=int, default=None,
+                    help="blobs per block (config das_max_blobs_per_block; EIP-7691: 9)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    cfg = mainnet_config()
+    geometry = {"das_cells_per_blob": args.das_cells, "das_cell_bytes": args.das_cell_bytes,
+                "das_max_blobs_per_block": args.das_max_blobs}
+    cfg = mainnet_config().replace(**{k: v for k, v in geometry.items() if v is not None})
+    riders = [dense_rider_from_config(d) for d in json.loads(args.riders)]
     rounds = cfg.shuffle_round_count if args.shuffle_rounds is None else args.shuffle_rounds
     t0 = time.perf_counter()
     sim = DenseSimulation(args.n, cfg, device=dev, plain=args.plain, seed=args.seed,
-                          shuffle_rounds=rounds, phase_profile=args.phase_profile or None)
+                          shuffle_rounds=rounds, phase_profile=args.phase_profile or None,
+                          riders=riders)
     t1 = time.perf_counter()
     sim.run_epochs(args.epochs)
     if dev.type == "cuda":

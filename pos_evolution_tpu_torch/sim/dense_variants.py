@@ -395,10 +395,18 @@ def dense_variant_from_config(d) -> DenseProtocolVariant:
 
 
 def dense_rider_from_config(d):
-    """Workload riders (the DAS sidecar plane and light-client
-    populations) are not ported yet: any rider config raises."""
+    """Workload rider from its ``describe()`` dict (the DAS sidecar plane or
+    a light-client population); an instance passes through, None stays
+    None. The rider modules load when a rider is asked for."""
     if d is None:
         return None
-    kind = d.get("kind") if isinstance(d, dict) else type(d).__name__
-    raise ValueError(f"dense rider {kind!r}: riders are not ported yet "
-                     "(ROADMAP Queue 1 item 5, sync, DAS and KZG)")
+    if not isinstance(d, dict):
+        return d
+    kind = d["kind"]
+    if kind == "das":
+        from pos_evolution_tpu_torch.das.dense_rider import DenseDasRider
+        return DenseDasRider.from_config(d)
+    if kind == "lightclient":
+        from pos_evolution_tpu_torch.lightclient.population import DenseLightClientPopulation
+        return DenseLightClientPopulation.from_config(d)
+    raise ValueError(f"unknown dense rider kind {kind!r}")

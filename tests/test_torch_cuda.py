@@ -4,6 +4,7 @@ device. On a GPU machine: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 
 import ctypes
+import hashlib
 
 import numpy as np
 import pytest
@@ -448,3 +449,183 @@ def test_k3_launch_failure_raises(cuda):
     with fp.plain_mode():
         assert torch.equal(fp.modinv(x), fp._pow_static(x, fp._P_MINUS_2_BITS))
     assert kernels.launches == before
+
+
+# --- K6 (multi-block SHA-256) and K7 (GF(2^8) product): the DAS and sync slice ------
+
+def _k6_messages(n, length, seed):
+    return np.random.default_rng(seed).integers(0, 256, (n, length)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("n,length", [(1, 52), (3, 2048), (1152, 2048), (36864, 52),
+                                      (36864, 2048), (5, 55), (5, 56)])
+def test_k6_matches_plain_and_hashlib(cuda, n, length):
+    """1 and 33 blocks a message (52 and 2,048 bytes), at the DAS path's
+    batch sizes; 55 and 56 bytes straddle the padding's block."""
+    from pos_evolution_tpu_torch.ops.sha256 import pad_words, sha256_blocks, sha256_rows
+    from pos_evolution_tpu_torch.ssz.hash import _pad_messages
+    msgs = _k6_messages(n, length, n + length)
+    words = torch.from_numpy(_pad_messages(msgs).view(np.int32)).to(cuda)
+    before = kernels.launches["sha256_blocks"]
+    got = sha256_blocks(words)
+    torch.cuda.synchronize()
+    assert kernels.launches["sha256_blocks"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == (n, 8)
+    assert torch.equal(got, sha256_blocks(words, plain=True))
+    assert torch.equal(pad_words(torch.from_numpy(msgs).to(cuda)), words)
+    rows = sha256_rows(msgs, cuda).cpu().numpy()
+    for i in {0, n // 2, n - 1}:
+        assert rows[i].tobytes() == hashlib.sha256(msgs[i].tobytes()).digest()
+
+
+def test_pk_states_through_k6(cuda):
+    """The signers' midstate table is one K6 launch, equal to the CPU's."""
+    from pos_evolution_tpu_torch.ops.aggregation import precompute_pk_states
+    pubkeys = np.random.default_rng(4).integers(0, 256, (1000, 48)).astype(np.uint8)
+    before = kernels.launches["sha256_blocks"]
+    got = precompute_pk_states(pubkeys, cuda)
+    torch.cuda.synchronize()
+    assert kernels.launches["sha256_blocks"] == before + 1
+    assert torch.equal(got.cpu(), precompute_pk_states(pubkeys, "cpu"))
+
+
+def test_k6_empty_and_refused(cuda):
+    """N = 0 launches nothing; a strided row or a wrong width raises; a
+    launch CUDA refuses raises and is not counted."""
+    from pos_evolution_tpu_torch.ops.sha256 import sha256_blocks
+    words = torch.zeros((4, 32), dtype=torch.int32, device=cuda)
+    before = dict(kernels.launches)
+    assert sha256_blocks(words[:0]).shape == (0, 8)
+    with pytest.raises(ValueError, match="int32"):
+        sha256_blocks(words[:, :24])
+    with pytest.raises(ValueError, match="16-byte"):
+        sha256_blocks(words.reshape(2, 64)[:, 1:17])
+    out = torch.empty((1, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="sha256_blocks launch failed"):
+        kernels.launch_on(cuda, "sha256_blocks", words.data_ptr(), 32, 2, out.data_ptr(), 0)
+    assert kernels.launches == before
+
+
+@pytest.mark.parametrize("g,r,k,w", [(1, 8, 8, 64), (9, 16, 8, 64), (1, 64, 64, 2048),
+                                     (9, 64, 64, 2048), (9, 128, 64, 2048), (3, 40, 64, 66)])
+def test_k7_matches_plain(cuda, g, r, k, w):
+    """The extension (r = k) and the regrid (r = 2k) shapes of the DAS path,
+    with zero rows and columns; a width that is not a multiple of 4."""
+    from pos_evolution_tpu_torch.ops.das_verify import _gf_matmul, gf_matmul
+    rng = np.random.default_rng(g * r + k + w)
+    a = torch.from_numpy(rng.integers(0, 256, (g, r, k)).astype(np.uint8))
+    b = torch.from_numpy(rng.integers(0, 256, (g, k, w)).astype(np.uint8))
+    a[0, r // 2] = 0
+    b[-1, :, w // 3] = 0
+    b[0, k // 2] = 0
+    want = _gf_matmul(a, b)
+    before = kernels.launches["gf256_matmul"]
+    got = gf_matmul(a.to(cuda), b.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.launches["gf256_matmul"] == before + 1
+    assert got.dtype == torch.uint8 and torch.equal(got.cpu(), want)
+    shared = gf_matmul(a[:1].to(cuda), b.to(cuda))          # one matrix for every group
+    assert torch.equal(shared.cpu(), _gf_matmul(a[:1], b))
+    assert torch.equal(gf_matmul(a.to(cuda), b.to(cuda), plain=True).cpu(), want)
+
+
+def test_k7_offset_operand(cuda):
+    """B as a contiguous view at an odd byte offset: the wrapper copies it
+    to an aligned buffer (the kernel loads B in 4-byte words) and launches
+    once, with the plain version's bytes."""
+    from pos_evolution_tpu_torch.ops.das_verify import _gf_matmul, gf_matmul
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.integers(0, 256, (2, 16, 8)).astype(np.uint8))
+    flat = torch.from_numpy(rng.integers(0, 256, 1 + 2 * 8 * 64).astype(np.uint8))
+    b = flat.to(cuda)[1:].view(2, 8, 64)
+    assert b.is_contiguous() and b.data_ptr() % 4
+    before = kernels.launches["gf256_matmul"]
+    got = gf_matmul(a.to(cuda), b)
+    torch.cuda.synchronize()
+    assert kernels.launches["gf256_matmul"] == before + 1
+    assert torch.equal(got.cpu(), _gf_matmul(a, flat[1:].view(2, 8, 64)))
+
+
+def test_k7_empty_and_refused(cuda):
+    from pos_evolution_tpu_torch.ops.das_verify import _gf_tables, gf_matmul
+    a = torch.ones((2, 4, 8), dtype=torch.uint8, device=cuda)
+    b = torch.ones((2, 8, 16), dtype=torch.uint8, device=cuda)
+    before = dict(kernels.launches)
+    assert not gf_matmul(a[:, :0], b).any() and gf_matmul(a[:, :0], b).shape == (2, 0, 16)
+    assert gf_matmul(a[:, :, :0], b[:, :0]).shape == (2, 4, 16)
+    with pytest.raises(ValueError, match="k <= 256"):
+        gf_matmul(torch.ones((1, 2, 300), dtype=torch.uint8, device=cuda),
+                  torch.ones((1, 300, 4), dtype=torch.uint8, device=cuda))
+    out = torch.empty((2, 4, 16), dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError, match="gf256_matmul launch failed"):
+        kernels.launch_on(cuda, "gf256_matmul", _gf_tables(cuda).data_ptr(), a.data_ptr(), 32,
+                          b.data_ptr(), 128, out.data_ptr(), 2, 0, 8, 16)   # no rows: grid 0
+    assert kernels.launches == before
+
+
+def test_das_and_sync_paths_on_card_equal_cpu(cuda):
+    """The engine's grids and commitments, the store's verdicts, a sample
+    batch and a sync batch: the card equals the CPU and the host oracles."""
+    from pos_evolution_tpu_torch.config import mainnet_config
+    from pos_evolution_tpu_torch.das.containers import BlobSidecar
+    from pos_evolution_tpu_torch.das.engine import BlobEngine, BlobStore
+    from pos_evolution_tpu_torch.ops import das_verify, sync_verify
+    cfg = mainnet_config().replace(das_cells_per_blob=64, das_cell_bytes=2048,
+                                   das_max_blobs_per_block=3)
+    root = bytes(range(32))
+    outs = {}
+    for dev in ("cpu", cuda):
+        engine = BlobEngine(cfg, seed=2, device=dev)
+        grids, coms = engine.build_batch(5, root)
+        bad = grids.clone()
+        bad[1, 70, 9] ^= 4
+        scs = [BlobSidecar(5, 0, root, i, 3, bad[i], c) for i, c in enumerate(coms)]
+        outs[str(dev)] = (grids.cpu(), coms, BlobStore(engine).on_sidecars(scs))
+    cpu, card = outs["cpu"], outs[str(cuda)]
+    assert torch.equal(cpu[0], card[0]) and cpu[1:] == card[1:]
+    assert card[2] == [True, False, True]
+    engine = BlobEngine(cfg, seed=2, device=cuda)
+    grid = card[0][0].numpy()
+    idx = np.arange(0, 128, 5)
+    _, branches = engine.scheme.branches(grid, idx)
+    batch = das_verify.DasSampleBatch(
+        cells=grid[idx].copy(), branches=branches, indices=idx.astype(np.int64),
+        commitments=np.frombuffer(card[1][0] * len(idx), np.uint8).reshape(-1, 32).copy())
+    batch.cells[3, 0] ^= 1
+    got = das_verify.verify_samples_device(batch, cuda)
+    want = das_verify.verify_samples_host(batch)
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
+    assert (~got["ok"]).nonzero()[0].tolist() == [3]
+    rng = np.random.default_rng(8)
+    b, s = 6, 512
+    pubkeys = rng.integers(0, 256, (b, s, 48)).astype(np.uint8)
+    sbatch = sync_verify.SyncUpdateBatch(
+        pubkeys=pubkeys, bits=rng.random((b, s)) < 0.8,
+        weights=rng.integers(0, 2**35, (b, s)).astype(np.int64),
+        messages=rng.integers(0, 256, (b, 32)).astype(np.uint8),
+        signatures=rng.integers(0, 256, (b, 96)).astype(np.uint8),
+        fin_leaf=rng.integers(0, 256, (b, 32)).astype(np.uint8),
+        fin_branch=rng.integers(0, 256, (b, 6, 32)).astype(np.uint8),
+        fin_index=rng.integers(0, 64, b), fin_root=rng.integers(0, 256, (b, 32)).astype(np.uint8),
+        fin_present=np.ones(b, bool), sc_leaf=rng.integers(0, 256, (b, 32)).astype(np.uint8),
+        sc_branch=rng.integers(0, 256, (b, 5, 32)).astype(np.uint8),
+        sc_index=rng.integers(0, 32, b), sc_root=rng.integers(0, 256, (b, 32)).astype(np.uint8),
+        sc_present=np.ones(b, bool))
+    sbatch.fin_root[:3] = sync_verify.merkle_roots_host(sbatch.fin_leaf, sbatch.fin_branch,
+                                                        sbatch.fin_index)[:3]
+    for i in range(2):                                   # two honest aggregates
+        acc = 0
+        for j in np.nonzero(sbatch.bits[i])[0]:
+            h1 = hashlib.sha256(b"fakebls-sig-pad!" + pubkeys[i, j].tobytes()
+                                + sbatch.messages[i].tobytes()).digest()
+            h2 = hashlib.sha256(h1).digest()
+            acc ^= int.from_bytes(h1 + h2 + hashlib.sha256(h2).digest(), "big")
+        sbatch.signatures[i] = np.frombuffer(acc.to_bytes(96, "big"), np.uint8)
+    got = sync_verify.verify_batch_device(sbatch, cuda)
+    want = sync_verify.verify_batch_host(sbatch)
+    for key in want:
+        assert got[key].dtype == want[key].dtype
+        np.testing.assert_array_equal(got[key], want[key])
+    assert want["fin_ok"].tolist() == [True] * 3 + [False] * 3
+    assert want["sig_ok"].tolist() == [True] * 2 + [False] * 4

@@ -19,6 +19,7 @@ from pos_evolution_tpu.resilience import fingerprint_config as jax_fingerprint  
 from pos_evolution_tpu.resilience import state_digest as jax_digest  # noqa: E402
 from pos_evolution_tpu.sim.dense_driver import DenseSimulation as JaxSim  # noqa: E402
 from pos_evolution_tpu_torch.config import mainnet_config  # noqa: E402
+from pos_evolution_tpu_torch.das.dense_rider import DenseDasRider  # noqa: E402
 from pos_evolution_tpu_torch.ops import kernels  # noqa: E402
 from pos_evolution_tpu_torch.resilience import fingerprint_config, state_digest  # noqa: E402
 from pos_evolution_tpu_torch.sim.dense_driver import DenseSimulation  # noqa: E402
@@ -148,7 +149,7 @@ def test_fingerprint_config_matches_jax():
     ({"telemetry": object()}, "item 7"),
     ({"flight_recorder": object()}, "item 7"),
     ({"autocheckpoint": (8, "/nonexistent")}, "item 7"),
-    ({"riders": [object()]}, "item 5"),
+    ({"riders": [DenseDasRider(scheme="kzg")]}, "item 5"),    # the KZG scheme: item 5b
 ])
 def test_unported_options_raise(kw, item):
     with pytest.raises(ValueError, match=item):
@@ -159,7 +160,7 @@ def test_unported_supervision_and_riders_raise():
     with pytest.raises(ValueError, match="item 7"):
         DenseSimulation.resume_latest("/nonexistent")
     with pytest.raises(ValueError, match="item 5"):
-        dense_rider_from_config({"kind": "das"})
+        _port(riders=[dense_rider_from_config({"kind": "das", "scheme": "kzg"})])
     assert dense_rider_from_config(None) is None
 
 
