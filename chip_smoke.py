@@ -37,8 +37,9 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     its ``state_digest`` -- with the launch counts zeroed just before and
     read just after: K6 once at setup, K1 twice a slot, K2 in the digest,
     every walk check true, 64 x 128 aggregates verified, finality reached;
-    the same run with ``plain=True`` gives identical metrics, summary and
-    digest; K1 at the path's shape (A=64, C=512) against its plain version;
+    a kernel run of 1 epoch and its ``plain=True`` twin give identical
+    metrics, summary and digest; K1 at the path's shape (A=64, C=512)
+    against its plain version;
 11. a faulted and adversarial run at 2^20 (drops, delays, a crash window,
     an equivocator controlling 1/16, the default monitors) for 2 epochs,
     and the same run checkpointed after epoch 1 and resumed on the card:
@@ -49,7 +50,9 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     and the device's busy share under ``torch.profiler`` over one epoch;
     K1 at the path's shape against its bound;
 14. count the SASS instructions of every kernel (``cuobjdump -sass``), by
-    opcode group, per signer and per pair, and the two bounds they give;
+    opcode group (and K7's tensor-core wgmma, GMMA, K6's cp.async LDGSTS
+    and mbarrier SYNCS), per signer and per pair, and the two bounds they
+    give;
 15. hold the field kernels K3 (``csrc/fp_modmul.cu``), K4
     (``csrc/fp_addsub.cu``) and K5 (``csrc/alg_mul.cu``) against their
     plain versions at the BLS path's shapes, digit for digit: K3's product
@@ -82,11 +85,15 @@ Phases, in order; any mismatch or exception ends the run non-zero:
 19. K3's SASS recounted per function and the bound it gives, and the
     SASS census of K4 and K5;
 20. hold kernels K6 (``csrc/sha256_blocks.cu``, multi-block SHA-256) and
-    K7 (``csrc/gf256_matmul.cu``, the batched GF(2^8) product) against
-    their plain versions at the sync and DAS path's shapes (PeerDAS cells
-    of 2,048 bytes, 33 blocks; 1-block blob streams, client digests and
-    signature midstates; a 9-blob extension and regrid), K6 against
-    hashlib on spot rows;
+    K7 (``csrc/gf256_matmul.cu``, the batched GF(2^8) product on the int8
+    tensor cores by wgmma) against their plain versions at the sync and DAS path's
+    shapes (PeerDAS cells of 2,048 bytes, 33 blocks; 1-block blob streams,
+    client digests and signature midstates; a 9-blob extension and regrid),
+    K6 against hashlib on spot rows; and at their edge shapes: K6 at the
+    crossover of its two designs (one below, at, one above) at 1, 2, 33 and
+    65 blocks, on strided rows, and in each design at the path's shapes; K7
+    at k in {1, 3, 31, 64, 255, 256} x r in {1, 7, 16, 129} x W in {4, 66,
+    2,048}, random, broadcast, all-zero, all-0xFF and identity operands;
 21. the sync verify at 2,048 updates of 512 lanes equal to
     ``verify_batch_host`` and to its ``plain=True`` run, rejecting exactly
     the forged, short, empty, misproved and unproved updates; one K6, one
@@ -109,7 +116,12 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     head every slot) to its ``plain=True`` run at 2 slots;
 25. time K6 and K7 per launch at the path's shapes (kernel ms by events,
     device ms by the CUDA graph timer, wrapper, plain) against their
-    bounds, K6 also against its SASS count.
+    bounds; printed beside them (not in the kernels line): the parent's
+    times (``PERF.md``, before their redesign), K6's integer-pipe bound
+    from the SASS count of the design the shape takes and the round-chain
+    floor of one chain's scheduler, K7's former lookup bound; each K6
+    design (the chains, one thread a message in blocks of 32 and of 128)
+    either side of the crossover at 33 blocks and below it at 2 and 1.
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and
@@ -194,7 +206,8 @@ from pos_evolution_tpu_torch.das.engine import BlobEngine  # noqa: E402
 from pos_evolution_tpu_torch.das.erasure import extension_matrix  # noqa: E402
 from pos_evolution_tpu_torch.das.erasure import gf_matmul as gf_matmul_host  # noqa: E402
 from pos_evolution_tpu_torch.ops import das_verify, sync_verify  # noqa: E402
-from pos_evolution_tpu_torch.ops.sha256 import sha256_blocks  # noqa: E402
+from pos_evolution_tpu_torch.ops.sha256 import (  # noqa: E402
+    k6_chains_below, k6_chains_min_blocks, sha256_blocks)
 from pos_evolution_tpu_torch.ssz.hash import _pad_messages  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): 3.35 TB/s of HBM;
@@ -228,8 +241,9 @@ K2_LARGEST = 4_194_304          # the validator leaves' first level at N = 2^20
 ROOT_STAGES = ("load", "pre", "epoch", "post")
 SMALL = dict(slots=4, committees_per_slot=4, capacity=16, shuffle_rounds=10)
 
-# the dense path: 2^20 validators, mainnet config, 4 epochs
-DENSE_EPOCHS = 4
+# the dense path: 2^20 validators, mainnet config, 4 epochs; its plain=True
+# twin at 1 epoch (against a kernel run of 1 epoch)
+DENSE_EPOCHS, DENSE_PLAIN_EPOCHS = 4, 1
 DENSE_SMALL = dict(slots_per_epoch=8, max_committees_per_slot=4)
 # SM count and boost clock of the H100 SXM; its INT32 pipe has 64 lanes per
 # SM, where LOP3 and SHF issue and nowhere else
@@ -298,8 +312,30 @@ K6_MAIN = "cell leaves"
 K7_SHAPES = {"extension": (1, DAS_BLOBS, DAS_K, DAS_K, DAS_CELL),
              "regrid": (DAS_BLOBS, DAS_BLOBS, 2 * DAS_K, DAS_K, DAS_CELL)}
 K7_MAIN = "regrid"
-# 32 four-byte shared-memory loads per SM per clock on the H100
+# 32 four-byte shared-memory loads per SM per clock on the H100 (the bound of
+# K7's former log/exp lookup design, printed for continuity)
 SHARED_LOOKUPS_PER_S = H100_SMS * 32 * H100_CLOCK_HZ
+# the H100 SXM's dense int8 tensor-core peak (NVIDIA data sheet, 700 W)
+INT8_TENSOR_OPS_PER_S = 1979e12
+# one chain of K6's warp-specialized design runs on one scheduler, whose
+# integer pipe has 16 lanes (a warp instruction every 2 clocks); a round of
+# sha256_blocks.cu::round_kw issues 11 instructions there (6 SHF, 4 LOP3, 1 IADD3)
+CHAIN_ROUND_INT_OPS, INT_PIPE_CLOCKS_PER_WARP_OP = 11, 2
+# K6 and K7 device ms of their first designs (the ranges PERF.md records on an
+# NVIDIA H100 80GB HBM3 at 700.00 W), printed beside this run's
+K6_PARENT_MS = {"cell leaves": (0.0589, 0.0595), "blob streams": (0.0070, 0.0076),
+                "client digests": (0.0112, 0.0121), "backfill samples": (0.1552, 0.1578),
+                "sync lanes": (0.0919, 0.0932)}
+K7_PARENT_MS = {"extension": (0.0526, 0.0535), "regrid": (0.0725, 0.0749)}
+# K6's edge shapes: block counts at the crossover; K7's: inner sizes, rows, widths
+K6_EDGE_BLOCKS = (1, 2, 33, 65)
+K7_EDGE_K, K7_EDGE_R, K7_EDGE_W = (1, 3, 31, 64, 255, 256), (1, 7, 16, 129), (4, 66, 2048)
+K7_EDGE_KINDS = ("random", "broadcast", "zeros", "ones", "identity")
+# K6's designs by the measuring entry point's `threads` (0: the chains; one
+# thread a message in blocks of 32 or 128), and the (messages, blocks) at
+# which each is timed (the crossover's neighbours are added at 33 blocks)
+K6_DESIGNS = {"chains": 0, "one thread, 32": 32, "one thread, 128": 128}
+K6_SWEEP = {33: (1152, 4608, 9216, 36_864), 2: (1152,), 1: (1152, 4608)}
 
 
 def say(*parts):
@@ -597,7 +633,8 @@ def kernel_key(mangled: str) -> str:
         end = len(digits) + int(digits)
         last, rest = rest[len(digits):end], rest[end:]
     template = re.match(r"ILi(\d+)EE", rest)
-    return last.removesuffix("_kernel") + (f"_g{template.group(1)}" if template else "")
+    last = last.replace("_kernel_", "_").removesuffix("_kernel")     # K6's *_kernel_chains
+    return last + (f"_g{template.group(1)}" if template else "")
 
 
 def sass_census() -> dict:
@@ -623,6 +660,11 @@ def sass_census() -> dict:
             c[base if base in groups else "other"] += 1
         c["all"] = len(seq)
         c["IMAD_WIDE"] = sum(op.startswith("IMAD.WIDE") for op in seq)   # within IMAD
+        # within other: the tensor cores' IMMA (mma.sync) and GMMA (wgmma: IGMMA for
+        # int8), cp.async's LDGSTS, the mbarriers' SYNCS
+        for unit in ("IMMA", "LDGSTS", "SYNCS"):
+            c[unit] = sum(op.split(".")[0] == unit for op in seq)
+        c["GMMA"] = sum(op.split(".")[0].endswith("GMMA") for op in seq)
         return c
 
     out = {}
@@ -1126,12 +1168,22 @@ def k6_bound(n: int, blocks: int) -> dict:
 
 
 def k7_bound(ga: int, g: int, r: int, k: int, w: int) -> dict:
-    """Least time for K7's work: an exp lookup in shared memory per output
-    byte and inner index, a log lookup per byte of B; A, B read once and
-    the output written once."""
-    t_ops = (g * r * w * k + g * k * w) / SHARED_LOOKUPS_PER_S * 1e3
+    """Least time for K7's work as it runs, a product of 0/1 int8 matrices
+    of 8r x 8k and 8k x W a group on the tensor cores; A, B read once and
+    the output written once. ``lookup_ms``: the former design's bound, an
+    exp lookup in shared memory per output byte and inner index and a log
+    lookup per byte of B."""
+    t_ops = 2 * g * (8 * r) * (8 * k) * w / INT8_TENSOR_OPS_PER_S * 1e3
     t_bytes = (ga * r * k + g * k * w + g * r * w) / HBM_BYTES_PER_S * 1e3
-    return {"ms": max(t_ops, t_bytes), "by": "operations" if t_ops >= t_bytes else "bytes"}
+    return {"ms": max(t_ops, t_bytes), "by": "operations" if t_ops >= t_bytes else "bytes",
+            "lookup_ms": (g * r * w * k + g * k * w) / SHARED_LOOKUPS_PER_S * 1e3}
+
+
+def k6_chain_floor_ms(blocks: int) -> float:
+    """Least time for one chain of ``blocks`` blocks on one scheduler: its
+    rounds' integer-pipe instructions, one after another."""
+    return (64 * blocks * CHAIN_ROUND_INT_OPS * INT_PIPE_CLOCKS_PER_WARP_OP
+            / H100_CLOCK_HZ * 1e3)
 
 
 def wall_ms(fn, reps: int) -> list:
@@ -1181,6 +1233,84 @@ def sync_batch(rng, dev) -> sync_verify.SyncUpdateBatch:
         messages=messages, signatures=signatures, **groups)
 
 
+def k6_edges(rng, dev, k6_in: dict, k6_ref: dict) -> int:
+    """K6 at its edge shapes, each launch bit-equal to the plain version:
+    the wrapper one message below, at and above the crossover of its two
+    designs at K6_EDGE_BLOCKS blocks (one launch each, the last row against
+    hashlib) and on rows read in place at a stride; each of K6_DESIGNS,
+    named through the measuring entry point, at the path's shapes. Returns
+    the largest word difference (0)."""
+    cross = k6_chains_below()
+    for blocks in K6_EDGE_BLOCKS:
+        msgs = rng.integers(0, 256, (cross + 1, 64 * blocks - 9), dtype=np.uint8)
+        words = torch.from_numpy(_pad_messages(msgs).view(np.int32)).to(dev)
+        for n in (cross - 1, cross, cross + 1):
+            before = kernels.launches["sha256_blocks"]
+            got = sha256_blocks(words[:n])
+            ref = sha256_blocks(words[:n], plain=True)
+            torch.cuda.synchronize()
+            check(kernels.launches["sha256_blocks"] == before + 1 and torch.equal(got, ref),
+                  f"K6 at {n} messages of {blocks} blocks differs from its plain version")
+            last = words_to_numpy(got[n - 1:]).astype(">u4").view(np.uint8)
+            check(last.tobytes() == hashlib.sha256(msgs[n - 1].tobytes()).digest(),
+                  f"K6 at {n} messages of {blocks} blocks: the last row differs from hashlib")
+        del msgs, words
+    wide = torch.from_numpy(rng.integers(-2**31, 2**31, (3000, 16 * 33 + 4),
+                                         dtype=np.int64).astype(np.int32)).to(dev)
+    strided = wide[:, 4:]
+    check(torch.equal(sha256_blocks(strided), sha256_blocks(strided.contiguous(), plain=True)),
+          "K6 on strided rows differs from its plain version")
+    for name, words in k6_in.items():
+        n, nb = words.shape[0], words.shape[1] // 16
+        for design, threads in K6_DESIGNS.items():
+            out = torch.full((n, 8), -1, dtype=torch.int32, device=dev)
+            kernels.launch_on(dev, "sha256_blocks_design", words.data_ptr(), words.stride(0), nb,
+                              out.data_ptr(), n, threads)
+            torch.cuda.synchronize()
+            check(torch.equal(out, k6_ref[name]), f"K6's design {design} differs at {name}")
+    say(f"K6 at the crossover ({cross} messages, chains from {k6_chains_min_blocks()} blocks; "
+        f"{cross - 1}, {cross}, {cross + 1} at {', '.join(map(str, K6_EDGE_BLOCKS))} blocks; one "
+        f"launch each), on strided rows and in each design ({', '.join(K6_DESIGNS)}) at every "
+        f"path shape: bit-equal to the plain version")
+    return 0
+
+
+def k7_edge_operands(rng, kind: str, g: int, r: int, k: int, w: int):
+    """K7's edge operands (A, B) as numpy: random, a broadcast A, all zero,
+    all 0xFF, or the identity A."""
+    if kind == "zeros":
+        return np.zeros((g, r, k), np.uint8), np.zeros((g, k, w), np.uint8)
+    if kind == "ones":
+        return np.full((g, r, k), 0xFF, np.uint8), np.full((g, k, w), 0xFF, np.uint8)
+    b = rng.integers(0, 256, (g, k, w), dtype=np.uint8)
+    if kind == "identity":
+        return np.eye(r, k, dtype=np.uint8)[None], b
+    return rng.integers(0, 256, (1 if kind == "broadcast" else g, r, k), dtype=np.uint8), b
+
+
+def k7_edges(rng, dev) -> int:
+    """K7 at every k, r, W of its edge sets and every operand kind, one
+    launch each, bit-equal to the plain version. Returns the largest byte
+    difference (0)."""
+    count = 0
+    for k in K7_EDGE_K:
+        for r in K7_EDGE_R:
+            for w in K7_EDGE_W:
+                for kind in K7_EDGE_KINDS:
+                    a, b = (torch.from_numpy(x).to(dev)
+                            for x in k7_edge_operands(rng, kind, 2, r, k, w))
+                    before = kernels.launches["gf256_matmul"]
+                    got = das_verify.gf_matmul(a, b)
+                    torch.cuda.synchronize()
+                    check(kernels.launches["gf256_matmul"] == before + 1
+                          and torch.equal(got, das_verify.gf_matmul(a, b, plain=True)),
+                          f"K7 at k={k} r={r} W={w} ({kind}) differs from its plain version")
+                    count += 1
+    say(f"K7 at k in {K7_EDGE_K} x r in {K7_EDGE_R} x W in {K7_EDGE_W}, {K7_EDGE_KINDS} "
+        f"operands ({count} products, one launch each): bit-equal to the plain version")
+    return 0
+
+
 def rider_sim(dev, **kw) -> DenseSimulation:
     """The rider path's run: 2^20 validators, mainnet config with the
     PeerDAS geometry, 90 shuffle rounds, both riders."""
@@ -1211,7 +1341,7 @@ def das_sync_phases(dev, card: str, census) -> list:
     rng = np.random.default_rng(20)
 
     # 20. K6 and K7 against their plain versions at the path's shapes
-    k6_in, k6_err = {}, 0
+    k6_in, k6_ref, k6_err = {}, {}, 0
     for name, (n, length) in K6_SHAPES.items():
         if length is None:      # one unpadded block: the lanes' signature midstates
             msgs = rng.integers(0, 256, (n, 48), dtype=np.uint8)
@@ -1229,7 +1359,7 @@ def das_sync_phases(dev, card: str, census) -> list:
         for i in (0, n // 2, n - 1) if length is not None else ():
             check(rows[i].tobytes() == hashlib.sha256(msgs[i].tobytes()).digest(),
                   f"K6 {name} row {i} differs from hashlib")
-        k6_in[name] = words
+        k6_in[name], k6_ref[name] = words, ref
         del msgs
     say("K6 vs plain at " + ", ".join(f"{k} {w.shape[0]} x {w.shape[1] // 16}"
                                       for k, w in k6_in.items())
@@ -1259,6 +1389,9 @@ def das_sync_phases(dev, card: str, census) -> list:
     say("K7 vs plain at " + ", ".join(f"{k} ({ga}|{g}, {r}, {kk}) x ({g}, {kk}, {w})"
                                       for k, (ga, g, r, kk, w) in K7_SHAPES.items())
         + ": bit-equal; the last group == the host product")
+    cross = k6_chains_below()
+    k6_err = max(k6_err, k6_edges(rng, dev, k6_in, k6_ref))
+    k7_err = max(k7_err, k7_edges(rng, dev))
 
     # 21. the sync verify at 2,048 x 512
     batch = sync_batch(rng, dev)
@@ -1473,8 +1606,9 @@ def das_sync_phases(dev, card: str, census) -> list:
         f"heads, digest): {'; '.join(twins)}; the Gasper run checkpointed after epoch 1 "
         f"({len(data)} bytes) and resumed on the card == uninterrupted")
 
-    # 25. K6 and K7 per launch at the path's shapes, against their bounds
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    # 25. K6 and K7 per launch at the path's shapes, against their bounds and
+    # (in the printed lines only) beside the parent's times
+    min_blocks = k6_chains_min_blocks()
     k6 = {}
     for name, words in k6_in.items():
         n, nb = words.shape[0], words.shape[1] // 16
@@ -1487,48 +1621,83 @@ def das_sync_phases(dev, card: str, census) -> list:
         k6[name] = {"n": n, "blocks": nb, "ms": time_ms(raw, 20), "device_ms": device_ms(raw),
                     "wrapper_ms": time_ms(lambda w=words: sha256_blocks(w), 20),
                     "plain_ms": time_ms(lambda w=words: sha256_blocks(w, plain=True), 1),
-                    "bound": k6_bound(n, nb), "out": out}
+                    "bound": k6_bound(n, nb),
+                    "design": "chains" if n < cross and nb >= min_blocks else "one_thread"}
         r = k6[name]
-        say(f"[{card}] K6 {name} ({n} x {nb} blocks): kernel {r['ms']:.4f} ms, device "
-            f"{fmt_ms(r['device_ms'])}, wrapper {r['wrapper_ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.3f} ms, bound {r['bound']['ms']:.4f} ms ({r['bound']['by']})")
+        parent = K6_PARENT_MS[name]
+        say(f"[{card}] K6 {name} ({n} x {nb} blocks, {r['design']}): kernel {r['ms']:.4f} ms, "
+            f"device {fmt_ms(r['device_ms'])} (parent {parent[0]:.4f}-{parent[1]:.4f}), wrapper "
+            f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound']['ms']:.4f} ms ({r['bound']['by']})")
+    sweep = {}
+    for nb, ns in K6_SWEEP.items():
+        words = k6_in["backfill samples"] if nb == 33 else torch.from_numpy(
+            rng.integers(-2**31, 2**31, (max(ns), 16 * nb), dtype=np.int64).astype(np.int32)
+        ).to(dev)
+        out = torch.empty((words.shape[0], 8), dtype=torch.int32, device=dev)
+        for n in sorted({*ns, *((cross - 1, cross) if nb == 33 else ())}):
+            row = {}
+            for design, threads in K6_DESIGNS.items():
+                def raw(n=n, nb=nb, threads=threads, words=words, out=out):
+                    kernels.launch_on(dev, "sha256_blocks_design", words.data_ptr(),
+                                      words.stride(0), nb, out.data_ptr(), n, threads)
+                row[design] = device_ms(raw)
+            sweep[f"{n}x{nb}"] = row
+    say(f"[{card}] K6 designs about the crossover (chains below {cross} messages of at least "
+        f"{min_blocks} blocks), device ms at messages x blocks: "
+        + "; ".join(f"{k}: " + ", ".join(f"{d} {fmt_ms(t)}" for d, t in v.items())
+                    for k, v in sweep.items()))
     k7 = {}
-    tables = das_verify._gf_tables(dev)
     for name, (a, b) in k7_in.items():
         ga, g, r_, k, w = K7_SHAPES[name]
         out = torch.empty((g, r_, w), dtype=torch.uint8, device=dev)
 
         def raw(a=a, b=b, out=out, ga=ga, g=g, r_=r_, k=k, w=w):
-            kernels.launch_on(dev, "gf256_matmul", tables.data_ptr(), a.data_ptr(),
-                              r_ * k if ga > 1 else 0, b.data_ptr(), k * w, out.data_ptr(),
-                              g, r_, k, w)
+            kernels.launch_on(dev, "gf256_matmul", a.data_ptr(), r_ * k if ga > 1 else 0,
+                              b.data_ptr(), k * w, out.data_ptr(), g, r_, k, w)
 
         k7[name] = {"ms": time_ms(raw, 20), "device_ms": device_ms(raw),
                     "wrapper_ms": time_ms(lambda a=a, b=b: das_verify.gf_matmul(a, b), 20),
                     "plain_ms": time_ms(lambda a=a, b=b: das_verify.gf_matmul(a, b, plain=True),
                                         2),
-                    "bound": k7_bound(ga, g, r_, k, w), "out": out}
+                    "bound": k7_bound(ga, g, r_, k, w)}
         r = k7[name]
+        parent = K7_PARENT_MS[name]
         say(f"[{card}] K7 {name} ({ga}|{g}, {r_}, {k}) x ({g}, {k}, {w}): kernel "
-            f"{r['ms']:.4f} ms, device {fmt_ms(r['device_ms'])}, wrapper {r['wrapper_ms']:.4f} "
-            f"ms, plain {r['plain_ms']:.3f} ms, bound {r['bound']['ms']:.4f} ms "
-            f"({r['bound']['by']})")
+            f"{r['ms']:.4f} ms, device {fmt_ms(r['device_ms'])} (parent "
+            f"{parent[0]:.4f}-{parent[1]:.4f}), wrapper {r['wrapper_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms; tensor-core bound {r['bound']['ms']:.4f} ms "
+            f"({r['bound']['by']}), share {100 * r['bound']['ms'] / r['device_ms']:.1f}%; the "
+            f"former lookup bound {r['bound']['lookup_ms']:.4f} ms "
+            f"({100 * r['bound']['lookup_ms'] / r['device_ms']:.1f}%)")
     untimed = [f"K6 {k}" for k, v in k6.items() if v["device_ms"] is None] + \
-        [f"K7 {k}" for k, v in k7.items() if v["device_ms"] is None]
+        [f"K7 {k}" for k, v in k7.items() if v["device_ms"] is None] + \
+        [f"K6 sweep {k}" for k, v in sweep.items() if None in v.values()]
     check(not untimed, f"no device time (the CUDA graph timer failed) for {untimed}")
     if census is not None:
-        for name in ("sha256_blocks", "gf256_matmul"):
+        for name in ("sha256_blocks", "sha256_blocks_chains", "gf256_matmul"):
             say(f"SASS {name} (whole kernel): {json.dumps(census[name]['total'])}")
+        chains_sass = census["sha256_blocks_chains"]["total"]
+        k7_sass = census["gf256_matmul"]["total"]
+        check(k7_sass["IMMA"] + k7_sass["GMMA"] > 0,
+              f"K7's SASS has no tensor-core MMA (IMMA or GMMA): {k7_sass}")
+        check(chains_sass["LDGSTS"] > 0 and chains_sass["SYNCS"] > 0,
+              f"K6's chains kernel has no cp.async or mbarrier in its SASS: {chains_sass}")
         for name, r in k6.items():
             units = r["n"] * r["blocks"]
-            b = sass_bounds(census["sha256_blocks"]["total"], units)
-            say(f"[{card}] sha256_blocks {name} at {units} blocks: measured device "
-                f"{r['device_ms']:.4f} ms; bounds (the whole kernel's count a block) "
+            kernel = "sha256_blocks_chains" if r["design"] == "chains" else "sha256_blocks"
+            b = sass_bounds(census[kernel]["total"], units)
+            floor = k6_chain_floor_ms(r["blocks"])
+            say(f"[{card}] {kernel} {name} at {units} blocks: measured device "
+                f"{r['device_ms']:.4f} ms; bounds (the kernel's count taken as a block's) "
                 + ", ".join(f"{k} {v:.4f}" for k, v in b.items())
-                + f"; int_pipe / measured {b['int_pipe_ms'] / r['device_ms']:.3f}")
+                + f"; int_pipe / measured {b['int_pipe_ms'] / r['device_ms']:.3f}; round-chain "
+                f"floor (one chain of {r['blocks']} blocks on one scheduler) {floor:.4f} ms, "
+                f"measured / floor {r['device_ms'] / floor:.2f}")
 
     def shapes(d):
-        return {k: {kk: v[kk] for kk in ("ms", "device_ms", "wrapper_ms", "plain_ms")}
+        return {k: {kk: v[kk] for kk in ("ms", "device_ms", "wrapper_ms", "plain_ms", "design")
+                    if kk in v}
                 | {"bound_ms": v["bound"]["ms"], "bound_by": v["bound"]["by"]}
                 for k, v in d.items()}
 
@@ -1542,6 +1711,7 @@ def das_sync_phases(dev, card: str, census) -> list:
          "wrapper_ms": k6[K6_MAIN]["wrapper_ms"], "plain_ms": k6[K6_MAIN]["plain_ms"],
          "bound_ms": k6[K6_MAIN]["bound"]["ms"], "bound_by": k6[K6_MAIN]["bound"]["by"],
          "launches_per_proposal": per_proposal["sha256_blocks"], "by_shape": shapes(k6),
+         "designs_device_ms": sweep,
          "sync_verify_ms": sync_ms, "das_verify_crossover_ms": crossover, **common},
         {"name": "gf256_matmul", "source": K7_SOURCE, "replaces": K7_REPLACES,
          "launches": rider_launches["gf256_matmul"], "max_abs_err": k7_err,
@@ -1572,7 +1742,8 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"ptxas {name}: {line.strip()}")
-    for name in ("fp_modmul", "fp_addsub", "alg_mul"):    # the redesigned field kernels: no spills
+    for name in ("fp_modmul", "fp_addsub", "alg_mul", "sha256_blocks", "gf256_matmul"):
+        # the redesigned kernels: no spills
         spills = [line for line in reports[name].splitlines() if "spill" in line]
         check(spills and all("0 bytes spill stores, 0 bytes spill loads" in line
                              for line in spills), f"{name} spills registers: {spills}")
@@ -1834,15 +2005,16 @@ def main() -> int:
     say(f"dense path n={N_MAINNET}, {DENSE_EPOCHS} epochs ({slots} slots): launches "
         f"{dense_launches} (K1 {run_launches['agg_sig']} in the run, K2 {digest_k2} in "
         f"state_digest); summary {json.dumps(summary)}; digest {digest}")
+    # the plain twin at DENSE_PLAIN_EPOCHS against a kernel run of the same depth
+    # (finality is checked above on the full run)
+    short = run_record(dense_sim(dev), DENSE_PLAIN_EPOCHS)
     t_plain = time.perf_counter()
-    ref_sim = dense_sim(dev, plain=True)
-    ref = run_record(ref_sim, DENSE_EPOCHS)
+    ref = run_record(dense_sim(dev, plain=True), DENSE_PLAIN_EPOCHS)
     plain_s = time.perf_counter() - t_plain
-    check(ref["metrics"] == sim.metrics and ref["summary"] == summary
-          and ref["digest"] == digest, "dense path differs from the plain=True run")
-    del ref_sim
-    say(f"dense path: metrics, summary and digest == the plain=True run "
-        f"({plain_s:.3f} s for its setup, {DENSE_EPOCHS} epochs and digest)")
+    check(ref == short, "dense path differs from the plain=True run")
+    del short, ref
+    say(f"dense path at {DENSE_PLAIN_EPOCHS} epoch: metrics, summary and digest == the "
+        f"plain=True run ({plain_s:.3f} s for its setup, {DENSE_PLAIN_EPOCHS} epoch and digest)")
     committees = torch.from_numpy(
         sim._inv_perm[: 64 * 512].reshape(512, 64).T.astype(np.int32).copy()).to(dev)
     d_bits = torch.from_numpy(np.random.default_rng(5).random((64, 512)) < 0.99).to(dev)

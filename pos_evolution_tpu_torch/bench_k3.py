@@ -112,6 +112,32 @@ def worker() -> dict:
     return {"card": card, "cases": out}
 
 
+def run_turns(script: str, trees, cases) -> int:
+    """Run ``script --worker`` from each checkout in TURNS order (a fresh
+    process, its own build), print each turn's JSON line and, last, the
+    turns gathered by case; 0 when every case's output is equal across
+    the checkouts."""
+    turns = []
+    for i in TURNS:
+        me = os.path.abspath(script)         # run from the checkout: it comes first on the path
+        res = subprocess.run(
+            [sys.executable, "-c", f"import runpy, sys; sys.argv = [{me!r}, '--worker']; "
+             f"runpy.run_path({me!r}, run_name='__main__')"],
+            cwd=os.path.abspath(trees[i]), capture_output=True, text=True)
+        if res.returncode:
+            sys.stderr.write(res.stderr[-4000:])
+            raise SystemExit(f"the turn in {trees[i]} failed (exit code {res.returncode})")
+        turn = {"tree": trees[i], **json.loads(res.stdout.strip().splitlines()[-1])}
+        print(json.dumps(turn), flush=True)
+        turns.append(turn)
+    digests = {c: {t["cases"][c]["digest"] for t in turns} for c in cases}
+    print(json.dumps({
+        "cases": {c: [{"tree": t["tree"], **{k: v for k, v in t["cases"][c].items()
+                                             if k != "digest"}} for t in turns] for c in cases},
+        "outputs_equal": all(len(d) == 1 for d in digests.values())}))
+    return 0 if all(len(d) == 1 for d in digests.values()) else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*", metavar="OLD NEW", help="two checkouts of the repo")
@@ -122,25 +148,7 @@ def main(argv=None) -> int:
         return 0
     if len(a.trees) != 2:
         ap.error("give two checkouts, OLD and NEW")
-    turns = []
-    for i in TURNS:
-        me = os.path.abspath(__file__)       # run from the checkout: it comes first on the path
-        res = subprocess.run(
-            [sys.executable, "-c", f"import runpy, sys; sys.argv = [{me!r}, '--worker']; "
-             f"runpy.run_path({me!r}, run_name='__main__')"],
-            cwd=os.path.abspath(a.trees[i]), capture_output=True, text=True)
-        if res.returncode:
-            sys.stderr.write(res.stderr[-4000:])
-            raise SystemExit(f"the turn in {a.trees[i]} failed (exit code {res.returncode})")
-        turn = {"tree": a.trees[i], **json.loads(res.stdout.strip().splitlines()[-1])}
-        print(json.dumps(turn), flush=True)
-        turns.append(turn)
-    digests = {c: {t["cases"][c]["digest"] for t in turns} for c in CASES}
-    print(json.dumps({
-        "cases": {c: [{"tree": t["tree"], **{k: v for k, v in t["cases"][c].items()
-                                             if k != "digest"}} for t in turns] for c in CASES},
-        "outputs_equal": all(len(d) == 1 for d in digests.values())}))
-    return 0 if all(len(d) == 1 for d in digests.values()) else 1
+    return run_turns(__file__, a.trees, CASES)
 
 
 if __name__ == "__main__":

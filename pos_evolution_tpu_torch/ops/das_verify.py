@@ -13,7 +13,8 @@ The reconstruction check is the verifier's side of the erasure code:
 interpolate the data cells from k of the >= k present cells of the 2k-cell
 grid, re-extend, and require every present cell on the polynomial.
 ``gf_matmul`` is K7's wrapper (``csrc/gf256_matmul.cu``), a batched
-GF(2^8) product; ``_gf_matmul`` its plain version. The interpolation and
+GF(2^8) product run as a GF(2) bit-matrix product on the int8 tensor
+cores (wgmma); ``_gf_matmul`` its plain version (log/exp lookups). The interpolation and
 the re-extension are one product here: the data rows are
 ``interp * cells[sel]`` and the parity rows ``ext * (interp * cells[sel])
 = (ext * interp) * cells[sel]``, so one (2k, k) matrix built on the host
@@ -108,20 +109,6 @@ def verify_samples_device(batch: DasSampleBatch, device="cuda", *, plain: bool =
 
 # --- kernel K7 and its plain version --------------------------------------------
 
-_LOG_ZERO = 510     # K7's log of 0: every sum with it indexes exp's zero tail
-
-
-@lru_cache(maxsize=None)
-def _gf_tables(device: torch.device) -> torch.Tensor:
-    """K7's tables on ``device``: exp (1,024 bytes: ``GF_EXP``, then zeros)
-    and log (256 little-endian uint16, log[0] = 510)."""
-    exp = np.zeros(1024, dtype=np.uint8)
-    exp[:GF_EXP.size] = GF_EXP
-    log = GF_LOG.astype("<u2")
-    log[0] = _LOG_ZERO
-    return torch.from_numpy(np.concatenate([exp, log.view(np.uint8)])).to(device)
-
-
 def _groups(a, b) -> int:
     """The product's group count: an operand's group axis of 1 broadcasts."""
     return a.shape[0] if b.shape[0] == 1 else b.shape[0]
@@ -164,8 +151,8 @@ def gf_matmul(a, b, *, plain: bool = False):
         raise ValueError(f"gf_matmul: no kernel for device {dev}")
     if not (g and r and w and k):
         return torch.zeros((g, r, w), dtype=torch.uint8, device=dev)
-    if k > 256 or g > 65535 or r > 32 * 65535:
-        raise ValueError(f"gf_matmul: k <= 256, G <= 65535, r <= 2,097,120; got k={k}, "
+    if k > 256 or g > 65535 or r > 16 * 65535:
+        raise ValueError(f"gf_matmul: k <= 256, G <= 65535, r <= 1,048,560; got k={k}, "
                          f"G={g}, r={r}")
     a = a.contiguous()
     wp = -(-w // 4) * 4     # the kernel reads B in 4-byte words
@@ -173,7 +160,7 @@ def gf_matmul(a, b, *, plain: bool = False):
     if b.data_ptr() % 4:
         b = b.clone()       # an offset view: the kernel loads B in aligned 4-byte words
     out = torch.empty((g, r, wp), dtype=torch.uint8, device=dev)
-    kernels.launch_on(dev, "gf256_matmul", _gf_tables(dev).data_ptr(), a.data_ptr(),
+    kernels.launch_on(dev, "gf256_matmul", a.data_ptr(),
                       r * k if a.shape[0] == g else 0, b.data_ptr(),
                       k * wp if b.shape[0] == g else 0, out.data_ptr(), g, r, k, wp)
     return out if wp == w else out[..., :w].contiguous()

@@ -53,8 +53,14 @@ KERNELS = {
                  _P]),
     "sha256_blocks": ("sha256_blocks.cu", "sha256_blocks_launch",
                       [_P, _LL, ctypes.c_int, _P, ctypes.c_int, _P]),
+    # K6 with its design named (threads 0: the warp-specialized chains; 32-128:
+    # one thread a message in blocks of that many): only the measuring hook
+    # for the constants that pick the design (bench_k67 --designs) and for
+    # holding each design to the plain version; no wrapper launches it
+    "sha256_blocks_design": ("sha256_blocks.cu", "sha256_blocks_design_launch",
+                             [_P, _LL, ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, _P]),
     "gf256_matmul": ("gf256_matmul.cu", "gf256_matmul_launch",
-                     [_P, _P, _LL, _P, _LL, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     [_P, _LL, _P, _LL, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, _P]),
 }
 

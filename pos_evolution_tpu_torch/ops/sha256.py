@@ -107,12 +107,27 @@ def _sha256_blocks(words):
     return i32(sha256_words(words))
 
 
+def k6_chains_below() -> int:
+    """The message count from which a K6 launch takes one thread a message
+    (below it, the warp-specialized chains for messages of at least
+    ``k6_chains_min_blocks()`` blocks): the kernel's constant, read from
+    its library (built first if needed)."""
+    return int(kernels.library("sha256_blocks").sha256_blocks_chains_below())
+
+
+def k6_chains_min_blocks() -> int:
+    """The blocks a message needs for a K6 launch below ``k6_chains_below()``
+    messages to take the chains: the kernel's constant."""
+    return int(kernels.library("sha256_blocks").sha256_blocks_chains_min_blocks())
+
+
 def sha256_blocks(words, *, plain: bool = False):
     """K6's wrapper: SHA-256 of N pre-padded messages, (N, 16 * blocks)
     int32 big-endian words -> (N, 8) int32 digest words. CUDA tensors:
-    launch ``csrc/sha256_blocks.cu`` on the current stream, or raise; rows
-    may be strided, each 16-byte aligned. CPU tensors, or ``plain=True`` on
-    any device: the plain version. N = 0 returns an empty result without a
+    launch ``csrc/sha256_blocks.cu`` on the current stream (its design
+    chosen by N and the blocks, ``k6_chains_below``), or raise; rows may be
+    strided, each 16-byte aligned. CPU tensors, or ``plain=True`` on any
+    device: the plain version. N = 0 returns an empty result without a
     launch."""
     dev = words.device
     if plain or dev.type == "cpu":

@@ -547,7 +547,7 @@ def test_k7_offset_operand(cuda):
 
 
 def test_k7_empty_and_refused(cuda):
-    from pos_evolution_tpu_torch.ops.das_verify import _gf_tables, gf_matmul
+    from pos_evolution_tpu_torch.ops.das_verify import gf_matmul
     a = torch.ones((2, 4, 8), dtype=torch.uint8, device=cuda)
     b = torch.ones((2, 8, 16), dtype=torch.uint8, device=cuda)
     before = dict(kernels.launches)
@@ -558,9 +558,106 @@ def test_k7_empty_and_refused(cuda):
                   torch.ones((1, 300, 4), dtype=torch.uint8, device=cuda))
     out = torch.empty((2, 4, 16), dtype=torch.uint8, device=cuda)
     with pytest.raises(RuntimeError, match="gf256_matmul launch failed"):
-        kernels.launch_on(cuda, "gf256_matmul", _gf_tables(cuda).data_ptr(), a.data_ptr(), 32,
+        kernels.launch_on(cuda, "gf256_matmul", a.data_ptr(), 32,
                           b.data_ptr(), 128, out.data_ptr(), 2, 0, 8, 16)   # no rows: grid 0
     assert kernels.launches == before
+
+
+# --- K6's two designs and K7 on the tensor cores: edge shapes ----------------------
+
+@pytest.mark.parametrize("blocks", [1, 2, 33, 65])
+def test_k6_across_the_crossover(cuda, blocks):
+    """The wrapper at n = crossover - 1 (the warp-specialized chains from
+    ``k6_chains_min_blocks`` blocks, else one thread a message), crossover
+    and crossover + 1 (one thread a message): one launch each, equal to the
+    plain version, spot rows to hashlib."""
+    from pos_evolution_tpu_torch.ops.sha256 import k6_chains_below, sha256_blocks
+    from pos_evolution_tpu_torch.ssz.hash import _pad_messages
+    cross = k6_chains_below()
+    length = 64 * blocks - 9
+    msgs = _k6_messages(cross + 1, length, blocks)
+    words = torch.from_numpy(_pad_messages(msgs).view(np.int32)).to(cuda)
+    assert words.shape[1] == 16 * blocks
+    for n in (cross - 1, cross, cross + 1):
+        before = kernels.launches["sha256_blocks"]
+        got = sha256_blocks(words[:n])
+        torch.cuda.synchronize()
+        assert kernels.launches["sha256_blocks"] == before + 1
+        assert torch.equal(got, sha256_blocks(words[:n], plain=True))
+        rows = got.cpu().numpy().astype(">u4").view(np.uint8).reshape(n, 32)
+        for i in (0, n // 2, n - 1):
+            assert rows[i].tobytes() == hashlib.sha256(msgs[i].tobytes()).digest()
+
+
+@pytest.mark.parametrize("n,blocks", [(1, 1), (31, 2), (33, 33), (1152, 33), (4000, 3),
+                                      (40000, 2)])
+def test_k6_designs_agree_on_strided_rows(cuda, n, blocks):
+    """Each design (the chains; one thread a message in blocks of 32 and
+    of 128), named through the measuring entry point, on rows read in place
+    from a wider array (a row stride of 16 * blocks + 4 words), equal to the
+    plain version; the wrapper on the same view too."""
+    from pos_evolution_tpu_torch.ops.sha256 import sha256_blocks
+    rng = np.random.default_rng(n + blocks)
+    wide = torch.from_numpy(rng.integers(-2**31, 2**31, (n, 16 * blocks + 4),
+                                         dtype=np.int64).astype(np.int32)).to(cuda)
+    words = wide[:, 4:]
+    assert words.stride(0) == 16 * blocks + 4 and words.data_ptr() % 16 == 0
+    want = sha256_blocks(words.contiguous(), plain=True)
+    for threads in (0, 32, 128):
+        out = torch.full((n, 8), -1, dtype=torch.int32, device=cuda)
+        kernels.launch_on(cuda, "sha256_blocks_design", words.data_ptr(), words.stride(0),
+                          blocks, out.data_ptr(), n, threads)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), f"design threads={threads}"
+    assert torch.equal(sha256_blocks(words), want)
+
+
+def test_k6_design_hook_refuses_a_bad_block_size(cuda):
+    """The measuring entry point takes 0 or a multiple of 32 up to 128
+    threads; any other block size is refused, raises and is not counted."""
+    words = torch.zeros((64, 16), dtype=torch.int32, device=cuda)
+    out = torch.empty((64, 8), dtype=torch.int32, device=cuda)
+    for threads in (48, 256, -32):
+        before = dict(kernels.launches)
+        with pytest.raises(RuntimeError, match="sha256_blocks_design launch failed"):
+            kernels.launch_on(cuda, "sha256_blocks_design", words.data_ptr(), 16, 1,
+                              out.data_ptr(), 64, threads)
+        assert kernels.launches == before
+
+
+def _k7_case(rng, kind, g, r, k, w):
+    if kind == "zeros":
+        return np.zeros((g, r, k), np.uint8), np.zeros((g, k, w), np.uint8)
+    if kind == "ones":
+        return np.full((g, r, k), 0xFF, np.uint8), np.full((g, k, w), 0xFF, np.uint8)
+    b = rng.integers(0, 256, (g, k, w)).astype(np.uint8)
+    if kind == "identity":
+        return np.broadcast_to(np.eye(r, k, dtype=np.uint8), (1, r, k)).copy(), b
+    a = rng.integers(0, 256, (1 if kind == "broadcast" else g, r, k)).astype(np.uint8)
+    return a, b
+
+
+@pytest.mark.parametrize("k", [1, 3, 31, 64, 255, 256])
+def test_k7_edge_shapes(cuda, k):
+    """Every r in {1, 7, 16, 129} and W in {4, 66, 2,048} at this k, with
+    random, broadcast, all-zero, all-0xFF and identity operands: one launch
+    each, equal to the plain version."""
+    from pos_evolution_tpu_torch.ops.das_verify import _gf_matmul, gf_matmul
+    rng = np.random.default_rng(k)
+    for r in (1, 7, 16, 129):
+        for w in (4, 66, 2048):
+            for kind in ("random", "broadcast", "zeros", "ones", "identity"):
+                a, b = (torch.from_numpy(x).to(cuda) for x in _k7_case(rng, kind, 2, r, k, w))
+                before = kernels.launches["gf256_matmul"]
+                got = gf_matmul(a, b)
+                torch.cuda.synchronize()
+                assert kernels.launches["gf256_matmul"] == before + 1
+                want = _gf_matmul(a, b)
+                assert torch.equal(got, want), f"k={k} r={r} w={w} {kind}"
+                if kind == "identity":
+                    assert torch.equal(got[:, :min(r, k)], b[:, :min(r, k)])
+                if kind == "zeros":
+                    assert not got.any()
 
 
 def test_das_and_sync_paths_on_card_equal_cpu(cuda):
