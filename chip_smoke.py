@@ -121,7 +121,34 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     from the SASS count of the design the shape takes and the round-chain
     floor of one chain's scheduler, K7's former lookup bound; each K6
     design (the chains, one thread a message in blocks of 32 and of 128)
-    either side of the crossover at 33 blocks and below it at 2 and 1.
+    either side of the crossover at 33 blocks and below it at 2 and 1;
+26. the KZG slice's setup on the card (16,384 powers of tau by one K11
+    launch and the affine pass) against its plain version, its first 256
+    powers against the host ``trusted_setup``;
+27. hold kernels K10 (``csrc/fr_ntt.cu``: the Fr NTT's stages and Fr's
+    elementwise ops) and K11 (``csrc/g1_msm.cu``: the G1 multi-scalar
+    multiply's ladders and fold) against their plain versions at the commit
+    path's shapes -- a PeerDAS commit batch of 9 blobs, (9, 16,384) -- bit
+    for bit: to Montgomery form, the INTT and the NTT, the canonical pass,
+    the 9 x 16,384 lanes, their fold and affine sums; K10 at n in 1-1,024
+    and on the edge values, K11 on its edge lanes (a zero scalar, r - 1,
+    infinity, the fold's P = Q and P = -Q, at 2 x 200) and against the host
+    Pippenger;
+28. the commit batch's wires against the plain path's, blob 0 against the
+    host path (numpy INTT, Pippenger over the setup's powers);
+29. a committee's aggregate proof of 16 samples over the 9 blobs: honest
+    accepted; a forged cell, a tampered W and a wrong wire rejected, each
+    verdict equal to the oracle pairing;
+30. drive the slice's path once -- ``DenseSimulation`` at 2^20, mainnet
+    config with the PeerDAS geometry, 90 shuffle rounds, Gasper, 2 epochs,
+    the kzg DAS rider (9 blobs, 100,000 clients sampling 8 cells) and
+    100,000 light clients -- with the launch counts zeroed just before and
+    read just after: every sidecar built verified, no failure or miss, per
+    proposal 14 K10 stages and 2 elementwise passes, one K11 ladder launch
+    and 2 fold rounds; equal to its ``plain=True`` twin at 1 slot;
+31. time K10 (the INTT at (9, 16,384)) and K11 (the MSM at 9 x 16,384)
+    against their bounds (kernel ms by events, device ms by the CUDA graph
+    timer, wrapper, plain).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and
@@ -153,6 +180,7 @@ from pos_evolution_tpu_torch.device import (  # noqa: E402
     checksum_tree,
     words_to_bytes,
     words_to_numpy,
+    words_to_rows,
     words_to_torch,
 )
 from pos_evolution_tpu_torch.epoch import (  # noqa: E402
@@ -209,6 +237,11 @@ from pos_evolution_tpu_torch.ops import das_verify, sync_verify  # noqa: E402
 from pos_evolution_tpu_torch.ops.sha256 import (  # noqa: E402
     k6_chains_below, k6_chains_min_blocks, sha256_blocks)
 from pos_evolution_tpu_torch.ssz.hash import _pad_messages  # noqa: E402
+from pos_evolution_tpu_torch.kzg import aggregate as kzg_aggregate  # noqa: E402
+from pos_evolution_tpu_torch.kzg import curve, fr, ntt  # noqa: E402
+from pos_evolution_tpu_torch.kzg import setup as kzg_setup  # noqa: E402
+from pos_evolution_tpu_torch.kzg.scheme import KzgCellScheme  # noqa: E402
+from pos_evolution_tpu_torch.ops import pairing  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 flops
@@ -336,6 +369,23 @@ K7_EDGE_KINDS = ("random", "broadcast", "zeros", "ones", "identity")
 # which each is timed (the crossover's neighbours are added at 33 blocks)
 K6_DESIGNS = {"chains": 0, "one thread, 32": 32, "one thread, 128": 128}
 K6_SWEEP = {33: (1152, 4608, 9216, 36_864), 2: (1152,), 1: (1152, 4608)}
+
+# the KZG slice: the PeerDAS domain of the kzg scheme (128 cells x 2,048 bytes in
+# 16-byte chunks: N = 128 x 128 = 16,384), 9 blobs a commit batch, a committee's
+# 16 samples a proof; the rider run (Gasper, the kzg DAS rider and 100,000 light
+# clients) and the setup's powers checked against the host trusted_setup
+KZG_N, KZG_SAMPLES, KZG_RIDER_EPOCHS, KZG_HOST_POWERS = 16_384, 16, 2, 256
+KZG_RIDERS = ({"kind": "das", "scheme": "kzg", "n_blobs": DAS_BLOBS,
+               "n_clients": DAS_CLIENTS, "samples_per_client": 8, "seed": 0, "verify_every": 1},
+              {"kind": "lightclient", "n_clients": DAS_CLIENTS, "seed": 0})
+KZG_FR_BYTES = 88                    # one Fr element: 22 int32 digits
+# one REDC's 32x32-bit partial products: the 8x8 product, the 9x9 low product
+# of m (45) and the 9x8 product m * r (72)
+KZG_PP_REDC = 64 + 45 + 72
+K10_SOURCE = "pos_evolution_tpu_torch/csrc/fr_ntt.cu"
+K10_REPLACES = "pos_evolution_tpu/kzg/ntt.py:143"
+K11_SOURCE = "pos_evolution_tpu_torch/csrc/g1_msm.cu"
+K11_REPLACES = "pos_evolution_tpu/ops/pairing.py:386"
 
 
 def say(*parts):
@@ -1724,6 +1774,383 @@ def das_sync_phases(dev, card: str, census) -> list:
     ]
 
 
+# --- the KZG slice (phases 26-31) ---------------------------------------------------
+
+def kzg_rider_sim(dev, **kw) -> DenseSimulation:
+    """The KZG slice's run: 2^20 validators, mainnet config with the
+    PeerDAS geometry, 90 shuffle rounds, the kzg DAS rider and the light
+    clients, under Gasper."""
+    return DenseSimulation(N_MAINNET, mainnet_config().replace(**PEERDAS), device=dev,
+                           shuffle_rounds=90, riders=[dense_rider_from_config(dict(d))
+                                                      for d in KZG_RIDERS], **kw)
+
+
+# K11's base-field products per group operation, as its programs run them
+# (g1_msm.cu kProg): a doubling 5 squares and 2 products, an add 4 squares
+# (Z1Z1, Z2Z2, H^2, r^2) and 12 products
+K11_DOUBLE_PP = 5 * PP_MODSQR + 2 * PP_MODMUL
+K11_ADD_PP = 4 * PP_MODSQR + 12 * PP_MODMUL
+
+
+def k11_partial_products(scalars: torch.Tensor, n_blobs: int) -> int:
+    """K11's 32x32-bit partial products for these scalars (this run's data):
+    each lane from below its top bit, a doubling a bit and an add a further
+    set bit, then the fold's n - 1 adds a blob; a square at the least a
+    squaring needs (PP_MODSQR), as K3's ladders are counted."""
+    s = fr.digits_to_ints(scalars)
+    doublings = sum(max(x.bit_length() - 1, 0) for x in s)
+    adds = sum(max(bin(x).count("1") - 1, 0) for x in s)
+    folds = len(s) - n_blobs
+    return doublings * K11_DOUBLE_PP + (adds + folds) * K11_ADD_PP
+
+
+def k10_partial_products(rows: int, n: int, inverse: bool) -> int:
+    """K10's REDC partial products for one transform of ``rows`` x n: a
+    twiddle product a butterfly a stage (and two scale products a butterfly
+    of an inverse's last stage); a REDC is an 8x8 product, a 9x9 low product
+    (45) and a 9x8 product (72)."""
+    stages = n.bit_length() - 1
+    per = KZG_PP_REDC * rows * (n // 2)
+    return per * stages + (2 * per if inverse else 0)
+
+
+def kzg_msm_case(rng, g: int, n: int, edges: bool):
+    """(points [n, 2, 32], inf [n], scalars [g, n, 22], the oracle points and
+    ints) of an MSM: random multiples of G; with ``edges``, a zero scalar,
+    r - 1, an infinity lane, a lane repeated 32 apart (the fold's P = Q) and
+    s, r - s on one point 32 apart (P = -Q)."""
+    base = [oracle.ec_mul(oracle.G1_GEN, int(rng.integers(1, 2**62))) for _ in range(8)]
+    pts = [base[j % 8] for j in range(n)]
+    ints = [[int.from_bytes(rng.bytes(32), "little") % fr.MODULUS for _ in range(n)]
+            for _ in range(g)]
+    if edges:
+        pts[32], pts[33], pts[5] = pts[0], pts[1], None
+        for s in ints:
+            s[0] = s[32]
+            s[1], s[33] = 12345, fr.MODULUS - 12345
+            s[2], s[3] = 0, fr.MODULUS - 1
+    enc, inf = pairing.g1_encode_points(pts)
+    return enc, inf, torch.stack([fr.ints_to_digits(s) for s in ints]), pts, ints
+
+
+def kzg_phases(dev, card: str, census) -> list:
+    """Phases 26-31, the KZG slice: the setup on the card; K10 and K11
+    against their plain versions at the commit path's shapes and edges; a
+    PeerDAS commit batch against the plain path and one blob against the
+    host oracle; a committee's aggregate proof and verdicts against the
+    oracle pairing; the 2^20 dense run with the kzg DAS rider, counted, and
+    its plain twin; K10 and K11 timed against their bounds. Returns the
+    kernels line's K10 and K11 rows."""
+    rng = np.random.default_rng(26)
+    n = KZG_N
+    scheme = KzgCellScheme(dev, cfg=mainnet_config().replace(**PEERDAS))
+    check(scheme.geometry() == (2 * DAS_K, DAS_CELL // 16, n), f"geometry {scheme.geometry()}")
+
+    # 26. the setup on the card against its plain version and the host oracle
+    kzg_setup._DEVICE.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    setup = kzg_setup.device_setup(n, 0, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kzg_setup._DEVICE.clear()
+    t0 = time.perf_counter()
+    plain_setup = kzg_setup.device_setup(n, 0, dev, plain=True)
+    torch.cuda.synchronize()
+    setup_plain_s = time.perf_counter() - t0
+    kzg_setup._DEVICE[(n, 0, dev)] = setup
+    check(torch.equal(setup.points, plain_setup.points)
+          and torch.equal(setup.inf, plain_setup.inf), "the setup differs from its plain version")
+    host = kzg_setup.trusted_setup(KZG_HOST_POWERS, 0)
+    check(pairing.g1_decode_points(setup.points[:KZG_HOST_POWERS], setup.inf[:KZG_HOST_POWERS])
+          == list(host.powers_g1) and setup.g2_tau == host.g2_tau,
+          "the setup's powers differ from the host trusted_setup")
+    say(f"[{card}] setup of {n} powers on the card: {1e3 * setup_s:.3f} ms (one K11 launch, "
+        f"the affine pass), plain {setup_plain_s:.3f} s; == its plain version; the first "
+        f"{KZG_HOST_POWERS} powers == the host trusted_setup")
+    del plain_setup
+
+    # 27. K10 and K11 against their plain versions at the commit path's shapes
+    grids = torch.from_numpy(rng.integers(0, 256, (DAS_BLOBS, 2 * DAS_K, DAS_CELL),
+                                          dtype=np.uint8)).to(dev)
+    evals = scheme._evaluations(grids)
+    mont = fr.to_mont(evals)
+    with fp.plain_mode():
+        want = fr.to_mont(evals)
+    check(torch.equal(mont, want), "K10 to_mont differs from its plain version")
+    k10_err = digit_err(mont, want)
+    for inverse in (True, False):
+        got = ntt.ntt(mont, inverse)
+        with fp.plain_mode():
+            want = ntt.ntt(mont, inverse)
+        torch.cuda.synchronize()
+        k10_err = max(k10_err, digit_err(got, want))
+        check(torch.equal(got, want), f"K10 transform (inverse={inverse}) differs from plain")
+        if inverse:
+            coeffs_mont = got
+    coeffs = fr.from_mont(coeffs_mont)
+    with fp.plain_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_coeffs = ntt.intt(mont)                  # the span of K10's ms: the INTT
+        torch.cuda.synchronize()
+        k10_plain_s = time.perf_counter() - t0
+        plain_coeffs = fr.from_mont(plain_coeffs)
+    check(torch.equal(coeffs, plain_coeffs), "K10's canonical pass differs from plain")
+    edge_count = 0
+    for g, m in ((3, 1), (3, 2), (2, 128), (1, 1024)):
+        x = fr.to_mont(fr.ints_to_digits([int.from_bytes(rng.bytes(32), "little")
+                                          for _ in range(g * m)], dev)).reshape(g, m, fr.L)
+        for inverse in (False, True):
+            got = ntt.ntt(x, inverse)
+            with fp.plain_mode():
+                check(torch.equal(got, ntt.ntt(x, inverse)), f"K10 at ({g}, {m}) differs")
+            edge_count += 1
+    edges = fr.ints_to_digits([0, 1, fr.MODULUS - 1], dev)
+    edges = torch.cat([edges, torch.from_numpy(np.stack(
+        [fr.to_limbs(v) for v in (fr.MODULUS, fr.MODULUS + 1, 2 * fr.MODULUS - 1)])
+        .astype(np.int32)).to(dev)])
+    for name, fn, args in (("mul", fr.mul, (edges, edges.flip(0))),
+                           ("add", fr.add, (edges, edges.flip(0))),
+                           ("sub", fr.sub, (edges, edges.flip(0))),
+                           ("canon", fr.canon, (edges,)), ("inv", fr.inv, (edges,)),
+                           ("from_mont", fr.from_mont, (edges,))):
+        got = fn(*args)
+        with fp.plain_mode():
+            check(torch.equal(got, fn(*args)), f"K10 {name} differs on the edge values")
+    say(f"K10 vs plain at ({DAS_BLOBS}, {n}): to_mont, the INTT and the NTT, the canonical "
+        f"pass bit-equal; {edge_count} transforms at n in 1-1,024 and every elementwise op "
+        f"on 0, 1, r-1, r, r+1, 2r-1 bit-equal")
+
+    t0 = time.perf_counter()
+    lanes = pairing.g1_msm_lanes(setup.points, setup.inf, coeffs)
+    torch.cuda.synchronize()
+    with fp.plain_mode():
+        t1 = time.perf_counter()
+        plain_lanes = pairing.g1_msm_lanes(setup.points, setup.inf, coeffs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        plain_total = pairing.g1_fold(plain_lanes)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        plain_aff, plain_inf = pairing.g1_to_affine(plain_total)
+        plain_aff = fp.canon(plain_aff)
+    k11_plain_s = t3 - t1                              # the span of K11's ms: lanes and fold
+    k11_err = digit_err(lanes, plain_lanes)
+    check(torch.equal(lanes, plain_lanes), "K11's lanes differ from their plain version")
+    total = pairing.g1_fold(lanes)
+    check(torch.equal(total, plain_total), "K11's fold differs from its plain version")
+    aff, inf = pairing.g1_msm(setup.points, setup.inf, coeffs)
+    check(torch.equal(aff, plain_aff) and torch.equal(inf, plain_inf),
+          "K11's MSM differs from its plain version")
+    del lanes, plain_lanes
+    # the edge lanes in one call of 2 x 200: a first fold round of 4 blocks
+    # (the last one ragged), then a second round
+    enc, einf, scs, pts, ints = kzg_msm_case(rng, 2, 200, True)
+    enc, einf, scs = enc.to(dev), einf.to(dev), scs.to(dev)
+    got = pairing.g1_msm_lanes(enc, einf, scs)
+    got_sum = pairing.g1_fold(got)
+    with fp.plain_mode():
+        want = pairing.g1_msm_lanes(enc, einf, scs)
+        check(torch.equal(got, want) and torch.equal(pairing.g1_fold(want), got_sum),
+              "K11 on the edge lanes differs from its plain version")
+    a, i = pairing.g1_msm(enc, einf, scs)
+    check(pairing.g1_decode_points(a, i) == [curve.g1_lincomb(pts, s) for s in ints],
+          "K11 on the edge lanes differs from the host Pippenger")
+    enc, einf, scs, pts, ints = kzg_msm_case(rng, 2, 1024, False)
+    a, i = pairing.g1_msm(enc.to(dev), einf.to(dev), scs.to(dev))
+    check(pairing.g1_decode_points(a, i) == [curve.g1_lincomb(pts, s) for s in ints],
+          "K11 at 2 x 1,024 differs from the host Pippenger")
+    say(f"K11 vs plain at {DAS_BLOBS} x {n} lanes (the commit's scalars): lanes, fold and "
+        f"affine sums bit-equal (plain {k11_plain_s:.3f} s: ladders {t2 - t1:.3f} s); the "
+        f"edge lanes (zero scalar, r-1, infinity, the fold's P = Q and P = -Q) at 2 x 200 "
+        f"bit-equal and == the host Pippenger; 2 x 1,024 == the host Pippenger")
+
+    # 28. the PeerDAS commit batch against the plain path and the host oracle
+    wires = scheme.commit_batch(grids)
+    torch.cuda.synchronize()
+    plain_pts = pairing.g1_decode_points(plain_aff, plain_inf)
+    plain_wires = [scheme.wire_bind(oracle.g1_compress(p)) for p in plain_pts]
+    got_wires = [bytes(r) for r in words_to_rows(wires).cpu().numpy()]
+    check(got_wires == plain_wires, "the commit batch differs from the plain path")
+    entry = scheme.commit_entries(grids[:1])[0]
+    cells = [int(v) for v in fr.digits_to_ints(evals[0])]
+    host_coeffs = fr.decode(ntt.ntt_host(fr.encode(cells), inverse=True))
+    check(list(entry.coeffs) == host_coeffs, "blob 0's coefficients differ from the host INTT")
+    t0 = time.perf_counter()
+    host_point = curve.g1_lincomb(setup.powers_g1(), host_coeffs)
+    host_s = time.perf_counter() - t0
+    check(entry.point == host_point and entry.wire == got_wires[0],
+          "blob 0's commitment differs from the host oracle path")
+    scheme._memo.clear()
+    commit_ms = wall_ms(lambda: (scheme._memo.clear(), scheme.commit_batch(grids)), 3)
+    say(f"[{card}] commit batch of {DAS_BLOBS} PeerDAS blobs: wires == the plain path's; "
+        f"blob 0 == the host path (numpy INTT, Pippenger over the setup's powers, "
+        f"{host_s:.3f} s); wall {', '.join(f'{x:.3f}' for x in commit_ms)} ms")
+
+    # 29. a committee's aggregate proof over the 9 blobs, and its verdicts
+    grids_np = list(grids.cpu().numpy())
+    samples = sorted({(int(b), int(c)) for b, c in zip(rng.integers(0, DAS_BLOBS, 64),
+                                                        rng.integers(0, 2 * DAS_K, 64))})
+    samples = samples[:KZG_SAMPLES]
+    t0 = time.perf_counter()
+    proof = scheme.prove_aggregate(grids_np, samples)
+    prove_s = time.perf_counter() - t0
+    wire_list = [bytes(w) for w in got_wires]
+    cells_s = [grids_np[b][c] for b, c in samples]
+    forged = [c.copy() for c in cells_s]
+    forged[len(forged) // 2][7] ^= 0x5A
+    tampered = dict(proof)
+    tampered["w"] = bytes(proof["points"][0])
+    cases = {"honest": (wire_list, samples, cells_s, proof),
+             "forged cell": (wire_list, samples, forged, proof),
+             "tampered W": (wire_list, samples, cells_s, tampered),
+             "wrong wire": ([wire_list[1], wire_list[0]] + wire_list[2:], samples, cells_s,
+                            proof)}
+    verdicts, verify_s = [], []
+    for case in cases.values():
+        t0 = time.perf_counter()
+        verdicts.append(scheme.verify_aggregate(*case))
+        verify_s.append(time.perf_counter() - t0)
+    check(verdicts == [True, False, False, False],
+          f"aggregate verdicts {dict(zip(cases, verdicts))}")
+    n_cells, m, _n = scheme.geometry()
+    oracle_verdicts = []
+    for wires_c, samp, cells_c, pr in cases.values():
+        claims = [(b, c, scheme.cell_values(cells_c[j])) for j, (b, c) in enumerate(samp)]
+        got = kzg_aggregate._verify_host(n_cells, m, wires_c, claims, pr, scheme.wire_bind)
+        if got is False:
+            oracle_verdicts.append(False)
+            continue
+        f_pts, f_scs, wp = got
+        lhs = curve.g1_lincomb(f_pts, f_scs)
+        oracle_verdicts.append(oracle.pairings_equal([(lhs, setup.g2_one)],
+                                                     [(wp, setup.g2_tau)]))
+    check(oracle_verdicts == verdicts, f"verdicts {verdicts} vs oracle {oracle_verdicts}")
+    say(f"[{card}] aggregate proof of {len(samples)} samples over {DAS_BLOBS} blobs "
+        f"({scheme.proof_n_bytes(proof)} bytes): prove {prove_s:.3f} s; verify "
+        + ", ".join(f"{k} {t:.3f} s" for k, t in zip(cases, verify_s)) + "; honest accepted, "
+        f"forged cell, tampered W and wrong wire rejected, each == the oracle pairing")
+
+    # 30. the dense run with the kzg DAS rider at 2^20, counted
+    del grids, evals, mont, coeffs_mont, coeffs, plain_coeffs
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sim = kzg_rider_sim(dev, phase_profile=8)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sim.run_epochs(KZG_RIDER_EPOCHS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    kzg_launches = dict(kernels.launches)
+    rec = rider_record(sim)
+    phases = sim.phases.summary()
+    slots = sim.slot
+    das, lc = rec["summary"]["workload"]["das"], rec["summary"]["workload"]["lightclient"]
+    check(das["scheme"] == "kzg" and das["sidecar_failures"] == 0 and das["sample_misses"] == 0
+          and das["sidecars_built"] == das["sidecars_verified"] == DAS_BLOBS * slots,
+          f"kzg rider stats {das} after {slots} proposals")
+    k10_launches = kzg_launches["fr_ntt"] + kzg_launches["fr_ew"]
+    k11_launches = kzg_launches["g1_msm"] + kzg_launches["g1_fold"]
+    check(kzg_launches["fr_ntt"] == 14 * slots and kzg_launches["fr_ew"] == 2 * slots
+          and kzg_launches["g1_msm"] == slots and kzg_launches["g1_fold"] == 2 * slots
+          and kzg_launches["agg_sig"] == 2 * slots and kzg_launches["gf256_matmul"] == 2 * slots
+          and kzg_launches["merkle_level"] == 0,
+          f"kzg rider run launches {kzg_launches} over {slots} proposals")
+    per_proposal = {k: v / slots for k, v in kzg_launches.items() if v}
+    say(f"kzg rider run n={N_MAINNET}, {KZG_RIDER_EPOCHS} epochs ({slots} proposals): launches "
+        f"{kzg_launches} (per proposal {per_proposal}); das {das}; lightclient {lc}; digest "
+        f"{rec['digest']}")
+    with_s = (t2 - t1) / KZG_RIDER_EPOCHS
+    work = phases["phases"].get("workload", {})
+    prof = profiled(lambda: sim.run_slot())
+    say(f"[{card}] dense path with the kzg rider: setup {t1 - t0:.3f} s, {with_s:.3f} s per "
+        f"simulated epoch; workload phase {work.get('total_ms')} ms = {work.get('share_pct')}% "
+        f"of the run's wall; one more slot under torch.profiler wall {prof['wall_ms']:.3f} ms, "
+        f"device busy {prof['busy_ms']:.3f} ms "
+        f"({100 * prof['busy_ms'] / prof['wall_ms']:.2f}%), by kernel "
+        + json.dumps({k: round(v, 3) for k, v in prof["kernel_ms"].items() if v}))
+    say(f"[{card}] kzg rider run phase budget: " + json.dumps(phases))
+    del sim
+    short = kzg_rider_sim(dev)
+    short_p = kzg_rider_sim(dev, plain=True)
+    t5 = time.perf_counter()
+    short_p.run_slot()
+    ref = rider_record(short_p)
+    twin_s = time.perf_counter() - t5
+    short.run_slot()
+    check(rider_record(short) == ref, "the kzg rider run differs from its plain=True run")
+    say(f"kzg rider run at 1 slot == its plain=True twin (metrics, summary, rider state, "
+        f"light-client heads, digest; {twin_s:.3f} s plain)")
+    del short, short_p
+
+    # 31. K10 and K11 at the path's shapes against their bounds
+    grids = torch.from_numpy(rng.integers(0, 256, (DAS_BLOBS, 2 * DAS_K, DAS_CELL),
+                                          dtype=np.uint8)).to(dev)
+    evals = scheme._evaluations(grids)
+    mont = fr.to_mont(evals)
+    coeffs = fr.from_mont(ntt.intt(mont))
+    tw, sc = ntt._tables(n, True, dev)
+    bufs = [torch.empty_like(mont), torch.empty_like(mont)]
+
+    def k10_raw():
+        src = mont
+        for s in range(n.bit_length() - 1):
+            flags = (1 if s == 0 else 0) | (2 if s == n.bit_length() - 2 else 0)
+            kernels.launch_on(dev, "fr_ntt", src.data_ptr(), bufs[s % 2].data_ptr(),
+                              tw.data_ptr(), sc.data_ptr(), DAS_BLOBS, n, s, flags)
+            src = bufs[s % 2]
+
+    k10 = {"ms": time_ms(k10_raw, 20), "device_ms": device_ms(k10_raw),
+           "wrapper_ms": time_ms(lambda: ntt.intt(mont), 20),
+           "ew_ms": time_ms(lambda: fr.from_mont(mont), 20),
+           "plain_ms": 1e3 * k10_plain_s}
+    k10_bytes = 2 * DAS_BLOBS * n * KZG_FR_BYTES + (n - 1) * KZG_FR_BYTES
+    k10_bound = field_bound(k10_bytes, k10_partial_products(DAS_BLOBS, n, True))
+    part = torch.empty((DAS_BLOBS, n // 64, 3, fp.L), dtype=torch.int32, device=dev)
+    args = pairing._msm_args(setup.points, setup.inf, coeffs)
+
+    def k11_raw():
+        pairing._msm_launch(args, part, True)
+        pairing.g1_fold(part)
+
+    k11 = {"ms": time_ms(k11_raw, 3), "device_ms": device_ms(k11_raw, 3),
+           "wrapper_ms": time_ms(lambda: pairing.g1_msm(setup.points, setup.inf, coeffs), 3),
+           "plain_ms": 1e3 * k11_plain_s}
+    k11_bytes = n * (2 * FQ_BYTES + 1) + DAS_BLOBS * n * KZG_FR_BYTES + DAS_BLOBS * 3 * FQ_BYTES
+    k11_bound = field_bound(k11_bytes, k11_partial_products(coeffs, DAS_BLOBS))
+    for name, r, b in (("K10 INTT", k10, k10_bound), ("K11 MSM", k11, k11_bound)):
+        say(f"[{card}] {name} at {DAS_BLOBS} x {n}: kernel {r['ms']:.4f} ms, device "
+            f"{fmt_ms(r['device_ms'])}, wrapper {r['wrapper_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.3f} ms; bound {b['ms']:.4f} ms ({b['by']}: {b['bytes']} bytes, "
+            f"{b['partial_products']} partial products)"
+            + (f", share {100 * b['ms'] / r['device_ms']:.1f}%" if r["device_ms"] else ""))
+    say(f"[{card}] K10's canonical pass over {DAS_BLOBS} x {n}: {k10['ew_ms']:.4f} ms")
+    if census is not None:
+        for key in ("fr_ntt", "fr_ew", "g1_msm"):
+            if key in census:
+                say(f"SASS {key} (whole kernel): {json.dumps(census[key]['total'])}")
+    common = {"route": "cuda", "matches_plain": True, "library_ms": None,
+              "kzg_rider_epoch_s": with_s, "setup_ms": 1e3 * setup_s,
+              "commit_batch_ms": commit_ms, "prove_s": prove_s, "verify_s": verify_s[0]}
+    return [
+        {"name": "fr_ntt", "source": K10_SOURCE, "replaces": K10_REPLACES,
+         "launches": k10_launches, "max_abs_err": k10_err,
+         "shape": f"INTT ({DAS_BLOBS}, {n})", "ms": k10["ms"], "device_ms": k10["device_ms"],
+         "wrapper_ms": k10["wrapper_ms"], "plain_ms": k10["plain_ms"],
+         "bound_ms": k10_bound["ms"], "bound_by": k10_bound["by"],
+         "canonical_pass_ms": k10["ew_ms"],
+         "launches_per_proposal": k10_launches / slots, **common},
+        {"name": "g1_msm", "source": K11_SOURCE, "replaces": K11_REPLACES,
+         "launches": k11_launches, "max_abs_err": k11_err,
+         "shape": f"MSM {DAS_BLOBS} x {n}", "ms": k11["ms"], "device_ms": k11["device_ms"],
+         "wrapper_ms": k11["wrapper_ms"], "plain_ms": k11["plain_ms"],
+         "bound_ms": k11_bound["ms"], "bound_by": k11_bound["by"],
+         "launches_per_proposal": k11_launches / slots, **common},
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs one GPU",
@@ -1742,7 +2169,8 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"ptxas {name}: {line.strip()}")
-    for name in ("fp_modmul", "fp_addsub", "alg_mul", "sha256_blocks", "gf256_matmul"):
+    for name in ("fp_modmul", "fp_addsub", "alg_mul", "sha256_blocks", "gf256_matmul",
+                 "fr_ntt", "g1_msm"):
         # the redesigned kernels: no spills
         spills = [line for line in reports[name].splitlines() if "spill" in line]
         check(spills and all("0 bytes spill stores, 0 bytes spill loads" in line
@@ -2105,6 +2533,7 @@ def main() -> int:
 
     field_rows = bls_phases(dev, card, census)
     das_rows = das_sync_phases(dev, card, census)
+    kzg_rows = kzg_phases(dev, card, census)
 
     big = k2[K2_LARGEST]
     say(card)
@@ -2122,7 +2551,8 @@ def main() -> int:
         "wrapper_ms": big["wrapper_ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound"]["ms"], "bound_by": big["bound"]["by"], "library_ms": None,
         "ms_1048576": k2[N_MAINNET]["ms"], "full_build_ms": builds[-1][0],
-        "update_ms": updates[-1][0], "dense_launches": digest_k2}, *field_rows, *das_rows]}))
+        "update_ms": updates[-1][0], "dense_launches": digest_k2}, *field_rows, *das_rows,
+        *kzg_rows]}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

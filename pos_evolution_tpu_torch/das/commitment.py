@@ -8,8 +8,9 @@ tree over the per-cell SHA-256 leaves: the leaves by kernel K6
 to G equal-geometry grids at once, one K6 launch for all their cells and
 one K2 launch a level; ``commit`` is its one-grid case.
 
-The pairing-based scheme (``get_scheme("kzg")``) waits for ROADMAP
-Queue 1 item 5b.
+``get_scheme("kzg")`` gives the pairing-based ``KzgCellScheme``
+(``kzg/scheme.py``): KZG commitments by kernels K10 (the Fr NTT) and K11
+(the G1 multi-scalar multiply), with the same ``commit_batch``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ from pos_evolution_tpu_torch.ops.merkle_device import _paths_from_levels, pair_h
 from pos_evolution_tpu_torch.ops.sha256 import sha256_rows
 from pos_evolution_tpu_torch.ssz.merkle import _tree_levels
 
-__all__ = ["MerkleCellScheme", "get_scheme"]
+__all__ = ["MerkleCellScheme", "get_scheme", "SCHEMES"]
+
+SCHEMES = ("merkle", "kzg")
 
 
 class MerkleCellScheme:
@@ -81,10 +84,12 @@ class MerkleCellScheme:
                 words_to_rows(branches.reshape(-1, 8)).reshape(s, -1, 32).cpu().numpy())
 
 
-def get_scheme(name: str = "merkle", device="cuda", *, plain: bool = False) -> MerkleCellScheme:
+def get_scheme(name: str = "merkle", device="cuda", *, plain: bool = False, cfg=None):
+    """The scheme registered as ``name`` on ``device``; ``cfg`` gives the
+    kzg scheme its geometry and setup seed (mainnet's by default)."""
     if name == "merkle":
         return MerkleCellScheme(device, plain=plain)
     if name == "kzg":
-        raise ValueError("the kzg cell-commitment scheme is not ported yet "
-                         "(ROADMAP Queue 1 item 5b)")
-    raise ValueError(f"unknown cell-commitment scheme {name!r}; registered: ['merkle']")
+        from pos_evolution_tpu_torch.kzg.scheme import KzgCellScheme
+        return KzgCellScheme(device, plain=plain, cfg=cfg)
+    raise ValueError(f"unknown cell-commitment scheme {name!r}; registered: {list(SCHEMES)}")

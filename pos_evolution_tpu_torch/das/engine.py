@@ -12,9 +12,10 @@ availability gate.
 The work is independent per blob, so a proposal's blobs go through the
 card together: ``build_batch`` makes all of a proposal's grids with one
 kernel-K6 call for the counter streams, one kernel-K7 call for the
-extensions and one K6 call plus one K2 call a level for the commitments;
-``BlobStore.on_sidecars`` verifies a list of sidecars with one K6 call,
-the K2 levels and one K7 call, and one read of the verdicts. Every verdict,
+extensions and the scheme's ``commit_batch`` for the commitments (merkle:
+one K6 call plus one K2 call a level; kzg: K10's INTT and K11's MSM);
+``BlobStore.on_sidecars`` verifies a list of sidecars with one
+``commit_batch`` and one K7 call, and one read of the verdicts. Every verdict,
 counter and byte is what the JAX package's per-blob loop gives.
 
 The configuration is explicit here (the JAX package reads a global one).
@@ -37,6 +38,7 @@ from pos_evolution_tpu_torch.das.containers import (
 )
 from pos_evolution_tpu_torch.das.erasure import extension_matrix
 from pos_evolution_tpu_torch.device import rows_to_words, words_to_rows
+from pos_evolution_tpu_torch.kzg.scheme import KzgCellScheme
 from pos_evolution_tpu_torch.ops.das_verify import gf_matmul, reconstruct_check_batch
 from pos_evolution_tpu_torch.ops.sha256 import sha256_rows
 
@@ -53,9 +55,9 @@ class BlobEngine:
         validate_das_config(cfg)
         self.cfg = cfg
         self.n_blobs = n_blobs
-        self.scheme: MerkleCellScheme = (
-            scheme if isinstance(scheme, MerkleCellScheme)
-            else get_scheme(scheme, device, plain=plain))
+        self.scheme: MerkleCellScheme | KzgCellScheme = (
+            scheme if isinstance(scheme, (MerkleCellScheme, KzgCellScheme))
+            else get_scheme(scheme, device, plain=plain, cfg=cfg))
         self.device = self.scheme.device
         self.plain = bool(plain)
         self.seed = int(seed)

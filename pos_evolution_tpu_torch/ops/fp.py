@@ -8,8 +8,8 @@ inputs. Products are reduced by plain Barrett with MU = floor(2^768 / p)
 (no Montgomery form, which would give other representatives).
 
 Each op has its plain PyTorch version here, a step-for-step mirror of the
-JAX algorithm: digit convolution by broadcast-multiply-and-sum (a
-Toeplitz gather of one operand: PyTorch has no integer matmul on CUDA),
+JAX algorithm: digit convolution by broadcast-multiply-and-sum (an outer
+product added into its columns: PyTorch has no integer matmul on CUDA),
 three carry folds, and the carry/borrow lookahead as explicit shifted
 (generate, propagate) rounds where JAX used ``associative_scan``. Results
 come back as int32 (``sum`` is asked for int32 outright).
@@ -155,29 +155,23 @@ def _lookahead(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return g
 
 
-_TOEPLITZ: dict = {}
-
-
-def _toeplitz(m: int, n: int, device) -> torch.Tensor:
-    """[m+n-1, m] index into n digits plus one zero: entry (k, i) = k - i
-    where 0 <= k - i < n, else n (the zero)."""
-    key = (m, n, torch.device(device))
-    if key not in _TOEPLITZ:
-        k = np.arange(m + n - 1)[:, None]
-        i = np.arange(m)[None, :]
-        idx = np.where((k - i >= 0) & (k - i < n), k - i, n)
-        _TOEPLITZ[key] = torch.from_numpy(idx.astype(np.int64)).to(device)
-    return _TOEPLITZ[key]
+_DIAGONALS: dict = {}
 
 
 def conv_digits(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Full product in digit space: [..., m] x [..., n] -> [..., m+n-1]
     column sums (each <= 33 * (2^12-1)^2 < 2^30, int32), batch dims
-    broadcast: column k = sum_i a[i] * b[k - i], by a gather of b into
-    its shifted rows and one broadcast multiply-and-sum."""
+    broadcast: column k = sum_i a[i] * b[k - i], by one broadcast outer
+    product added into its columns by the index i + j of each entry."""
     m, n = a.shape[-1], b.shape[-1]
-    rows = F.pad(b, (0, 1))[..., _toeplitz(m, n, b.device)]     # [..., m+n-1, m]
-    return (rows * a[..., None, :]).sum(-1, dtype=torch.int32)
+    key = (m, n, a.device)
+    idx = _DIAGONALS.get(key)
+    if idx is None:
+        idx = _DIAGONALS[key] = (torch.arange(m, device=a.device)[:, None]
+                                 + torch.arange(n, device=a.device)[None, :]).flatten()
+    outer = (a[..., :, None] * b[..., None, :]).flatten(-2)      # [..., m n]
+    out = outer.new_zeros(outer.shape[:-1] + (m + n - 1,))
+    return out.index_add_(-1, idx, outer).to(torch.int32)
 
 
 def carry_norm(x: torch.Tensor, out_len: int) -> torch.Tensor:

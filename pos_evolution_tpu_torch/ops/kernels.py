@@ -62,6 +62,15 @@ KERNELS = {
     "gf256_matmul": ("gf256_matmul.cu", "gf256_matmul_launch",
                      [_P, _LL, _P, _LL, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, _P]),
+    # K10: an Fr NTT butterfly stage, and Fr's elementwise ops
+    "fr_ntt": ("fr_ntt.cu", "fr_ntt_launch",
+               [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
+    "fr_ew": ("fr_ntt.cu", "fr_ew_launch", [ctypes.c_int, _P, _LL, _P, _LL, _P, _LL, _P]),
+    # K11: the G1 MSM's ladders (with the first fold round), and a fold round
+    "g1_msm": ("g1_msm.cu", "g1_msm_launch",
+               [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, _P]),
+    "g1_fold": ("g1_msm.cu", "g1_fold_launch", [_P, _P, ctypes.c_int, ctypes.c_int, _P]),
 }
 
 launches = {name: 0 for name in KERNELS}

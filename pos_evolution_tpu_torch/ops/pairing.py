@@ -19,13 +19,20 @@ The algorithm is the JAX package's, step for step:
   e(P, Q)^3.
 - **G1 aggregation** as a masked unified-add reduction tree, every case
   (infinity, doubling, P = -Q) computed and selected, since they are data.
+- **G1 multi-scalar multiply** (the KZG slice; JAX ``_g1_msm_kernel``,
+  ``g1_msm_device_entry``): kernel K11 (``csrc/g1_msm.cu``), batched over G
+  blobs of n lanes. Each lane runs the JAX package's MSB-first
+  double-and-add ladder over its canonical Fr scalar digits; the lanes fold
+  by a tree of unified adds, 64 lanes a block and then 64 partials a block
+  until one is left (the JAX package's sequential fold was for XLA's
+  compile time; the affine sum is the same); ``g1_to_affine`` on K3's
+  inversion ladder gives canonical affine coordinates.
 
 Every multiply and add goes through ``ops/fp.py`` and ``ops/tower.py``:
 kernels K3-K5 on CUDA tensors, their plain versions on CPU tensors or
 within ``fp.plain_mode`` (``fast_aggregate_verify_batch(plain=True)``).
-The G1 multi-scalar multiply of the KZG commit path (JAX
-``_g1_msm_kernel``, ``g1_msm_device_entry``) is not ported here: its only
-caller is the KZG slice.
+K11's plain version runs the same ladder and tree through those plain
+ops, every multiply of one dependency level in one call.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import numpy as np
 import torch
 
 from pos_evolution_tpu_torch.crypto import bls12_381 as oracle
-from pos_evolution_tpu_torch.ops import fp
+from pos_evolution_tpu_torch.ops import fp, kernels
 from pos_evolution_tpu_torch.ops.tower import (
     alg_eq,
     alg_mul,
@@ -418,3 +425,219 @@ def fast_aggregate_verify_batch(pk_table: torch.Tensor, committees: torch.Tensor
         if stages is not None:
             stages.update(agg=agg, pk_aff=pk_aff, miller=fs, final=fe)
         return ok & ~pk_inf & ~sig_inf
+
+
+# --- G1 multi-scalar multiply (the KZG slice, kernel K11) ---------------------
+
+MSM_BLOCK = 64           # lanes a K11 block folds: csrc/g1_msm.cu's kT
+FR_BITS = 255            # the scalars' bits, r < 2^255
+FR_DIGITS = 22           # canonical Fr digits a scalar (kzg/fr.py)
+
+
+def _muls(*pairs):
+    """The products of independent (a, b) pairs in one ``fp.modmul`` call."""
+    a = torch.stack([x for x, _ in pairs])
+    b = torch.stack([y for _, y in pairs])
+    return fp.modmul(a, b).unbind(0)
+
+
+def _g1_add_plain(P, Q):
+    """``g1_add_jac`` with each dependency level's multiplies in one call and
+    the doubling computed only where a lane takes it: the same values, the
+    plain version of K11's unified add."""
+    hr, x3, gen_tape = _G1_ADD
+    X1, Y1, Z1 = P.unbind(-2)
+    X2, Y2, Z2 = Q.unbind(-2)
+    Z1Z1, Z2Z2 = _muls((Z1, Z1), (Z2, Z2))
+    U1, U2, t1, t2, Z1Z2 = _muls((X1, Z2Z2), (X2, Z1Z1), (Z2, Z2Z2), (Z1, Z1Z1), (Z1, Z2))
+    S1, S2 = _muls((Y1, t1), (Y2, t2))
+    H, r, canons = fp.run_tape(hr, U1, U2, S1, S2, P, Q)
+    H2, rr, Z3 = _muls((H, H), (r, r), (H, Z1Z2))
+    H3, V = _muls((H, H2), (U1, H2))
+    X3, VX = fp.run_tape(x3, rr, H3, V)
+    rVX, S1H3 = _muls((r, VX), (S1, H3))
+    out = fp.run_tape(gen_tape, X3, rVX, S1H3, Z3)
+    p_inf, q_inf, h_zero, r_zero = (canons == 0).all(-1).unbind(-1)
+    same_x = h_zero & ~p_inf & ~q_inf
+    dbl = same_x & r_zero
+    if bool(dbl.any()):
+        out = _sel(dbl, g1_double_jac(P), out)
+    out = _sel(same_x & ~r_zero, torch.zeros_like(out), out)   # P + (-P)
+    out = _sel(p_inf, Q, out)
+    return _sel(q_inf & ~p_inf, P, out)
+
+
+def _scalar_bits(scalars: torch.Tensor) -> torch.Tensor:
+    """[..., 22] canonical Fr digits -> [..., 255] bits, most significant
+    first."""
+    k = torch.arange(FR_BITS - 1, -1, -1, device=scalars.device)
+    return ((scalars[..., k // fp.BITS] >> (k % fp.BITS)) & 1).bool()
+
+
+def _lane_points(points, inf, shape):
+    """Affine points [.., n, 2, 32] and their infinity flags -> the lanes'
+    Jacobian addends [G, n, 3, 32]: Z = 1, or 0 for an infinity lane."""
+    one = fp.const(fp.ONE, points.device).expand(inf.shape + (fp.L,))
+    z = _sel(inf, torch.zeros_like(one), one)
+    return torch.cat([points, z[..., None, :]], dim=-2).expand(shape + (3, fp.L))
+
+
+def _msm_lanes_plain(points, inf, scalars):
+    """Plain version of K11's ladders: lane (g, j) = s_gj * P_gj, MSB-first
+    double-and-add from the zero point, the sum taken at the lanes whose
+    bit is set (computed there only: each lane's values are its own).
+    Steps before the batch's first set bit only double the zero point, and
+    are skipped."""
+    shape = scalars.shape[:-1]
+    pj = _lane_points(points, inf, shape).reshape(-1, 3, fp.L).contiguous()
+    bits = _scalar_bits(scalars).reshape(-1, FR_BITS)
+    acc = torch.zeros(pj.shape, dtype=torch.int32, device=scalars.device)
+    live = bits.any(0).nonzero()
+    for i in range(int(live[0]) if live.numel() else FR_BITS, FR_BITS):
+        acc = g1_double_jac(acc)
+        idx = bits[:, i].nonzero().squeeze(1)
+        if idx.numel():
+            acc = acc.index_copy(0, idx, _g1_add_plain(acc.index_select(0, idx),
+                                                       pj.index_select(0, idx)))
+    return acc.reshape(shape + (3, fp.L))
+
+
+def _fold_round_plain(jac):
+    """One round of K11's fold: [G, n, 3, 32] -> [G, ceil(n / 64), 3, 32],
+    each block of 64 lanes (the zero point past n) summed by the halving
+    tree lane t += lane t + k, k = 32 ... 1."""
+    g, n = jac.shape[:2]
+    nb = -(-n // MSM_BLOCK)
+    x = torch.constant_pad_nd(jac, (0, 0, 0, 0, 0, nb * MSM_BLOCK - n))
+    x = x.reshape(g, nb, MSM_BLOCK, 3, fp.L)
+    k = MSM_BLOCK
+    while k > 1:
+        k //= 2
+        x = _g1_add_plain(x[:, :, :k], x[:, :, k:2 * k])
+    return x[:, :, 0]
+
+
+def _fold_plain(jac):
+    """Plain version of K11's whole fold: rounds until one point a blob."""
+    while True:
+        jac = _fold_round_plain(jac)
+        if jac.shape[1] == 1:
+            return jac[:, 0]
+
+
+def _check_msm(points, inf, scalars):
+    """(points [G|1, n, 2, 32], inf [G|1, n]) after checking the MSM's
+    operands: scalars int32 [G, n, 22], points int32 [G|1, n, 2, 32] or
+    [n, 2, 32], inf of the points' batch shape, all on one device."""
+    if scalars.dim() != 3 or scalars.shape[-1] != FR_DIGITS or scalars.dtype != torch.int32:
+        raise ValueError(f"g1_msm: scalars must be int32 [G, n, {FR_DIGITS}], got "
+                         f"{scalars.dtype} {tuple(scalars.shape)}")
+    g, n = scalars.shape[:2]
+    if points.dim() not in (3, 4) or points.shape[-3:] != (n, 2, fp.L) \
+            or points.dtype != torch.int32 or inf.shape != points.shape[:-2]:
+        raise ValueError(f"g1_msm: points must be int32 [G|1, {n}, 2, {fp.L}] with inf "
+                         f"[G|1, {n}], got {tuple(points.shape)} and {tuple(inf.shape)}")
+    if points.dim() == 3:
+        points, inf = points[None], inf[None]
+    if points.shape[0] not in (1, g):
+        raise ValueError(f"g1_msm: {points.shape[0]} point rows for {g} blobs")
+    if points.device != scalars.device or inf.device != scalars.device:
+        raise ValueError(f"g1_msm: points on {points.device}, inf on {inf.device}, "
+                         f"scalars on {scalars.device}")
+    return points, inf
+
+
+def _msm_args(points, inf, scalars):
+    """(points, inf, scalars, their element strides) as K11 reads them:
+    points with packed (2, 32) rows at a 16-byte aligned lane stride
+    (copied otherwise), inf as bytes, scalars with packed digits."""
+    points, inf = _check_msm(points, inf, scalars)
+    if (points.stride(-1), points.stride(-2)) != (1, fp.L) or points.data_ptr() % 16 \
+            or points.stride(1) % 4 or points.stride(0) % 4:
+        points = points.contiguous()
+    if scalars.stride(-1) != 1:
+        scalars = scalars.contiguous()
+    inf = inf.to(torch.uint8)
+    blob = points.shape[0] > 1
+    return (points, points.stride(1), points.stride(0) if blob else 0,
+            inf, inf.stride(1), inf.stride(0) if blob else 0,
+            scalars, scalars.stride(1), scalars.stride(0))
+
+
+def _msm_launch(args, out, fold: bool):
+    points, pl, pb, inf, il, ib, scalars, sl, sb = args
+    g, n = scalars.shape[:2]
+    kernels.launch_on(scalars.device, "g1_msm", points.data_ptr(), pl, pb, inf.data_ptr(),
+                      il, ib, scalars.data_ptr(), sl, sb, out.data_ptr(), g, n, int(fold))
+
+
+def g1_msm_lanes(points, inf, scalars) -> torch.Tensor:
+    """Every lane's s_gj * P_gj, Jacobian [G, n, 3, 32]: points [G|1, n, 2,
+    32] affine (a shared row broadcasts over the blobs), inf [G|1, n] bool,
+    scalars [G, n, 22] canonical Fr digits. One K11 launch for CUDA tensors
+    (the trusted setup's powers), the plain version for CPU tensors."""
+    if not fp.use_kernel(scalars):
+        return _msm_lanes_plain(*_check_msm(points, inf, scalars), scalars)
+    args = _msm_args(points, inf, scalars)
+    g, n = scalars.shape[:2]
+    out = torch.empty((g, n, 3, fp.L), dtype=torch.int32, device=scalars.device)
+    if g and n:
+        _msm_launch(args, out, False)
+    return out
+
+
+def g1_fold(jac: torch.Tensor) -> torch.Tensor:
+    """Sum each blob's Jacobian points: [G, n, 3, 32] -> [G, 3, 32], by
+    K11's tree (one launch a round of 64) on the card."""
+    if not fp.use_kernel(jac):
+        return _fold_plain(jac)
+    jac = jac.contiguous()
+    while jac.shape[1] > 1:
+        g, n = jac.shape[:2]
+        out = torch.empty((g, -(-n // MSM_BLOCK), 3, fp.L), dtype=torch.int32, device=jac.device)
+        kernels.launch_on(jac.device, "g1_fold", jac.data_ptr(), out.data_ptr(), g, n)
+        jac = out
+    return jac[:, 0]
+
+
+def g1_msm(points, inf, scalars, *, plain: bool = False):
+    """sum_j s_gj * P_gj per blob: (canonical affine [G, 2, 32], infinity
+    [G]). points [G|1, n, 2, 32] affine, inf [G|1, n], scalars [G, n, 22]
+    canonical Fr digits. On the card one K11 launch for the ladders and the
+    first fold round, one a further round of 64 partials, then the affine
+    normalization (one K3 ladder, K3 products, K4's canon); ``plain=True``
+    or CPU tensors take the plain versions."""
+    with fp.plain_mode(plain):
+        if scalars.dim() != 3 or not scalars.shape[1]:
+            raise ValueError(f"g1_msm: no lanes in scalars {tuple(scalars.shape)}")
+        g, n = scalars.shape[:2]
+        if fp.use_kernel(scalars):
+            args = _msm_args(points, inf, scalars)
+            part = torch.empty((g, -(-n // MSM_BLOCK), 3, fp.L), dtype=torch.int32,
+                               device=scalars.device)
+            _msm_launch(args, part, True)
+            total = g1_fold(part)
+        else:
+            total = _fold_plain(_msm_lanes_plain(*_check_msm(points, inf, scalars), scalars))
+        aff, is_inf = g1_to_affine(total)
+        return fp.canon(aff), is_inf
+
+
+def g1_encode_points(pts, device="cpu"):
+    """Oracle affine points (ints or None) -> (int32 [n, 2, 32], bool [n])."""
+    enc = np.stack([g1_affine_encode(p) for p in pts]) if pts else \
+        np.zeros((0, 2, fp.L), np.int32)
+    return (torch.from_numpy(enc).to(device),
+            torch.tensor([p is None for p in pts], dtype=torch.bool, device=device))
+
+
+def g1_decode_points(aff: torch.Tensor, inf: torch.Tensor) -> list:
+    """Canonical affine [..., 2, 32] digits and infinity flags -> oracle
+    points (int pairs, None for infinity), row-major."""
+    a = aff.detach().cpu().numpy().reshape(-1, 2, fp.L).astype(np.int64)
+    flags = inf.detach().cpu().numpy().reshape(-1).tolist()
+    w = [1 << (fp.BITS * i) for i in range(fp.L)]
+    return [None if f else (sum(int(d) * x for d, x in zip(row[0].tolist(), w)),
+                            sum(int(d) * x for d, x in zip(row[1].tolist(), w)))
+            for row, f in zip(a, flags)]
+

@@ -726,3 +726,177 @@ def test_das_and_sync_paths_on_card_equal_cpu(cuda):
         np.testing.assert_array_equal(got[key], want[key])
     assert want["fin_ok"].tolist() == [True] * 3 + [False] * 3
     assert want["sig_ok"].tolist() == [True] * 2 + [False] * 4
+
+
+# --- K10 (the Fr NTT and Fr's elementwise ops) and K11 (the G1 MSM): the KZG slice ----
+
+def _fr_digits(shape, seed, lazy=True):
+    """Montgomery digits [*shape, 22] of random residues in [0, 2r) (or
+    [0, r)), and the edge values 0, 1, r - 1, r, r + 1, 2r - 1 in front."""
+    from pos_evolution_tpu_torch.kzg import fr
+    rng = np.random.default_rng(seed)
+    count = int(np.prod(shape))
+    top = 2 * fr.MODULUS if lazy else fr.MODULUS
+    edges = [0, 1, fr.MODULUS - 1, fr.MODULUS, fr.MODULUS + 1, 2 * fr.MODULUS - 1]
+    vals = [v for v in edges if v < top][:count]
+    vals += [int.from_bytes(rng.bytes(40), "little") % top for _ in range(count - len(vals))]
+    return torch.from_numpy(np.stack([fr.to_limbs(v) for v in vals]).astype(np.int32)
+                            .reshape(tuple(shape) + (fr.L,)))
+
+
+@pytest.mark.parametrize("g,n", [(9, 16384), (3, 1), (3, 2), (2, 128)])
+def test_k10_ntt_matches_plain(cuda, g, n):
+    """K10's transform at the commit path's shape (9 blobs of the PeerDAS
+    domain) and at the smallest sizes, both ways, equal to the plain version
+    on the same card (and, at n = 128, to the numpy oracle); log2 n launches
+    a transform (the n^-1 scale fused), one elementwise launch at n = 1."""
+    from pos_evolution_tpu_torch.kzg import ntt
+    x = _fr_digits((g, n), 31 + n).to(cuda)
+    for inverse in (False, True):
+        before = kernels.launches["fr_ntt"] + kernels.launches["fr_ew"]
+        got = ntt.ntt(x, inverse)
+        torch.cuda.synchronize()
+        launched = kernels.launches["fr_ntt"] + kernels.launches["fr_ew"] - before
+        assert launched == (max(n.bit_length() - 1, 0) or int(inverse))
+        with fp.plain_mode():
+            want = ntt.ntt(x, inverse)
+        assert torch.equal(got, want), f"inverse={inverse}"
+        if n == 128:
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          ntt.ntt_host(x.cpu().numpy(), inverse))
+
+
+def test_k10_elementwise_matches_plain(cuda):
+    """Every elementwise op of K10 on lazy residues and the edge values, with
+    a broadcast operand read at stride 0, equal to the plain versions."""
+    from pos_evolution_tpu_torch.kzg import fr
+    a, b = _fr_digits((4, 100), 3).to(cuda), _fr_digits((4, 100), 4).to(cuda)
+    c = _fr_digits((1, 100), 5).to(cuda)
+    cases = {"mul": (fr.mul, a, b), "add": (fr.add, a, b), "sub": (fr.sub, a, b),
+             "bcast": (fr.mul, a, c), "neg": (fr.neg, a), "canon": (fr.canon, a),
+             "from_mont": (fr.from_mont, a), "to_mont": (fr.to_mont, fr.from_mont(a)),
+             "inv": (fr.inv, a[:, :16])}
+    for name, (fn, *args) in cases.items():
+        got = fn(*args)
+        with fp.plain_mode():
+            want = fn(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name
+
+
+def _msm_case(n, g, seed, edges):
+    """(points [n, 2, 32], inf [n], scalars [g, n, 22], the oracle points and
+    ints): random multiples of G; with ``edges``, a zero scalar, r - 1, an
+    infinity lane, a lane repeated 32 apart (the fold's P = Q) and s, r - s
+    on one point (P = -Q)."""
+    from pos_evolution_tpu_torch.crypto import bls12_381 as oracle
+    from pos_evolution_tpu_torch.kzg import fr
+    rng = np.random.default_rng(seed)
+    base = [oracle.ec_mul(oracle.G1_GEN, int(rng.integers(1, 2**62))) for _ in range(8)]
+    pts = [base[j % 8] for j in range(n)]
+    scs = [[int.from_bytes(rng.bytes(32), "little") % fr.MODULUS for _ in range(n)]
+           for _ in range(g)]
+    if edges and n >= 64:
+        pts[33] = pts[1]
+        pts[32] = pts[0]
+        pts[5] = None
+        for s in scs:
+            s[0] = s[32]
+            s[1], s[33] = 12345, fr.MODULUS - 12345
+            s[2], s[3] = 0, fr.MODULUS - 1
+    enc, inf = pairing.g1_encode_points(pts)
+    return enc, inf, torch.stack([fr.ints_to_digits(s) for s in scs]), pts, scs
+
+
+@pytest.mark.parametrize("g,n", [(2, 1), (3, 4), (2, 64), (2, 200), (9, 16384)])
+def test_k11_matches_plain(cuda, g, n):
+    """K11's ladders and every fold round equal the plain version digit for
+    digit (lanes, partials, the affine sum), at the edge lanes and at the
+    commit path's 9 x 16,384; one ladder launch and a fold launch a further
+    round of 64."""
+    enc, inf, scs, _pts, _ints = _msm_case(n, g, 40 + n, edges=True)
+    enc, inf, scs = enc.to(cuda), inf.to(cuda), scs.to(cuda)
+    lanes = pairing.g1_msm_lanes(enc, inf, scs)
+    with fp.plain_mode():
+        want_lanes = pairing.g1_msm_lanes(enc, inf, scs)
+    torch.cuda.synchronize()
+    assert torch.equal(lanes, want_lanes)
+    with fp.plain_mode():
+        want_sum = pairing.g1_fold(want_lanes)
+    assert torch.equal(pairing.g1_fold(lanes), want_sum)
+    before = kernels.launches["g1_msm"] + kernels.launches["g1_fold"]
+    aff, is_inf = pairing.g1_msm(enc, inf, scs)
+    rounds = 1
+    while -(-n // 64 ** rounds) > 1:
+        rounds += 1
+    assert kernels.launches["g1_msm"] + kernels.launches["g1_fold"] - before == rounds
+    with fp.plain_mode():
+        paff, pinf = pairing.g1_to_affine(want_sum)
+        paff = fp.canon(paff)
+    torch.cuda.synchronize()
+    assert torch.equal(aff, paff) and torch.equal(is_inf, pinf)
+
+
+def test_k11_matches_the_oracle(cuda):
+    """K11's MSM at 1,024 lanes (and its edge lanes at 64) equal to the host
+    Pippenger of kzg/curve.py."""
+    from pos_evolution_tpu_torch.kzg import curve
+    for n, edges in ((1024, False), (64, True)):
+        enc, inf, scs, pts, ints = _msm_case(n, 2, 7 + n, edges)
+        aff, is_inf = pairing.g1_msm(enc.to(cuda), inf.to(cuda), scs.to(cuda))
+        assert pairing.g1_decode_points(aff, is_inf) == [curve.g1_lincomb(pts, s) for s in ints]
+
+
+def test_k11_setup_matches_plain_and_host(cuda):
+    """The setup on the card at the PeerDAS domain (16,384 powers) equals
+    its plain version, and its first 256 powers the host oracle's."""
+    from pos_evolution_tpu_torch.kzg import setup as kzg_setup
+    kzg_setup._DEVICE.clear()
+    got = kzg_setup.device_setup(16384, 0, cuda)
+    kzg_setup._DEVICE.clear()
+    want = kzg_setup.device_setup(16384, 0, cuda, plain=True)
+    kzg_setup._DEVICE.clear()
+    assert torch.equal(got.points, want.points) and torch.equal(got.inf, want.inf)
+    host = kzg_setup.trusted_setup(256, 0)
+    assert pairing.g1_decode_points(got.points[:256], got.inf[:256]) == list(host.powers_g1)
+    assert got.g2_tau == host.g2_tau
+
+
+def test_k10_k11_refused_launches_raise(cuda):
+    """Launches K10 and K11 refuse raise and are not counted."""
+    x = torch.zeros((2, 8, 22), dtype=torch.int32, device=cuda)
+    y = torch.empty_like(x)
+    out = torch.empty((1, 1, 3, 32), dtype=torch.int32, device=cuda)
+    before = dict(kernels.launches)
+    with pytest.raises(RuntimeError, match="fr_ntt launch failed"):
+        kernels.launch_on(cuda, "fr_ntt", x.data_ptr(), y.data_ptr(), x.data_ptr(),
+                          x.data_ptr(), 2, 8, 3, 0)                      # stage 3 of 3
+    with pytest.raises(RuntimeError, match="fr_ew launch failed"):
+        kernels.launch_on(cuda, "fr_ew", 9, x.data_ptr(), 22, x.data_ptr(), 22,
+                          y.data_ptr(), 16)                              # no op 9
+    with pytest.raises(RuntimeError, match="g1_msm launch failed"):
+        kernels.launch_on(cuda, "g1_msm", out.data_ptr(), 64, 0, out.data_ptr(), 1, 0,
+                          x.data_ptr(), 22, 0, out.data_ptr(), 1, 0, 1)  # no lanes
+    with pytest.raises(RuntimeError, match="g1_fold launch failed"):
+        kernels.launch_on(cuda, "g1_fold", out.data_ptr(), out.data_ptr(), 0, 1)
+    assert kernels.launches == before
+
+
+@pytest.mark.parametrize("m,n", [(22, 22), (32, 32), (33, 33), (32, 33)])
+def test_plain_digit_plumbing_card_equals_cpu(cuda, m, n):
+    """The plain versions' digit convolution (an outer product added into
+    its columns by ``index_add_``) and carry normalization (the shifted
+    lookahead rounds) give the same digits on the card as on the CPU, with
+    broadcast batch dims and the all-FFF ripple."""
+    rng = np.random.default_rng(m * n)
+    a = torch.from_numpy(rng.integers(0, 4096, (3, 1, m)).astype(np.int32))
+    b = torch.from_numpy(rng.integers(0, 4096, (1, 4, n)).astype(np.int32))
+    b[0, 0] = fp.MASK
+    want = fp.conv_digits(a, b)
+    got = fp.conv_digits(a.to(cuda), b.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    ripple = torch.full((1, m + n - 1), fp.MASK, dtype=torch.int32)
+    ripple[0, 0] += 1
+    x = torch.cat([want.reshape(-1, m + n - 1), ripple])
+    for out_len in (m + n - 1, m + n):
+        assert torch.equal(fp.carry_norm(x.to(cuda), out_len).cpu(), fp.carry_norm(x, out_len))

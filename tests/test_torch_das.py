@@ -156,9 +156,20 @@ def test_graffiti_and_digest_equal_jax():
 
 
 def test_kzg_scheme_raises_naming_item_5b():
-    with pytest.raises(ValueError, match="item 5b"):
-        tcom.get_scheme("kzg", "cpu")
-    with pytest.raises(ValueError, match="unknown"):
+    """The KZG scheme (ROADMAP Queue 1 item 5b) is ported: ``get_scheme("kzg",
+    "cpu")`` commits a grid to the JAX package's wire commitment (its memo
+    then serves the recommit); an unknown name still raises, naming both
+    schemes."""
+    tcfg, jcfg = _cfgs()
+    scheme = tcom.get_scheme("kzg", "cpu", cfg=tcfg)
+    grid = np.random.default_rng(5).integers(0, 256, (16, 64), dtype=np.uint8)
+    with use_config(jcfg):
+        want = jcom.get_scheme("kzg").commit_full(grid)
+    assert scheme.name == "kzg" and scheme.commit(grid) == want[3]
+    point, comp, coeffs, wire = scheme.commit_full(grid)
+    assert (point, comp, coeffs, wire) == (want[0], want[1], tuple(want[2]), want[3])
+    assert len(scheme._memo) == 1
+    with pytest.raises(ValueError, match=r"unknown.*'merkle', 'kzg'"):
         tcom.get_scheme("nope", "cpu")
 
 

@@ -19,7 +19,6 @@ from pos_evolution_tpu.resilience import fingerprint_config as jax_fingerprint  
 from pos_evolution_tpu.resilience import state_digest as jax_digest  # noqa: E402
 from pos_evolution_tpu.sim.dense_driver import DenseSimulation as JaxSim  # noqa: E402
 from pos_evolution_tpu_torch.config import mainnet_config  # noqa: E402
-from pos_evolution_tpu_torch.das.dense_rider import DenseDasRider  # noqa: E402
 from pos_evolution_tpu_torch.ops import kernels  # noqa: E402
 from pos_evolution_tpu_torch.resilience import fingerprint_config, state_digest  # noqa: E402
 from pos_evolution_tpu_torch.sim.dense_driver import DenseSimulation  # noqa: E402
@@ -149,7 +148,6 @@ def test_fingerprint_config_matches_jax():
     ({"telemetry": object()}, "item 7"),
     ({"flight_recorder": object()}, "item 7"),
     ({"autocheckpoint": (8, "/nonexistent")}, "item 7"),
-    ({"riders": [DenseDasRider(scheme="kzg")]}, "item 5"),    # the KZG scheme: item 5b
 ])
 def test_unported_options_raise(kw, item):
     with pytest.raises(ValueError, match=item):
@@ -157,10 +155,14 @@ def test_unported_options_raise(kw, item):
 
 
 def test_unported_supervision_and_riders_raise():
+    """Supervision (item 7) still raises; the KZG DAS rider (item 5b) now
+    builds, on the run's device and config."""
     with pytest.raises(ValueError, match="item 7"):
         DenseSimulation.resume_latest("/nonexistent")
-    with pytest.raises(ValueError, match="item 5"):
-        _port(riders=[dense_rider_from_config({"kind": "das", "scheme": "kzg"})])
+    sim = _port(riders=[dense_rider_from_config({"kind": "das", "scheme": "kzg"})])
+    scheme = sim.riders[0].engine.scheme
+    assert scheme.name == "kzg" and scheme.device.type == "cpu" and scheme.cfg is sim.cfg
+    assert sim.riders[0].describe()["scheme"] == "kzg"
     assert dense_rider_from_config(None) is None
 
 

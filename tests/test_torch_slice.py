@@ -172,9 +172,10 @@ def test_blocker_blocks_only_whole_names():
 def test_port_runs_with_jax_blocked():
     """Every module of the port imports, and a tiny epoch, its state
     roots, a faulted dense simulation with its checkpoint and state
-    digest, and the BLS slice's key decompression and a tower multiply
-    run on the CPU, with jax and pos_evolution_tpu impossible to
-    import."""
+    digest, the BLS slice's key decompression and a tower multiply, and
+    the KZG slice's NTT round trip and a commit (against the host
+    Pippenger) run on the CPU, with jax and pos_evolution_tpu impossible
+    to import."""
     proc = _run_blocked("""
         import pkgutil, importlib
         import pos_evolution_tpu_torch as pkg
@@ -211,6 +212,16 @@ def test_port_runs_with_jax_blocked():
         assert bool(ok.all()) and fp.from_limbs(pk[0, 1]) == oracle.g1_decompress(bls.pk_comp[0])[1]
         x = pk[:, :, None, :].expand(2, 2, 6, 32).reshape(2, 12, 32)
         assert tower.alg_mul(x, x).shape == (2, 12, 32)
+        from pos_evolution_tpu_torch.das.commitment import get_scheme
+        from pos_evolution_tpu_torch.kzg import curve, fr, ntt
+        vals = fr.to_mont(fr.ints_to_digits([3, 1, 4, 1, 5, 9, 2, 6]))
+        assert fr.digits_to_ints(fr.from_mont(ntt.intt(ntt.ntt(vals)))) == [3, 1, 4, 1, 5, 9, 2, 6]
+        kcfg = cfg.replace(das_cells_per_blob=2, das_cell_bytes=16)
+        scheme = get_scheme("kzg", "cpu", cfg=kcfg)
+        grid = np.arange(64, dtype=np.uint8).reshape(4, 16)
+        point, _comp, coeffs, wire = scheme.commit_full(grid)
+        assert point == curve.g1_lincomb(scheme.setup().powers_g1(), coeffs)
+        assert scheme.commit(grid) == wire
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
         print("ran", out.heads.tolist())
