@@ -123,32 +123,48 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     design (the chains, one thread a message in blocks of 32 and of 128)
     either side of the crossover at 33 blocks and below it at 2 and 1;
 26. the KZG slice's setup on the card (16,384 powers of tau by one K11
-    launch and the affine pass) against its plain version, its first 256
-    powers against the host ``trusted_setup``;
-27. hold kernels K10 (``csrc/fr_ntt.cu``: the Fr NTT's stages and Fr's
-    elementwise ops) and K11 (``csrc/g1_msm.cu``: the G1 multi-scalar
-    multiply's ladders and fold) against their plain versions at the commit
-    path's shapes -- a PeerDAS commit batch of 9 blobs, (9, 16,384) -- bit
-    for bit: to Montgomery form, the INTT and the NTT, the canonical pass,
-    the 9 x 16,384 lanes, their fold and affine sums; K10 at n in 1-1,024
-    and on the edge values, K11 on its edge lanes (a zero scalar, r - 1,
-    infinity, the fold's P = Q and P = -Q, at 2 x 200) and against the host
-    Pippenger;
+    ladder launch and the affine pass): the ladder's lanes and the affine
+    points against their plain versions, its first 256 powers against the
+    host ``trusted_setup``; its window tables for K11's bucket route (c =
+    13, W = 20; one doubling launch and a batch inversion), timed, the
+    doubling launch at 16,384 x 19 windows and the whole tables against the
+    plain route's, spot entries against the oracle's 2^(c w) [tau^j]G;
+27. hold kernel K10 (``csrc/fr_ntt.cu``: the Fr NTT's passes in shared
+    memory and Fr's elementwise ops) and K11's bucket route
+    (``csrc/g1_bucket.cu``: recode, scan, scatter; ``g1_fill.cu``,
+    ``g1_totals.cu``, ``g1_reduce.cu``) against their plain versions at the commit path's
+    shapes -- a PeerDAS commit batch of 9 blobs, (9, 16,384) -- bit for
+    bit: to Montgomery form, the INTT and the NTT, the canonical pass; the
+    bucket route stage by stage (signed digits, window offsets, bucket
+    starts, sorted entries, bucket sums, blob sums) and its affine sums,
+    each plain stage timed; K10 at n in 1-1,024 and on the edge values;
+    the bucket route on its edge lanes (a zero scalar, r - 1, infinity, P =
+    Q and P = -Q in one bucket, at 2 x 200, c = 13 and 5, tables and
+    stages) and against the host Pippenger, at the prover's 1 x 16,383;
+    K11's ladder (``csrc/g1_msm.cu``) where its callers still run it: the
+    edge lanes and the verifier's 10 points, each launched at its shape,
+    against one plain ladder over all their lanes;
 28. the commit batch's wires against the plain path's, blob 0 against the
     host path (numpy INTT, Pippenger over the setup's powers);
 29. a committee's aggregate proof of 16 samples over the 9 blobs: honest
     accepted; a forged cell, a tampered W and a wrong wire rejected, each
     verdict equal to the oracle pairing;
-30. drive the slice's path once -- ``DenseSimulation`` at 2^20, mainnet
-    config with the PeerDAS geometry, 90 shuffle rounds, Gasper, 2 epochs,
-    the kzg DAS rider (9 blobs, 100,000 clients sampling 8 cells) and
-    100,000 light clients -- with the launch counts zeroed just before and
-    read just after: every sidecar built verified, no failure or miss, per
-    proposal 14 K10 stages and 2 elementwise passes, one K11 ladder launch
-    and 2 fold rounds; equal to its ``plain=True`` twin at 1 slot;
-31. time K10 (the INTT at (9, 16,384)) and K11 (the MSM at 9 x 16,384)
-    against their bounds (kernel ms by events, device ms by the CUDA graph
-    timer, wrapper, plain).
+30. drive the slice's path once -- the setup and its tables, then
+    ``DenseSimulation`` at 2^20, mainnet config with the PeerDAS geometry,
+    90 shuffle rounds, Gasper, 2 epochs, the kzg DAS rider (9 blobs,
+    100,000 clients sampling 8 cells) and 100,000 light clients -- with the
+    launch counts zeroed just before and read just after: every sidecar
+    built verified, no failure or miss, one K11 ladder and one tables
+    launch in the set-up, per proposal 2 K10 passes and 2 elementwise
+    passes and one of each of the six bucket launches; equal to its
+    ``plain=True`` twin at 1 slot, which reads the plain route's tables;
+31. time K10 (the INTT at (9, 16,384)) and K11's bucket route (the MSM at
+    9 x 16,384, each launch by CUDA events between them), the tables' doublings
+    and the setup's ladder against their bounds counted from this run's
+    data (kernel ms by events, device ms by the CUDA graph timer, wrapper,
+    plain), the ladder's bound on the same scalars printed beside.
+
+Between phase groups it prints the seconds since the start (``lap``).
 
 It prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and
@@ -287,7 +303,7 @@ INT_PIPE_LANE_OPS_PER_S = H100_SMS * INT32_LANES * H100_CLOCK_HZ
 # signers; its Miller loop runs the doubled batch of 4096 lanes
 BLS_AGGREGATES, BLS_SIGNERS = 2048, 262_144
 BLS_LANES = 2 * BLS_AGGREGATES
-BLS_SMALL, BLS_ORACLE = 2, 8
+BLS_SMALL, BLS_ORACLE = 2, 6     # the oracle's 6 + 2 swapped jobs: one a core
 FIELD_KERNELS = {   # name -> (source, the JAX function it replaces): the kernels line's rows
     "fp_modmul": ("pos_evolution_tpu_torch/csrc/fp_modmul.cu", "pos_evolution_tpu/ops/fp.py:204"),
     "fp_addsub": ("pos_evolution_tpu_torch/csrc/fp_addsub.cu", "pos_evolution_tpu/ops/fp.py:210"),
@@ -386,6 +402,27 @@ K10_SOURCE = "pos_evolution_tpu_torch/csrc/fr_ntt.cu"
 K10_REPLACES = "pos_evolution_tpu/kzg/ntt.py:143"
 K11_SOURCE = "pos_evolution_tpu_torch/csrc/g1_msm.cu"
 K11_REPLACES = "pos_evolution_tpu/ops/pairing.py:386"
+# K11's bucket route over the setup's window tables: the tables'
+# doublings once a setup, six launches an MSM
+K11B_SOURCE = "pos_evolution_tpu_torch/csrc/g1_bucket.cu"
+K11B_SOURCES = {"g1_bucket_fill": "pos_evolution_tpu_torch/csrc/g1_fill.cu",
+                "g1_bucket_totals": "pos_evolution_tpu_torch/csrc/g1_totals.cu",
+                "g1_bucket_reduce": "pos_evolution_tpu_torch/csrc/g1_reduce.cu"}
+K11B_STAGES = ("g1_bucket_recode", "g1_bucket_scan", "g1_bucket_scatter", "g1_bucket_fill",
+               "g1_bucket_totals", "g1_bucket_reduce")
+# each launch's CUDA kernel function, as torch.profiler names it
+K11B_FUNCS = {"g1_bucket_tables": "g1_tables_kernel", "g1_bucket_recode": "g1_recode_kernel",
+              "g1_bucket_scan": "g1_scan_kernel", "g1_bucket_scatter": "g1_scatter_kernel",
+              "g1_bucket_fill": "g1_fill_kernel", "g1_bucket_totals": "g1_totals_kernel",
+              "g1_bucket_reduce": "g1_reduce_kernel"}
+
+
+_T_START = time.perf_counter()
+
+
+def lap(label: str) -> None:
+    """Print the seconds since this module's imports, after ``label``."""
+    say(f"lap: {label} at {time.perf_counter() - _T_START:.3f} s")
 
 
 def say(*parts):
@@ -555,6 +592,33 @@ def root_stage_ms(inputs, dev) -> list:
     return [x.elapsed_time(y) for x, y in zip(ev, ev[1:])]
 
 
+def kernel_func(name: str) -> str:
+    """The CUDA function a kernel name launches, as torch.profiler names it."""
+    return {"fr_ntt": "fr_ntt_pass_kernel", **K11B_FUNCS}.get(name, f"{name}_kernel")
+
+
+def launch_event_ms(prepare, launches: dict, reps: int) -> dict:
+    """Device ms of each launch of a pipeline: ``prepare()``, then the
+    launches in order on the current stream with a CUDA event recorded
+    before the first and after each, ``reps`` times after a warm-up; each
+    launch's ms the mean gap between its two events."""
+    names = list(launches)
+    total = dict.fromkeys(names, 0.0)
+    for rep in range(reps + 1):
+        prepare()
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        evs[0].record()
+        for name, ev in zip(names, evs[1:]):
+            kernels.launch_on(torch.device("cuda", torch.cuda.current_device()), name,
+                              *launches[name])
+            ev.record()
+        evs[-1].synchronize()
+        if rep:
+            for name, a, b in zip(names, evs, evs[1:]):
+                total[name] += a.elapsed_time(b)
+    return {name: ms / reps for name, ms in total.items()}
+
+
 def profiled(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its wall ms (host clock,
     ending in a synchronize), the device's busy ms (kernel time summed) and
@@ -573,7 +637,7 @@ def profiled(fn) -> dict:
         if e.device_type == DeviceType.CUDA:    # kernels and copies; host ops would count twice
             busy += e.self_device_time_total
             for name in per:
-                if f"{name}_kernel" in e.key:
+                if kernel_func(name) in e.key:
                     per[name] += e.self_device_time_total
     return {"wall_ms": wall, "busy_ms": busy / 1e3, "k1_ms": per["agg_sig"] / 1e3,
             "k2_ms": per["merkle_level"] / 1e3,
@@ -1804,6 +1868,65 @@ def k11_partial_products(scalars: torch.Tensor, n_blobs: int) -> int:
     return doublings * K11_DOUBLE_PP + (adds + folds) * K11_ADD_PP
 
 
+# the bucket route's group ops at their own cost (csrc/g1_bucket.cuh): a mixed
+# add 3 squares (Z1Z1, H^2, r^2) and 8 products, a unified add 4 squares and 12
+# products, a doubling 5 squares and 2 products
+K11_MADD_PP = 3 * PP_MODSQR + 8 * PP_MODMUL
+K11B_ADD_PP = 4 * PP_MODSQR + 12 * PP_MODMUL
+K11_DBL_PP = 5 * PP_MODSQR + 2 * PP_MODMUL
+FQ_WORDS_BYTES = 48                  # a base-field element as 12 words (the route's scratch)
+
+
+def k11_bucket_work(stages: dict, tables) -> dict:
+    """Each bucket launch's work for this run's data: (bytes each input read
+    once and each output written once, 32x32-bit partial products), as
+    csrc/g1_bucket.cu's code runs it. The fill's first entry of a run is a
+    copy; a unified add with the zero point on either side is a copy (the
+    tree's nodes over empty buckets); recode, scan and scatter do no
+    products."""
+    chunk = pairing.MSM_CHUNK
+    start = stages["start"].cpu().numpy().astype(np.int64)
+    g, nb = start.shape[0], start.shape[1] - 1
+    w, k = stages["digits"].shape[1:]
+    s, e = start[:, :-1], start[:, 1:]
+    entries = int(start[:, -1].sum())
+    nonempty = e > s
+    runs = int((-(-start[:, -1] // chunk)).sum() + (nonempty & (s % chunk != 0)).sum())
+    cont = np.where(nonempty, (e - 1) // chunk - s // chunk, 0)
+    levels = nb.bit_length() - 1
+    sub_log = min(nb, pairing.MSM_SUBTREE).bit_length() - 1
+    tree_lo = tree_hi = 0                    # the tree's adds in totals, in reduce
+    for blob in range(g):                    # a node point is zero iff its buckets are empty
+        level = [[bool(x)] for x in nonempty[blob]]
+        h = 0
+        while len(level) > 1:
+            nxt = []
+            for lo, hi in zip(level[0::2], level[1::2]):
+                adds = sum(a and b for a, b in zip(lo, hi))
+                tree_lo, tree_hi = (tree_lo + adds, tree_hi) if h < sub_log else \
+                    (tree_lo, tree_hi + adds)
+                nxt.append([a or b for a, b in zip(lo, hi)] + [hi[0]])
+            level = nxt
+            h += 1
+    chunks = -(-(w * k) // chunk)
+    pt = 3 * FQ_BYTES
+    sub_bytes = g * (nb >> sub_log) * (sub_log + 1) * 3 * FQ_WORDS_BYTES
+    return {
+        "g1_bucket_recode": (g * k * KZG_FR_BYTES + 4 * g * w * k + 4 * g * w * nb, 0),
+        "g1_bucket_scan": (2 * 4 * g * w * nb + 4 * g * (nb + 1), 0),
+        "g1_bucket_scatter": (4 * g * w * k + 4 * g * w * nb + 4 * entries, 0),
+        "g1_bucket_fill": (4 * entries + (2 * FQ_BYTES + 1) * entries + 4 * g * (nb + 1)
+                           + 3 * FQ_WORDS_BYTES * runs, (entries - runs) * K11_MADD_PP),
+        "g1_bucket_totals": (3 * FQ_WORDS_BYTES * runs + 4 * g * (nb + 1) + g * nb * pt
+                             + sub_bytes, (int(cont.sum()) + tree_lo) * K11B_ADD_PP),
+        # the upper levels, then 2^k Q_k (k doublings each) and H adds of the halving tree
+        "g1_bucket_reduce": (sub_bytes + g * pt,
+                             (tree_hi + g * levels) * K11B_ADD_PP
+                             + g * (levels * (levels - 1) // 2) * K11_DBL_PP),
+        "chunks": chunks, "entries": entries, "runs": runs,
+    }
+
+
 def k10_partial_products(rows: int, n: int, inverse: bool) -> int:
     """K10's REDC partial products for one transform of ``rows`` x n: a
     twiddle product a butterfly a stage (and two scale products a butterfly
@@ -1833,6 +1956,34 @@ def kzg_msm_case(rng, g: int, n: int, edges: bool):
     return enc, inf, torch.stack([fr.ints_to_digits(s) for s in ints]), pts, ints
 
 
+BUCKET_STAGE_KEYS = ("digits", "offsets", "start", "entries", "totals", "total")
+
+
+def bucket_plain_stages(tables, scalars) -> tuple:
+    """K11's bucket route by its plain versions on the card, stage by stage:
+    ({launch: plain seconds}, the stages by ``g1_msm_fixed``'s names)."""
+    secs = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    with fp.plain_mode():
+        dig, cnt = timed("g1_bucket_recode", lambda: pairing._recode_plain(scalars, tables.c))
+        start, offsets = timed("g1_bucket_scan", lambda: pairing._scan_plain(cnt))
+        ent = timed("g1_bucket_scatter",
+                    lambda: pairing._scatter_plain(dig, tables.n, tables.buckets))
+        part, bsum = timed("g1_bucket_fill", lambda: pairing._fill_plain(tables, ent, start))
+        totals = timed("g1_bucket_totals", lambda: pairing._totals_plain(part, bsum, start))
+        total = timed("g1_bucket_reduce", lambda: pairing._reduce_plain(totals))
+    return secs, {"digits": dig, "offsets": offsets, "start": start, "entries": ent,
+                  "totals": totals, "total": total}
+
+
 def kzg_phases(dev, card: str, census) -> list:
     """Phases 26-31, the KZG slice: the setup on the card; K10 and K11
     against their plain versions at the commit path's shapes and edges; a
@@ -1853,22 +2004,70 @@ def kzg_phases(dev, card: str, census) -> list:
     setup = kzg_setup.device_setup(n, 0, dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    kzg_setup._DEVICE.clear()
-    t0 = time.perf_counter()
-    plain_setup = kzg_setup.device_setup(n, 0, dev, plain=True)
-    torch.cuda.synchronize()
-    setup_plain_s = time.perf_counter() - t0
-    kzg_setup._DEVICE[(n, 0, dev)] = setup
-    check(torch.equal(setup.points, plain_setup.points)
-          and torch.equal(setup.inf, plain_setup.inf), "the setup differs from its plain version")
+    # the setup's ladder (its K11 launch) and affine pass against their plain
+    # versions on the same lanes: every lane's point G, scalar tau^j
+    t_scs = fr.ints_to_digits(kzg_setup._tau_powers(n, 0), dev)[None]
+    gen = fp.const(pairing._G1_GEN, dev).expand(n, 2, fp.L)
+    ginf = torch.zeros(n, dtype=torch.bool, device=dev)
+    lanes = pairing.g1_msm_lanes(gen, ginf, t_scs)
+    with fp.plain_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_lanes = pairing.g1_msm_lanes(gen, ginf, t_scs)    # the span of the ladder's ms
+        torch.cuda.synchronize()
+        ladder_plain_s = time.perf_counter() - t0
+        aff, is_inf = pairing.g1_to_affine(plain_lanes[0])
+        plain_points = fp.canon(aff)
+    check(torch.equal(lanes, plain_lanes), "the setup's ladder differs from its plain version")
+    check(torch.equal(setup.points, plain_points) and torch.equal(setup.inf, is_inf),
+          "the setup differs from its plain version")
+    del lanes, plain_lanes, plain_points
     host = kzg_setup.trusted_setup(KZG_HOST_POWERS, 0)
     check(pairing.g1_decode_points(setup.points[:KZG_HOST_POWERS], setup.inf[:KZG_HOST_POWERS])
           == list(host.powers_g1) and setup.g2_tau == host.g2_tau,
           "the setup's powers differ from the host trusted_setup")
     say(f"[{card}] setup of {n} powers on the card: {1e3 * setup_s:.3f} ms (one K11 launch, "
-        f"the affine pass), plain {setup_plain_s:.3f} s; == its plain version; the first "
-        f"{KZG_HOST_POWERS} powers == the host trusted_setup")
-    del plain_setup
+        f"the affine pass); its ladder's lanes and affine points == their plain versions "
+        f"(the plain ladder {ladder_plain_s:.3f} s); the first {KZG_HOST_POWERS} powers == "
+        f"the host trusted_setup")
+    kzg_setup._TABLES.clear()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tables = setup.window_tables()
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    c_win, w_win = tables.c, pairing.msm_windows(tables.c)
+    check(kernels.launches["g1_bucket_tables"] == 1 and c_win == pairing.MSM_WINDOW,
+          f"window tables: c = {c_win}, launches {kernels.launches['g1_bucket_tables']}")
+    tables_bytes = tables.points.numel() * 4 + tables.inf.numel()
+    spots = [(w, j) for w in (0, 1, w_win // 2, w_win - 1) for j in (0, 1, KZG_HOST_POWERS - 1)]
+    check(all(pairing.g1_decode_points(tables.points[w, j], tables.inf[w, j])
+              == [oracle.ec_mul(host.powers_g1[j], 1 << (c_win * w))] for w, j in spots),
+          "the window tables differ from the oracle's 2^(c w) [tau^j]G")
+    # the doubling launch at the path's shape, and the whole tables, against
+    # the plain route (whose tables the plain twin of phase 30 reads)
+    jac = pairing._tables_jac(setup.points, setup.inf)
+    kdbl = torch.empty((w_win - 1, n, 3, fp.L), dtype=torch.int32, device=dev)
+    kernels.launch_on(dev, "g1_bucket_tables", jac.data_ptr(), kdbl.data_ptr(), n, w_win - 1,
+                      c_win)
+    with fp.plain_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pdbl = pairing._double_windows_plain(jac, w_win - 1, c_win)   # the launch's span
+        torch.cuda.synchronize()
+        tables_plain_ms = 1e3 * (time.perf_counter() - t0)
+        plain_tables = pairing._affine_tables(setup.points, setup.inf, pdbl, c_win)
+    check(torch.equal(kdbl, pdbl), "the tables' doubling launch differs from its plain version")
+    check(torch.equal(tables.points, plain_tables.points)
+          and torch.equal(tables.inf, plain_tables.inf), "the tables differ from the plain route's")
+    del jac, kdbl, pdbl
+    say(f"[{card}] window tables of the {n} powers: c = {c_win}, W = {w_win}, "
+        f"{tables_bytes} bytes on the card; built in {1e3 * tables_s:.3f} ms (one "
+        f"g1_bucket_tables launch of {c_win * (w_win - 1)} doublings a power, the affine pass "
+        f"by one batch inversion); the doublings ({n} x {w_win - 1} windows) and the tables == "
+        f"the plain route's (its doublings {tables_plain_ms:.3f} ms); {len(spots)} spot entries "
+        f"== the oracle's 2^(c w) [tau^j]G")
 
     # 27. K10 and K11 against their plain versions at the commit path's shapes
     grids = torch.from_numpy(rng.integers(0, 256, (DAS_BLOBS, 2 * DAS_K, DAS_CELL),
@@ -1922,49 +2121,85 @@ def kzg_phases(dev, card: str, census) -> list:
         f"pass bit-equal; {edge_count} transforms at n in 1-1,024 and every elementwise op "
         f"on 0, 1, r-1, r, r+1, 2r-1 bit-equal")
 
-    t0 = time.perf_counter()
-    lanes = pairing.g1_msm_lanes(setup.points, setup.inf, coeffs)
+    got = {}
+    aff, inf = pairing.g1_msm_fixed(tables, coeffs, stages=got)
     torch.cuda.synchronize()
+    plain_stage_s, want = bucket_plain_stages(tables, coeffs)
+    k11_plain_s = sum(plain_stage_s.values())
     with fp.plain_mode():
-        t1 = time.perf_counter()
-        plain_lanes = pairing.g1_msm_lanes(setup.points, setup.inf, coeffs)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        plain_total = pairing.g1_fold(plain_lanes)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        plain_aff, plain_inf = pairing.g1_to_affine(plain_total)
+        plain_aff, plain_inf = pairing.g1_to_affine(want["total"])
         plain_aff = fp.canon(plain_aff)
-    k11_plain_s = t3 - t1                              # the span of K11's ms: lanes and fold
-    k11_err = digit_err(lanes, plain_lanes)
-    check(torch.equal(lanes, plain_lanes), "K11's lanes differ from their plain version")
-    total = pairing.g1_fold(lanes)
-    check(torch.equal(total, plain_total), "K11's fold differs from its plain version")
-    aff, inf = pairing.g1_msm(setup.points, setup.inf, coeffs)
+    k11_err = max(digit_err(got[k], want[k]) for k in BUCKET_STAGE_KEYS)
+    for key in BUCKET_STAGE_KEYS:
+        check(torch.equal(got[key], want[key]), f"K11's bucket {key} differ from the plain version")
     check(torch.equal(aff, plain_aff) and torch.equal(inf, plain_inf),
-          "K11's MSM differs from its plain version")
-    del lanes, plain_lanes
-    # the edge lanes in one call of 2 x 200: a first fold round of 4 blocks
-    # (the last one ragged), then a second round
+          "K11's bucket MSM differs from its plain version")
+    bucket_stages = got
+    say(f"K11's bucket route vs plain at {DAS_BLOBS} x {n} (the commit's scalars, c = "
+        f"{c_win}): digits, window offsets, bucket starts, sorted entries, bucket sums, "
+        f"blob sums and affine sums bit-equal ({int(got['start'][:, -1].sum())} entries; plain "
+        + ", ".join(f"{k.replace('g1_bucket_', '')} {v:.3f} s" for k, v in plain_stage_s.items())
+        + ")")
+    # the edge lanes, over their own tables at the kernel's c and a small one
     enc, einf, scs, pts, ints = kzg_msm_case(rng, 2, 200, True)
     enc, einf, scs = enc.to(dev), einf.to(dev), scs.to(dev)
-    got = pairing.g1_msm_lanes(enc, einf, scs)
-    got_sum = pairing.g1_fold(got)
+    # the tables' doubling launch against its plain version on the edge points
+    # (infinity among them), 2 windows of c = 13
+    ejac = pairing._tables_jac(enc, einf)
+    edbl = torch.empty((2,) + ejac.shape, dtype=torch.int32, device=dev)
+    kernels.launch_on(dev, "g1_bucket_tables", ejac.data_ptr(), edbl.data_ptr(),
+                      ejac.shape[0], 2, pairing.MSM_WINDOW)
     with fp.plain_mode():
-        want = pairing.g1_msm_lanes(enc, einf, scs)
-        check(torch.equal(got, want) and torch.equal(pairing.g1_fold(want), got_sum),
-              "K11 on the edge lanes differs from its plain version")
+        pdbl = pairing._double_windows_plain(ejac, 2, pairing.MSM_WINDOW)
+    check(torch.equal(edbl, pdbl), "the tables' doubling launch differs from its plain version")
+    for c in (pairing.MSM_WINDOW, 5):
+        etab = pairing.g1_window_tables(enc, einf, c)
+        got, want = {}, {}
+        a, i = pairing.g1_msm_fixed(etab, scs, stages=got)
+        pairing.g1_msm_fixed(etab, scs, plain=True, stages=want)
+        check(all(torch.equal(got[k], want[k]) for k in BUCKET_STAGE_KEYS),
+              f"K11's bucket route on the edge lanes (c = {c}) differs from plain")
+        check(pairing.g1_decode_points(a, i) == [curve.g1_lincomb(pts, s) for s in ints],
+              f"K11's bucket route on the edge lanes (c = {c}) differs from the host Pippenger")
+    # the prover's size: one blob of N - 1 scalars over the setup's tables
+    pscs = coeffs[:1, 1:]
+    got, want = {}, {}
+    a, i = pairing.g1_msm_fixed(tables, pscs, stages=got)
+    pa, pi = pairing.g1_msm_fixed(tables, pscs, plain=True, stages=want)
+    check(all(torch.equal(got[k], want[k]) for k in BUCKET_STAGE_KEYS)
+          and torch.equal(a, pa) and torch.equal(i, pi),
+          f"K11's bucket route at the prover's 1 x {n - 1} differs from plain")
+    # the ladder where its callers still run it: the edge lanes and the
+    # verifier's fold over 10 points, each launched at its own shape and held
+    # against one plain ladder over all their lanes (a lane depends on its own
+    # point and scalar only)
+    fpts, fscs = pts[:10], ints[0][:10]
+    fenc, finf = pairing.g1_encode_points(fpts, dev)
+    fdig = fr.ints_to_digits(fscs, dev)[None]
+    lanes = pairing.g1_msm_lanes(enc, einf, scs)
+    lanes_sum = pairing.g1_fold(lanes)
+    a, i = pairing.g1_msm(fenc[None], finf[None], fdig)
+    g_e, n_e = scs.shape[:2]
+    with fp.plain_mode():
+        want = pairing.g1_msm_lanes(torch.cat([enc] * g_e + [fenc]),
+                                    torch.cat([einf] * g_e + [finf]),
+                                    torch.cat([*scs, fdig[0]])[None])[0]
+        check(torch.equal(lanes, want[:g_e * n_e].reshape(lanes.shape))
+              and torch.equal(pairing.g1_fold(lanes), lanes_sum),
+              "K11's ladder on the edge lanes differs from its plain version")
+        pa, pi = pairing.g1_to_affine(pairing._fold_plain(want[None, g_e * n_e:]))
+        pa = fp.canon(pa)
+    check(torch.equal(a, pa) and torch.equal(i, pi)
+          and pairing.g1_decode_points(a, i) == [curve.g1_lincomb(fpts, fscs)],
+          "K11's ladder at the verifier's 10 points differs from plain or the host")
     a, i = pairing.g1_msm(enc, einf, scs)
     check(pairing.g1_decode_points(a, i) == [curve.g1_lincomb(pts, s) for s in ints],
-          "K11 on the edge lanes differs from the host Pippenger")
-    enc, einf, scs, pts, ints = kzg_msm_case(rng, 2, 1024, False)
-    a, i = pairing.g1_msm(enc.to(dev), einf.to(dev), scs.to(dev))
-    check(pairing.g1_decode_points(a, i) == [curve.g1_lincomb(pts, s) for s in ints],
-          "K11 at 2 x 1,024 differs from the host Pippenger")
-    say(f"K11 vs plain at {DAS_BLOBS} x {n} lanes (the commit's scalars): lanes, fold and "
-        f"affine sums bit-equal (plain {k11_plain_s:.3f} s: ladders {t2 - t1:.3f} s); the "
-        f"edge lanes (zero scalar, r-1, infinity, the fold's P = Q and P = -Q) at 2 x 200 "
-        f"bit-equal and == the host Pippenger; 2 x 1,024 == the host Pippenger")
+          "K11's ladder on the edge lanes differs from the host Pippenger")
+    say(f"K11's bucket route on the edge lanes (zero scalar, r-1, infinity, P = Q and P = -Q "
+        f"in one bucket) at 2 x 200, c = {pairing.MSM_WINDOW} and 5: every stage bit-equal to "
+        f"plain, == the host Pippenger; the tables' doublings (2 windows of "
+        f"{pairing.MSM_WINDOW}) bit-equal to plain; at the prover's 1 x {n - 1}: bit-equal; "
+        f"the ladder on the edge lanes and at the verifier's 10 points: bit-equal, == the host")
 
     # 28. the PeerDAS commit batch against the plain path and the host oracle
     wires = scheme.commit_batch(grids)
@@ -2032,12 +2267,17 @@ def kzg_phases(dev, card: str, census) -> list:
         + ", ".join(f"{k} {t:.3f} s" for k, t in zip(cases, verify_s)) + "; honest accepted, "
         f"forged cell, tampered W and wrong wire rejected, each == the oracle pairing")
 
-    # 30. the dense run with the kzg DAS rider at 2^20, counted
-    del grids, evals, mont, coeffs_mont, coeffs, plain_coeffs
+    # 30. the dense run with the kzg DAS rider at 2^20, counted: the setup and
+    # its window tables made anew in the run's set-up, as a fresh process does
+    del grids, evals, mont, coeffs_mont, coeffs, plain_coeffs, tables, setup
+    kzg_setup._DEVICE.clear()
+    kzg_setup._TABLES.clear()
     torch.cuda.empty_cache()
     kernels.reset_launches()
     t0 = time.perf_counter()
     sim = kzg_rider_sim(dev, phase_profile=8)
+    setup = kzg_setup.device_setup(n, 0, dev)
+    tables = setup.window_tables()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     sim.run_epochs(KZG_RIDER_EPOCHS)
@@ -2053,26 +2293,33 @@ def kzg_phases(dev, card: str, census) -> list:
           f"kzg rider stats {das} after {slots} proposals")
     k10_launches = kzg_launches["fr_ntt"] + kzg_launches["fr_ew"]
     k11_launches = kzg_launches["g1_msm"] + kzg_launches["g1_fold"]
-    check(kzg_launches["fr_ntt"] == 14 * slots and kzg_launches["fr_ew"] == 2 * slots
-          and kzg_launches["g1_msm"] == slots and kzg_launches["g1_fold"] == 2 * slots
+    k10_passes = len(ntt.passes(n))
+    check(kzg_launches["fr_ntt"] == k10_passes * slots and kzg_launches["fr_ew"] == 2 * slots
+          and all(kzg_launches[k] == slots for k in K11B_STAGES)
+          and kzg_launches["g1_bucket_tables"] == 1 and kzg_launches["g1_msm"] == 1
+          and kzg_launches["g1_fold"] == 0
           and kzg_launches["agg_sig"] == 2 * slots and kzg_launches["gf256_matmul"] == 2 * slots
           and kzg_launches["merkle_level"] == 0,
           f"kzg rider run launches {kzg_launches} over {slots} proposals")
     per_proposal = {k: v / slots for k, v in kzg_launches.items() if v}
-    say(f"kzg rider run n={N_MAINNET}, {KZG_RIDER_EPOCHS} epochs ({slots} proposals): launches "
-        f"{kzg_launches} (per proposal {per_proposal}); das {das}; lightclient {lc}; digest "
-        f"{rec['digest']}")
+    say(f"kzg rider run n={N_MAINNET}, {KZG_RIDER_EPOCHS} epochs ({slots} proposals; the setup's "
+        f"ladder and its tables' doublings once in the set-up): launches {kzg_launches} (per "
+        f"proposal {per_proposal}); das {das}; lightclient {lc}; digest {rec['digest']}")
     with_s = (t2 - t1) / KZG_RIDER_EPOCHS
     work = phases["phases"].get("workload", {})
     prof = profiled(lambda: sim.run_slot())
-    say(f"[{card}] dense path with the kzg rider: setup {t1 - t0:.3f} s, {with_s:.3f} s per "
-        f"simulated epoch; workload phase {work.get('total_ms')} ms = {work.get('share_pct')}% "
-        f"of the run's wall; one more slot under torch.profiler wall {prof['wall_ms']:.3f} ms, "
-        f"device busy {prof['busy_ms']:.3f} ms "
-        f"({100 * prof['busy_ms'] / prof['wall_ms']:.2f}%), by kernel "
-        + json.dumps({k: round(v, 3) for k, v in prof["kernel_ms"].items() if v}))
+    by_func = {k: round(v, 3) for k, v in prof["kernel_ms"].items() if v}
+    say(f"[{card}] dense path with the kzg rider: setup {t1 - t0:.3f} s (the powers and their "
+        f"tables included), {with_s:.3f} s per simulated epoch; workload phase "
+        f"{work.get('total_ms')} ms = {work.get('share_pct')}% of the run's wall; one more slot "
+        f"under torch.profiler wall {prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms "
+        f"({100 * prof['busy_ms'] / prof['wall_ms']:.2f}%), by kernel " + json.dumps(by_func))
     say(f"[{card}] kzg rider run phase budget: " + json.dumps(phases))
     del sim
+    # the plain twin reads the plain route's tables (phase 26's, held equal to
+    # the kernels' there), memoized apart from the kernels'
+    plain_key = (n, 0, dev, c_win, True)
+    kzg_setup._TABLES[plain_key] = plain_tables
     short = kzg_rider_sim(dev)
     short_p = kzg_rider_sim(dev, plain=True)
     t5 = time.perf_counter()
@@ -2081,9 +2328,13 @@ def kzg_phases(dev, card: str, census) -> list:
     twin_s = time.perf_counter() - t5
     short.run_slot()
     check(rider_record(short) == ref, "the kzg rider run differs from its plain=True run")
+    check(kzg_setup._TABLES.get(plain_key) is plain_tables
+          and sum(1 for k in kzg_setup._TABLES if k[:4] == plain_key[:4]) == 2,
+          "the plain twin did not read the plain route's tables")
     say(f"kzg rider run at 1 slot == its plain=True twin (metrics, summary, rider state, "
-        f"light-client heads, digest; {twin_s:.3f} s plain)")
-    del short, short_p
+        f"light-client heads, digest; the twin on the plain route's tables; {twin_s:.3f} s "
+        f"plain)")
+    del short, short_p, plain_tables
 
     # 31. K10 and K11 at the path's shapes against their bounds
     grids = torch.from_numpy(rng.integers(0, 256, (DAS_BLOBS, 2 * DAS_K, DAS_CELL),
@@ -2092,49 +2343,134 @@ def kzg_phases(dev, card: str, census) -> list:
     mont = fr.to_mont(evals)
     coeffs = fr.from_mont(ntt.intt(mont))
     tw, sc = ntt._tables(n, True, dev)
-    bufs = [torch.empty_like(mont), torch.empty_like(mont)]
+    words = torch.empty((DAS_BLOBS, n, 8), dtype=torch.int32, device=dev)
+    k10_out = torch.empty_like(mont)
 
     def k10_raw():
         src = mont
-        for s in range(n.bit_length() - 1):
-            flags = (1 if s == 0 else 0) | (2 if s == n.bit_length() - 2 else 0)
-            kernels.launch_on(dev, "fr_ntt", src.data_ptr(), bufs[s % 2].data_ptr(),
-                              tw.data_ptr(), sc.data_ptr(), DAS_BLOBS, n, s, flags)
-            src = bufs[s % 2]
+        for i, (s0, s1) in enumerate(ntt.passes(n)):
+            last = i == k10_passes - 1
+            dst = k10_out if last else words
+            kernels.launch_on(dev, "fr_ntt", src.data_ptr(), dst.data_ptr(), tw.data_ptr(),
+                              sc.data_ptr(), DAS_BLOBS, n, s0, s1,
+                              (1 if i == 0 else 0) | (6 if last else 0))
+            src = dst
 
+    k10_raw()
+    check(torch.equal(k10_out, ntt.intt(mont)), "K10's raw passes differ from the wrapper")
     k10 = {"ms": time_ms(k10_raw, 20), "device_ms": device_ms(k10_raw),
            "wrapper_ms": time_ms(lambda: ntt.intt(mont), 20),
            "ew_ms": time_ms(lambda: fr.from_mont(mont), 20),
            "plain_ms": 1e3 * k10_plain_s}
     k10_bytes = 2 * DAS_BLOBS * n * KZG_FR_BYTES + (n - 1) * KZG_FR_BYTES
     k10_bound = field_bound(k10_bytes, k10_partial_products(DAS_BLOBS, n, True))
-    part = torch.empty((DAS_BLOBS, n // 64, 3, fp.L), dtype=torch.int32, device=dev)
-    args = pairing._msm_args(setup.points, setup.inf, coeffs)
+    say(f"[{card}] K10 INTT at {DAS_BLOBS} x {n}: {k10_passes} passes, kernel "
+        f"{k10['ms']:.4f} ms, device {fmt_ms(k10['device_ms'])}, wrapper "
+        f"{k10['wrapper_ms']:.4f} ms, plain {k10['plain_ms']:.3f} ms; bound "
+        f"{k10_bound['ms']:.4f} ms ({k10_bound['by']}: {k10_bound['bytes']} bytes, "
+        f"{k10_bound['partial_products']} partial products)"
+        + (f", share {100 * k10_bound['ms'] / k10['device_ms']:.1f}%" if k10["device_ms"] else "")
+        + f"; K10's canonical pass over {DAS_BLOBS} x {n}: {k10['ew_ms']:.4f} ms")
+
+    # K11's bucket route: the six launches on preallocated buffers
+    got = {}
+    pairing.g1_msm_fixed(tables, coeffs, stages=got)
+    work = k11_bucket_work(got, tables)
+    g, w_k = DAS_BLOBS, w_win * n
+    nb = tables.buckets
+    buf = {"dig": torch.empty((g, w_win, n), dtype=torch.int32, device=dev),
+           "off": torch.zeros((g, w_win, nb), dtype=torch.int32, device=dev),
+           "start": torch.empty((g, nb + 1), dtype=torch.int32, device=dev),
+           "ent": torch.zeros((g, w_k), dtype=torch.int32, device=dev),
+           "part": torch.empty((g, work["chunks"], 3, 12), dtype=torch.int32, device=dev),
+           "bsum": torch.empty((g, nb, 3, 12), dtype=torch.int32, device=dev),
+           "totals": torch.empty((g, nb, 3, fp.L), dtype=torch.int32, device=dev),
+           "sub": torch.empty((g, nb // pairing.MSM_SUBTREE,
+                               pairing.MSM_SUBTREE.bit_length(), 3, 12),
+                              dtype=torch.int32, device=dev),
+           "scratch": torch.empty((2, g, nb // 2, 3, 12), dtype=torch.int32, device=dev),
+           "total": torch.empty((g, 3, fp.L), dtype=torch.int32, device=dev)}
+    p = {k: v.data_ptr() for k, v in buf.items()}
+    launches = {
+        "g1_bucket_recode": (coeffs.data_ptr(), p["dig"], p["off"], g, n, c_win),
+        "g1_bucket_scan": (p["off"], p["start"], g, w_win, nb),
+        "g1_bucket_scatter": (p["dig"], p["off"], p["ent"], g, n, n, c_win),
+        "g1_bucket_fill": (tables.points.data_ptr(), tables.inf_u8.data_ptr(), p["ent"],
+                           p["start"], p["part"], p["bsum"], g, w_k, nb),
+        "g1_bucket_totals": (p["part"], p["bsum"], p["start"], p["totals"], p["sub"], g, w_k,
+                             nb),
+        "g1_bucket_reduce": (p["sub"], p["scratch"], p["total"], g, nb)}
+
+    def k11_prepare():
+        buf["off"].zero_()
+        buf["ent"].zero_()
 
     def k11_raw():
-        pairing._msm_launch(args, part, True)
-        pairing.g1_fold(part)
+        k11_prepare()
+        for name, args in launches.items():
+            kernels.launch_on(dev, name, *args)
 
-    k11 = {"ms": time_ms(k11_raw, 3), "device_ms": device_ms(k11_raw, 3),
-           "wrapper_ms": time_ms(lambda: pairing.g1_msm(setup.points, setup.inf, coeffs), 3),
+    k11_raw()
+    check(torch.equal(buf["total"], got["total"]) and torch.equal(buf["totals"], got["totals"]),
+          "K11's raw bucket launches differ from the wrapper")
+    k11 = {"ms": time_ms(k11_raw, 10), "device_ms": device_ms(k11_raw, 10),
+           "wrapper_ms": time_ms(lambda: pairing.g1_msm_fixed(tables, coeffs), 10),
            "plain_ms": 1e3 * k11_plain_s}
-    k11_bytes = n * (2 * FQ_BYTES + 1) + DAS_BLOBS * n * KZG_FR_BYTES + DAS_BLOBS * 3 * FQ_BYTES
-    k11_bound = field_bound(k11_bytes, k11_partial_products(coeffs, DAS_BLOBS))
-    for name, r, b in (("K10 INTT", k10, k10_bound), ("K11 MSM", k11, k11_bound)):
-        say(f"[{card}] {name} at {DAS_BLOBS} x {n}: kernel {r['ms']:.4f} ms, device "
-            f"{fmt_ms(r['device_ms'])}, wrapper {r['wrapper_ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.3f} ms; bound {b['ms']:.4f} ms ({b['by']}: {b['bytes']} bytes, "
-            f"{b['partial_products']} partial products)"
-            + (f", share {100 * b['ms'] / r['device_ms']:.1f}%" if r["device_ms"] else ""))
-    say(f"[{card}] K10's canonical pass over {DAS_BLOBS} x {n}: {k10['ew_ms']:.4f} ms")
+    stage_ms = launch_event_ms(k11_prepare, launches, 5)
+    k11_bytes = (DAS_BLOBS * n * KZG_FR_BYTES + work["entries"] * (2 * FQ_BYTES + 1)
+                 + DAS_BLOBS * 3 * FQ_BYTES)
+    k11_pp = sum(work[k][1] for k in K11B_STAGES)
+    k11_bound = field_bound(k11_bytes, k11_pp)
+    stage_bounds = {k: field_bound(*work[k]) for k in K11B_STAGES}
+    # the ladder's bound on these scalars (the route the commit took before the
+    # bucket route): a doubling a bit, an add a further set bit, the fold
+    ladder_msm_bound = field_bound(
+        n * (2 * FQ_BYTES + 1) + DAS_BLOBS * n * KZG_FR_BYTES + DAS_BLOBS * 3 * FQ_BYTES,
+        k11_partial_products(coeffs, DAS_BLOBS))
+    say(f"[{card}] K11 bucket MSM at {DAS_BLOBS} x {n} (c = {c_win}, {work['entries']} entries, "
+        f"{work['runs']} runs): kernel {k11['ms']:.4f} ms, device {fmt_ms(k11['device_ms'])}, "
+        f"wrapper {k11['wrapper_ms']:.4f} ms, plain {k11['plain_ms']:.3f} ms; bound "
+        f"{k11_bound['ms']:.4f} ms ({k11_bound['by']}: {k11_bound['bytes']} bytes, "
+        f"{k11_bound['partial_products']} partial products)"
+        + (f", share {100 * k11_bound['ms'] / k11['device_ms']:.1f}%" if k11["device_ms"] else "")
+        + f"; the ladder's bound on these scalars {ladder_msm_bound['ms']:.4f} ms "
+        f"({ladder_msm_bound['by']})")
+    for name in K11B_STAGES:
+        b = stage_bounds[name]
+        say(f"[{card}]   {name}: device {stage_ms[name]:.4f} ms (CUDA events, mean of 5), "
+            f"plain {1e3 * plain_stage_s[name]:.3f} ms, bound {b['ms']:.5f} ms ({b['by']}: "
+            f"{b['bytes']} bytes, {b['partial_products']} partial products)")
+    # the tables' doublings, once a setup
+    one = fp.const(fp.ONE, dev).expand(n, fp.L)
+    jac = torch.cat([setup.points, one[:, None]], dim=1).contiguous()
+    dbl = torch.empty((w_win - 1, n, 3, fp.L), dtype=torch.int32, device=dev)
+
+    def tables_raw():
+        kernels.launch_on(dev, "g1_bucket_tables", jac.data_ptr(), dbl.data_ptr(), n,
+                          w_win - 1, c_win)
+
+    tables_ms = time_ms(tables_raw, 3)
+    tables_bound = field_bound(n * 3 * FQ_BYTES + (w_win - 1) * n * 3 * FQ_BYTES,
+                               (w_win - 1) * c_win * n * K11_DBL_PP)
+    say(f"[{card}] g1_bucket_tables at {n} powers x {w_win - 1} windows: {tables_ms:.4f} ms, "
+        f"bound {tables_bound['ms']:.4f} ms ({tables_bound['by']}); its plain version "
+        f"{tables_plain_ms:.3f} ms")
+    # the ladder, where it still runs: the setup's 16,384 lanes (phase 26's inputs)
+    ladder_ms = time_ms(lambda: pairing.g1_msm_lanes(gen, ginf, t_scs), 3)
+    ladder_bound = field_bound(n * (2 * FQ_BYTES + 1) + n * KZG_FR_BYTES + n * 3 * FQ_BYTES,
+                               k11_partial_products(t_scs, 1) - (n - 1) * K11_ADD_PP)
+    say(f"[{card}] K11's ladder at the setup's {n} lanes: {ladder_ms:.4f} ms, bound "
+        f"{ladder_bound['ms']:.4f} ms ({ladder_bound['by']}); its plain version "
+        f"{ladder_plain_s:.3f} s")
     if census is not None:
-        for key in ("fr_ntt", "fr_ew", "g1_msm"):
+        for key in ("fr_ntt", "fr_ew", "g1_msm", "g1_bucket_fill", "g1_bucket_reduce"):
             if key in census:
                 say(f"SASS {key} (whole kernel): {json.dumps(census[key]['total'])}")
     common = {"route": "cuda", "matches_plain": True, "library_ms": None,
               "kzg_rider_epoch_s": with_s, "setup_ms": 1e3 * setup_s,
+              "tables_build_ms": 1e3 * tables_s, "tables_bytes": tables_bytes,
               "commit_batch_ms": commit_ms, "prove_s": prove_s, "verify_s": verify_s[0]}
-    return [
+    rows = [
         {"name": "fr_ntt", "source": K10_SOURCE, "replaces": K10_REPLACES,
          "launches": k10_launches, "max_abs_err": k10_err,
          "shape": f"INTT ({DAS_BLOBS}, {n})", "ms": k10["ms"], "device_ms": k10["device_ms"],
@@ -2143,12 +2479,27 @@ def kzg_phases(dev, card: str, census) -> list:
          "canonical_pass_ms": k10["ew_ms"],
          "launches_per_proposal": k10_launches / slots, **common},
         {"name": "g1_msm", "source": K11_SOURCE, "replaces": K11_REPLACES,
-         "launches": k11_launches, "max_abs_err": k11_err,
-         "shape": f"MSM {DAS_BLOBS} x {n}", "ms": k11["ms"], "device_ms": k11["device_ms"],
-         "wrapper_ms": k11["wrapper_ms"], "plain_ms": k11["plain_ms"],
-         "bound_ms": k11_bound["ms"], "bound_by": k11_bound["by"],
-         "launches_per_proposal": k11_launches / slots, **common},
-    ]
+         "launches": k11_launches, "max_abs_err": 0,
+         "shape": f"ladder, the setup's {n} lanes", "ms": ladder_ms,
+         "plain_ms": 1e3 * ladder_plain_s, "bound_ms": ladder_bound["ms"],
+         "bound_by": ladder_bound["by"], "launches_per_proposal": 0.0, **common},
+        {"name": "g1_bucket_tables", "source": K11B_SOURCE, "replaces": K11_REPLACES,
+         "launches": kzg_launches["g1_bucket_tables"], "max_abs_err": 0,
+         "shape": f"{n} powers x {w_win - 1} windows of {c_win} doublings", "ms": tables_ms,
+         "plain_ms": tables_plain_ms, "bound_ms": tables_bound["ms"], "bound_by": tables_bound["by"], **common}]
+    for name in K11B_STAGES:
+        b = stage_bounds[name]
+        rows.append({"name": name, "source": K11B_SOURCES.get(name, K11B_SOURCE),
+                     "replaces": K11_REPLACES, "launches": kzg_launches[name],
+                     "max_abs_err": k11_err, "shape": f"MSM {DAS_BLOBS} x {n}, c = {c_win}",
+                     "ms": stage_ms[name], "plain_ms": 1e3 * plain_stage_s[name],
+                     "bound_ms": b["ms"], "bound_by": b["by"],
+                     "launches_per_proposal": kzg_launches[name] / slots,
+                     "msm_ms": k11["ms"], "msm_device_ms": k11["device_ms"],
+                     "msm_wrapper_ms": k11["wrapper_ms"], "msm_plain_ms": k11["plain_ms"],
+                     "msm_bound_ms": k11_bound["ms"], "msm_bound_by": k11_bound["by"],
+                     **common})
+    return rows
 
 
 def main() -> int:
@@ -2164,13 +2515,16 @@ def main() -> int:
     # 1. build
     t0 = time.perf_counter()
     reports = kernels.build_all()
-    say(f"build_seconds {time.perf_counter() - t0:.3f}")
+    say(f"build_seconds {time.perf_counter() - t0:.3f}; by source "
+        + json.dumps({k: round(v, 3) for k, v in kernels.build_seconds.items()}))
+    lap("phase 1")
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"ptxas {name}: {line.strip()}")
     for name in ("fp_modmul", "fp_addsub", "alg_mul", "sha256_blocks", "gf256_matmul",
-                 "fr_ntt", "g1_msm"):
+                 "fr_ntt", "g1_msm", "g1_bucket_tables", "g1_bucket_fill", "g1_bucket_totals",
+                 "g1_bucket_reduce"):
         # the redesigned kernels: no spills
         spills = [line for line in reports[name].splitlines() if "spill" in line]
         check(spills and all("0 bytes spill stores, 0 bytes spill loads" in line
@@ -2271,6 +2625,8 @@ def main() -> int:
         + ", ".join(f"{s} {ms:.3f} ms" for s, ms in zip(STAGES, stages)))
 
     del pk, committees, k1_out, out
+
+    lap("phases 2-5")
 
     # 6. K2 against its plain version and hashlib
     rng = np.random.default_rng(11)
@@ -2398,6 +2754,8 @@ def main() -> int:
     say(f"[{card}] roots path n={N_MAINNET}: stages "
         + ", ".join(f"{s} {ms:.3f} ms" for s, ms in zip(ROOT_STAGES, rstages)))
 
+    lap("phases 6-9")
+
     # 10. the dense path, counted
     del pre_state, post_state, cols, trees, roots
     torch.cuda.empty_cache()
@@ -2453,6 +2811,8 @@ def main() -> int:
     dense_k1_err = int(((got.long() & MASK32) - (want.long() & MASK32)).abs().max())
     check(dense_k1_err == 0 and torch.equal(got, want), "K1 at (64, 512) differs from plain")
     say("K1 vs plain at the dense path's shape A=64 C=512: bit-equal")
+
+    lap("phase 10")
 
     # 11. faulted and adversarial at 2^20, checkpoint and resume on the card
     t3 = time.perf_counter()
@@ -2513,6 +2873,8 @@ def main() -> int:
         f"ms, bound {dense_bound['ms']:.5f} ms ({dense_bound['by']}); state_digest "
         f"{t_digest:.3f} ms")
 
+    lap("phases 11-13")
+
     # 14. SASS census and the two bounds
     census = sass_census()
     if census is None:
@@ -2531,9 +2893,15 @@ def main() -> int:
                 + ", ".join(f"{k} {v:.4f}" for k, v in b.items())
                 + f"; measured / int_pipe {b['int_pipe_ms'] / measured:.3f}")
 
+    lap("phase 14")
     field_rows = bls_phases(dev, card, census)
+    lap("phases 15-19")
     das_rows = das_sync_phases(dev, card, census)
+    lap("phases 20-25")
+    t_kzg = time.perf_counter()
     kzg_rows = kzg_phases(dev, card, census)
+    say(f"KZG phases 26-31: {time.perf_counter() - t_kzg:.3f} s")
+    lap("phases 26-31")
 
     big = k2[K2_LARGEST]
     say(card)

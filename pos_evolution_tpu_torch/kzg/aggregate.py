@@ -18,8 +18,10 @@ distinct sampled cosets. The verifier checks
 
 The transcript, the challenges and the host Fr integer work are the JAX
 package's, copied. The group work runs on the port's device: the prover's
-two MSMs and the verifier's fold through ``ops/pairing.g1_msm`` (kernel
-K11), and the pairing equation as one lane-packed check on the port's
+two MSMs over the setup's powers through ``ops/pairing.g1_msm_fixed``
+(kernel K11's bucket route, over the setup's window tables), the
+verifier's fold over ~10 arbitrary points through ``ops/pairing.g1_msm``
+(K11's ladders), and the pairing equation as one lane-packed check on the port's
 ``miller_loop`` and ``final_exponentiation`` (kernels K3-K5): both sides
 of the equation ride one Miller batch, then one product and one final
 exponentiation decide it. A malformed proof is rejected; a device failure
@@ -128,13 +130,13 @@ def _poly_eval(p, x: int) -> int:
 # --- the group work on the device ------------------------------------------------
 
 def _msm(setup, scalars, plain: bool):
-    """sum_j scalars[j] * [tau^j]G on the setup's device (one K11 MSM), as
-    an oracle affine point or None."""
+    """sum_j scalars[j] * [tau^j]G on the setup's device (K11's bucket MSM
+    over the setup's window tables), as an oracle affine point or None."""
     k = len(scalars)
     if k > setup.n:
         raise ValueError(f"msm size {k} vs setup of {setup.n} powers")
     digits = fr.ints_to_digits(scalars, setup.points.device)[None]
-    aff, inf = pairing.g1_msm(setup.points[:k], setup.inf[:k], digits, plain=plain)
+    aff, inf = pairing.g1_msm_fixed(setup.window_tables(plain=plain), digits, plain=plain)
     return pairing.g1_decode_points(aff, inf)[0]
 
 

@@ -12,11 +12,13 @@ ladder: over the host twin's ops it is ``ntt_host``, the numpy oracle;
 over ``kzg/fr.py``'s plain versions it is the plain version of K10.
 
 ``ntt``/``intt`` on a CUDA tensor launch K10 (``csrc/fr_ntt.cu``) once a
-stage over all the batch, the bit-reversal gather fused into stage 0 and
-the n^-1 scale into the last stage of an inverse; the twiddles are copied
-to the card once per (n, inverse, device). A CPU tensor (or
-``fp.plain_mode()``) takes the plain version. The tensor's device
-decides; nothing falls back.
+pass over all the batch (``passes``): the first runs 8 stages on tiles of
+256 consecutive positions in shared memory, its rows gathered through the
+bit reversal; each later one up to 9 stages over strided groups; the
+last writes digit rows, with the n^-1 scale of an inverse. Between passes
+an element is 8 words. The twiddles go to the card once per (n, inverse,
+device), as 8-word rows. A CPU tensor (or ``fp.plain_mode()``) takes the
+plain version. The tensor's device decides; nothing falls back.
 """
 
 from __future__ import annotations
@@ -128,22 +130,47 @@ def _plan32(n: int, inverse: bool):
             None if scale is None else scale.astype(np.int32))
 
 
-_TABLES: dict = {}      # (n, inverse, device) -> (twiddles [n-1, 22], scale [22]) int32
+_TABLES: dict = {}      # (n, inverse, device) -> (twiddles [n-1, 8], scale [8]) words
+
+# K10's passes: the first K10_FIRST_LOG stages (csrc/fr_ntt.cu's kTileLog;
+# 8 measured fastest at 9 x 16,384 on an H100, of 6-10), each
+# later one up to K10_LATER_LOG (its kLaterLog)
+K10_FIRST_LOG, K10_LATER_LOG = 8, 9
+
+
+def _words(digits: np.ndarray) -> np.ndarray:
+    """[m, 22] canonical digits of values < 2^256 -> [m, 8] little-endian
+    32-bit words, as int32 (K10's rows between passes)."""
+    d = digits.astype(np.int64)
+    limbs = d[:, 0::2] | (d[:, 1::2] << fr.BITS)                 # 24-bit limbs
+    raw = np.stack([limbs & 0xFF, (limbs >> 8) & 0xFF, limbs >> 16], axis=-1)
+    raw = np.ascontiguousarray(raw.astype(np.uint8).reshape(-1, 33)[:, :32])
+    return raw.view("<u4").astype(np.uint32).view(np.int32).reshape(-1, 8)
 
 
 def _tables(n: int, inverse: bool, device) -> tuple[torch.Tensor, torch.Tensor]:
     """K10's constants on ``device``: every stage's twiddles concatenated
-    (stage s at offset 2^s - 1) and the scale (one for a forward
-    transform)."""
+    (stage s at row 2^s - 1) and the scale (one for a forward transform),
+    as 8-word rows."""
     key = (n, inverse, torch.device(device))
     got = _TABLES.get(key)
     if got is None:
         _rev, tables, scale = _plan32(n, inverse)
         tw = np.concatenate(tables) if tables else np.zeros((1, fr.L), np.int32)
-        sc = fr.ONE_M.astype(np.int32) if scale is None else scale
-        got = _TABLES[key] = tuple(torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        sc = fr.ONE_M.astype(np.int32)[None] if scale is None else scale[None]
+        got = _TABLES[key] = tuple(torch.from_numpy(_words(v)).to(device)
                                    for v in (tw, sc))
     return got
+
+
+def passes(n: int) -> list[tuple[int, int]]:
+    """K10's passes over a transform of size n >= 2: (first stage, end)."""
+    logn = n.bit_length() - 1
+    out = [(0, min(logn, K10_FIRST_LOG))]
+    while out[-1][1] < logn:
+        s = out[-1][1]
+        out.append((s, min(logn, s + K10_LATER_LOG)))
+    return out
 
 
 def _ntt_plain(values: torch.Tensor, inverse: bool) -> torch.Tensor:
@@ -154,32 +181,38 @@ def _ntt_plain(values: torch.Tensor, inverse: bool) -> torch.Tensor:
 
 
 def _ntt_kernel(values: torch.Tensor, inverse: bool) -> torch.Tensor:
-    """K10: one launch a butterfly stage over the whole batch."""
+    """K10: one launch a pass (``passes``) over the whole batch."""
     n = values.shape[-2]
     if values.dtype != torch.int32 or values.shape[-1] != fr.L:
         raise ValueError(f"ntt: want int32 [..., n, {fr.L}] digits, got {values.dtype} "
                          f"{tuple(values.shape)}")
-    logn = n.bit_length() - 1
+    if n == 1:                       # the gather is the identity, the scale 1^-1
+        _rev, _tables1, scale = _plan32(1, inverse)
+        return fr.mul(values, fp.const(scale, values.device).expand(values.shape)) \
+            if inverse else values.clone()
     tw, scale = _tables(n, inverse, values.device)
-    if logn == 0:                    # n = 1: the gather is the identity
-        return fr.mul(values, scale.expand(values.shape)) if inverse else values.clone()
     g = math.prod(values.shape[:-2])
     src = values.contiguous()
     if not g:
         return src.clone()
-    bufs = [torch.empty_like(src), torch.empty_like(src)]
-    for s in range(logn):
-        dst = bufs[s % 2]
-        flags = (1 if s == 0 else 0) | (2 if inverse and s == logn - 1 else 0)
+    plan = passes(n)
+    words = [torch.empty((g, n, 8), dtype=torch.int32, device=values.device)
+             for _ in range(min(len(plan) - 1, 2))]
+    out = torch.empty_like(src)
+    for i, (s0, s1) in enumerate(plan):
+        last = i == len(plan) - 1
+        dst = out if last else words[i % 2]
+        flags = (1 if i == 0 else 0) | (2 if last else 0) | (4 if inverse and last else 0)
         kernels.launch_on(values.device, "fr_ntt", src.data_ptr(), dst.data_ptr(),
-                          tw.data_ptr(), scale.data_ptr(), g, n, s, flags)
+                          tw.data_ptr(), scale.data_ptr(), g, n, s0, s1, flags)
         src = dst
-    return src
+    return out
 
 
 def ntt(values: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """Transform [..., n, 22] Montgomery digits along the -2 axis: K10 for
-    a CUDA tensor (log2 n launches), the plain version for a CPU tensor.
+    a CUDA tensor (a launch a pass: two at n = 16,384), the plain version
+    for a CPU tensor.
     Forward maps coefficients to evaluations on ``domain(n)``."""
     n = values.shape[-2]
     if n < 1 or n & (n - 1):

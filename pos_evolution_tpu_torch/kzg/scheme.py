@@ -11,10 +11,10 @@ encoding are the JAX package's.
 
 ``commit_batch`` commits G grids on the scheme's device (CUDA unless the
 caller asks for another): the chunks become Fr digits on the card, one
-K10 launch takes them to Montgomery form, one K10 INTT (a launch a stage)
-over all G blobs gives the coefficients, one K10 pass their canonical
-digits, and one K11 MSM (the ladders and first fold round, then a launch
-a further round) the commitments; 96 bytes a blob come back to the host
+K10 launch takes them to Montgomery form, one K10 INTT (two passes in
+shared memory at the PeerDAS domain) over all G blobs gives the
+coefficients, one K10 launch their canonical digits, and K11's bucket MSM
+over the setup's window tables (six launches) the commitments; 96 bytes a blob come back to the host
 for ``g1_compress`` and the SHA-256 wire binding. The coefficients stay on
 the card; ``commit_full`` decodes them for the prover when asked.
 ``plain=True`` takes the plain versions of the kernels.
@@ -148,13 +148,13 @@ class KzgCellScheme:
     def _commit_device(self, grids: torch.Tensor):
         """(points affine [G, 2, 32], inf [G], coefficient digits [G, N, 22])
         of G grids on the device: K10 to Montgomery form, the INTT and the
-        canonical pass; K11's MSM against the setup's powers."""
+        canonical pass; K11's bucket MSM over the setup's window tables."""
         setup = self.setup()
         with fp.plain_mode(self.plain):
             evals = fr.to_mont(self._evaluations(grids))
             coeffs = fr.from_mont(ntt.intt(evals))
-        n = coeffs.shape[1]
-        aff, inf = pairing.g1_msm(setup.points[:n], setup.inf[:n], coeffs, plain=self.plain)
+        aff, inf = pairing.g1_msm_fixed(setup.window_tables(plain=self.plain), coeffs,
+                                        plain=self.plain)
         return aff, inf, coeffs
 
     def _check_grids(self, grids: torch.Tensor) -> None:

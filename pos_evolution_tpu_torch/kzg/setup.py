@@ -15,6 +15,10 @@ ladders with every lane's point G (``ops/pairing.g1_msm_lanes``), and the
 affine normalization on the card (one K3 inversion ladder). At the
 PeerDAS domain of 16,384 powers the host path would take minutes a
 process; the result is memoized per (n, seed, device).
+
+``DeviceSetup.window_tables`` adds the fixed-base tables 2^(c w) [tau^j]G
+of K11's bucket route (``ops/pairing.g1_msm_fixed``), built on the setup's
+device the first time an MSM asks for them and memoized with the setup.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from pos_evolution_tpu_torch.device import resolve_device
 from pos_evolution_tpu_torch.kzg import curve, fr
 from pos_evolution_tpu_torch.ops import fp, pairing
 
-__all__ = ["TrustedSetup", "DeviceSetup", "trusted_setup", "device_setup", "tau_from_seed"]
+__all__ = ["TrustedSetup", "DeviceSetup", "trusted_setup", "device_setup", "tau_from_seed",
+           "msm_window"]
 
 
 def tau_from_seed(seed: int) -> int:
@@ -90,8 +95,31 @@ class DeviceSetup:
         """The powers as oracle affine points (a host read)."""
         return pairing.g1_decode_points(self.points, self.inf)
 
+    def window_tables(self, *, plain: bool = False) -> pairing.WindowTables:
+        """The powers' window tables for K11's bucket route (c =
+        ``msm_window`` of the setup's size), built on the setup's device at
+        the first call and memoized with the setup, by route: the kernels,
+        or the plain versions (with ``plain``, in ``fp.plain_mode`` or on
+        the CPU), so that a plain run builds and reads its own tables."""
+        c = msm_window(self.n)
+        plain = plain or not fp.use_kernel(self.points)
+        key = (self.n, self.seed, self.points.device, c, plain)
+        got = _TABLES.get(key)
+        if got is None:
+            with fp.plain_mode(plain):
+                got = _TABLES[key] = pairing.g1_window_tables(self.points, self.inf, c)
+        return got
+
+
+def msm_window(n: int) -> int:
+    """The bucket route's window bits for MSMs over n powers: log2 n - 1,
+    between 4 and ``pairing.MSM_WINDOW`` (13 at the PeerDAS domain of 16,384,
+    where ``bench_k1011.py --c`` measured it): fewer buckets than entries."""
+    return max(4, min(pairing.MSM_WINDOW, n.bit_length() - 2))
+
 
 _DEVICE: dict = {}
+_TABLES: dict = {}          # (n, seed, device, c, plain) -> pairing.WindowTables
 
 
 def _tau_powers(n: int, seed: int) -> list[int]:

@@ -23,6 +23,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -62,18 +64,38 @@ KERNELS = {
     "gf256_matmul": ("gf256_matmul.cu", "gf256_matmul_launch",
                      [_P, _LL, _P, _LL, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, _P]),
-    # K10: an Fr NTT butterfly stage, and Fr's elementwise ops
+    # K10: a pass of up to 8 (the first) or 9 NTT stages in shared memory,
+    # and Fr's elementwise ops
     "fr_ntt": ("fr_ntt.cu", "fr_ntt_launch",
-               [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
+               [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, _P]),
     "fr_ew": ("fr_ntt.cu", "fr_ew_launch", [ctypes.c_int, _P, _LL, _P, _LL, _P, _LL, _P]),
     # K11: the G1 MSM's ladders (with the first fold round), and a fold round
     "g1_msm": ("g1_msm.cu", "g1_msm_launch",
                [_P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, _P]),
     "g1_fold": ("g1_msm.cu", "g1_fold_launch", [_P, _P, ctypes.c_int, ctypes.c_int, _P]),
+    # K11's bucket route over a setup's window tables: the tables' doublings
+    # (once a setup), then six launches an MSM
+    "g1_bucket_tables": ("g1_bucket.cu", "g1_bucket_tables_launch",
+                         [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
+    "g1_bucket_recode": ("g1_bucket.cu", "g1_bucket_recode_launch",
+                         [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
+    "g1_bucket_scan": ("g1_bucket.cu", "g1_bucket_scan_launch",
+                       [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
+    "g1_bucket_scatter": ("g1_bucket.cu", "g1_bucket_scatter_launch",
+                          [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           _P]),
+    "g1_bucket_fill": ("g1_fill.cu", "g1_bucket_fill_launch",
+                       [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
+    "g1_bucket_totals": ("g1_totals.cu", "g1_bucket_totals_launch",
+                         [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
+    "g1_bucket_reduce": ("g1_reduce.cu", "g1_bucket_reduce_launch",
+                         [_P, _P, _P, ctypes.c_int, ctypes.c_int, _P]),
 }
 
 launches = {name: 0 for name in KERNELS}
+build_seconds: dict[str, float] = {}   # source -> its last nvcc's wall seconds
 _libs: dict[str, ctypes.CDLL] = {}     # source file -> its loaded library
 _entries: dict = {}          # kernel name -> its bound C entry point
 
@@ -107,11 +129,13 @@ def build_all(names=None) -> dict[str, str]:
     """Compile every kernel not yet built, one ``nvcc`` per source, all
     started together. Returns each kernel's ptxas report (registers,
     shared memory, spills), from its build log when it was built before.
-    Kernels of one source share its report. Raises with the compiler's
-    output on failure."""
+    Kernels of one source share its report; ``build_seconds`` gets each
+    compiled source's wall time. Raises with the compiler's output on
+    failure."""
     names = list(KERNELS if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs, by_source = {}, {}
+    t0 = time.perf_counter()
     for name in names:
         source = KERNELS[name][0]
         if source in by_source:
@@ -128,9 +152,16 @@ def build_all(names=None) -> dict[str, str]:
                                          stderr=subprocess.STDOUT, text=True),
                         tmp, target)
         by_source[source] = None
+
+    def finish(proc):
+        out, _ = proc.communicate()
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max(len(jobs), 1)) as pool:
+        done = dict(zip(jobs, pool.map(finish, [job[0] for job in jobs.values()])))
     failed = []
     for source, (proc, tmp, target) in jobs.items():
-        out, _ = proc.communicate()
+        out, build_seconds[source] = done[source]
         by_source[source] = out
         target.with_suffix(".log").write_text(out)
         if proc.returncode != 0:

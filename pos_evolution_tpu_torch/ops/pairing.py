@@ -26,7 +26,12 @@ The algorithm is the JAX package's, step for step:
   by a tree of unified adds, 64 lanes a block and then 64 partials a block
   until one is left (the JAX package's sequential fold was for XLA's
   compile time; the affine sum is the same); ``g1_to_affine`` on K3's
-  inversion ladder gives canonical affine coordinates.
+  inversion ladder gives canonical affine coordinates. Over a trusted
+  setup's powers, ``g1_msm_fixed`` takes K11's bucket route instead: a
+  fixed-base, signed-window bucket MSM over the setup's window tables
+  (``csrc/g1_bucket.cu``, ``g1_fill.cu``, ``g1_totals.cu``,
+  ``g1_reduce.cu``), with its plain version
+  stage by stage here.
 
 Every multiply and add goes through ``ops/fp.py`` and ``ops/tower.py``:
 kernels K3-K5 on CUDA tensors, their plain versions on CPU tensors or
@@ -619,6 +624,387 @@ def g1_msm(points, inf, scalars, *, plain: bool = False):
             total = g1_fold(part)
         else:
             total = _fold_plain(_msm_lanes_plain(*_check_msm(points, inf, scalars), scalars))
+        aff, is_inf = g1_to_affine(total)
+        return fp.canon(aff), is_inf
+
+
+# --- the fixed-base bucket MSM over the setup's window tables (K11's bucket route) ---
+#
+# sum_j s_j P_j where the P_j are the setup's powers: window tables T[w, j] =
+# 2^(c w) P_j (``g1_window_tables``, built once with the setup) make it one set
+# of B = 2^(c-1) buckets a blob. Each scalar is recoded into W = floor(256 / c)
+# + 1 signed digits d_w in [-2^(c-1), 2^(c-1)] (s = sum_w d_w 2^(c w); c W > 256,
+# so no 256-bit scalar carries out of the top window, a lazy residue in [r, 2r)
+# included), +-T[w, j] joins bucket |d_w|, and the sum is sum_b b B_b. Every
+# stage is a launch (csrc/g1_bucket.cu and the three sources it names) and a
+# plain version here, the same ops on the same operands in the same order, so
+# each stage's result is the kernel's digit for digit (the file's header has
+# the design): recode (signed digits, counts), scan and scatter (a stable counting
+# sort: bucket, then window, then lane), fill (runs of one bucket inside chunks
+# of MSM_CHUNK sorted entries, by mixed adds from the zero point), totals (each
+# bucket's runs joined), reduce (S + sum_k 2^k Q_k up a binary tree over the
+# buckets, then Horner).
+
+MSM_WINDOW = 13          # c of the setup's tables (bench_k1011.py --c sweeps it)
+MSM_CHUNK = 32           # sorted entries a fill thread sums (csrc/g1_bucket.cuh's kChunk)
+MSM_SUBTREE = 64         # buckets whose tree levels the totals launch builds
+
+
+def msm_windows(c: int) -> int:
+    """W: windows of c bits with c W > 256, so that no scalar below 2^256
+    carries out of the top one."""
+    return 256 // c + 1
+
+
+class WindowTables:
+    """A setup's fixed-base tables: ``points`` [W, n, 2, 32] canonical affine
+    digits of 2^(c w) P_j and ``inf`` [W, n] bool. Passing them to
+    ``g1_msm_fixed`` is what selects the bucket route."""
+
+    def __init__(self, c: int, points: torch.Tensor, inf: torch.Tensor):
+        if not 2 <= c <= 16 or points.dim() != 4 or points.shape[0] != msm_windows(c) \
+                or points.shape[2:] != (2, fp.L) or inf.shape != points.shape[:2]:
+            raise ValueError(f"window tables: c = {c}, points {tuple(points.shape)}, "
+                             f"inf {tuple(inf.shape)}")
+        self.c, self.points, self.inf = int(c), points.contiguous(), inf
+        self.inf_u8 = inf.to(torch.uint8).contiguous()
+
+    @property
+    def n(self) -> int:
+        return self.points.shape[1]
+
+    @property
+    def buckets(self) -> int:
+        return 1 << (self.c - 1)
+
+
+def _double_windows_plain(jac, windows: int, c: int):
+    """Plain version of the tables' doublings: [n, 3, 32] -> [windows, n, 3,
+    32], window w the points doubled c (w + 1) times."""
+    out = []
+    for _ in range(windows):
+        for _ in range(c):
+            jac = g1_double_jac(jac)
+        out.append(jac)
+    return torch.stack(out)
+
+
+def _batch_inverse(z):
+    """z^-1 of nonzero [m, 32] digits by a product tree (Montgomery's trick):
+    pairwise products up to one, its inverse (one K3 ladder of one element),
+    then each pair's inverses from its product's and the other's; ~4 m
+    products in 2 log2 m batched calls."""
+    levels = [z]
+    while levels[-1].shape[0] > 1:
+        x = levels[-1]
+        if x.shape[0] % 2:
+            x = torch.cat([x, fp.ones_like(x[:1])])
+        levels.append(fp.modmul(x[0::2], x[1::2]))
+    inv = fp.modinv(fp.canon(levels[-1]))
+    for x in reversed(levels[:-1]):
+        m = x.shape[0]
+        if m % 2:
+            x = torch.cat([x, fp.ones_like(x[:1])])
+        both = fp.modmul(torch.cat([inv, inv]), torch.cat([x[1::2], x[0::2]]))
+        inv = torch.stack(both.chunk(2), dim=1).reshape(-1, fp.L)[:m]
+    return inv
+
+
+def g1_window_tables(points, inf, c: int = MSM_WINDOW) -> WindowTables:
+    """The window tables of affine points [n, 2, 32] (inf [n]): window 0 the
+    points, window w their (c w)-fold doubling (on the card one launch of
+    c (W - 1) doublings a lane), then the affine pass by one batch inversion
+    (``_batch_inverse``) and ``fp.canon``: the canonical digits, which
+    ``g1_to_affine`` would give as well."""
+    n, w = points.shape[0], msm_windows(c)
+    if not 2 <= c <= 16 or points.shape != (n, 2, fp.L) or inf.shape != (n,) or not n:
+        raise ValueError(f"g1_window_tables: c = {c}, points {tuple(points.shape)}, "
+                         f"inf {tuple(inf.shape)}")
+    jac = _tables_jac(points, inf)
+    if fp.use_kernel(points):
+        dbl = torch.empty((w - 1, n, 3, fp.L), dtype=torch.int32, device=points.device)
+        kernels.launch_on(points.device, "g1_bucket_tables", jac.data_ptr(), dbl.data_ptr(),
+                          n, w - 1, c)
+    else:
+        dbl = _double_windows_plain(jac, w - 1, c)
+    return _affine_tables(points, inf, dbl, c)
+
+
+def _tables_jac(points, inf):
+    """The affine points [n, 2, 32] as Jacobian [n, 3, 32] (Z = 1, or 0 at
+    infinity), contiguous: the tables' doubling launch's input."""
+    one = fp.const(fp.ONE, points.device).expand(points.shape[0], fp.L)
+    return torch.cat([points, _sel(inf, torch.zeros_like(one), one)[:, None]], dim=1).contiguous()
+
+
+def _affine_tables(points, inf, dbl, c: int) -> WindowTables:
+    """The tables from the points and their doublings [W - 1, n, 3, 32]: the
+    affine pass (one batch inversion, ``fp.canon``)."""
+    n, w = points.shape[0], msm_windows(c)
+    X, Y, Z = dbl.reshape(-1, 3, fp.L).unbind(1)
+    is_inf = fp.is_zero(Z)
+    zi = _batch_inverse(_sel(is_inf, fp.ones_like(Z), Z))
+    zi2 = fp.modmul(zi, zi)
+    x, zi3 = _muls((X, zi2), (zi, zi2))
+    aff = torch.stack([x, fp.modmul(Y, zi3)], dim=1).reshape(w - 1, n, 2, fp.L)
+    aff = _sel(is_inf.reshape(w - 1, n), torch.zeros_like(aff), fp.canon(aff))
+    return WindowTables(c, torch.cat([fp.canon(points)[None], aff]),
+                        torch.cat([inf[None], is_inf.reshape(w - 1, n)]))
+
+
+def _recode_plain(scalars, c: int):
+    """Plain version of the recode: Fr digits [G, k, 22] -> (signed window
+    digits [G, W, k] int32, each window's bucket counts [G, W, B]). Like the
+    kernel it reads a scalar's low 256 bits, so every 256-bit value (a lazy
+    residue in [r, 2r) too) is recoded exactly, with no carry out of the top
+    window."""
+    g, k = scalars.shape[:2]
+    s = torch.nn.functional.pad(scalars.to(torch.int64), (0, 3))
+    s[..., FR_DIGITS - 1] &= (1 << (256 - fp.BITS * (FR_DIGITS - 1))) - 1
+    half, full = 1 << (c - 1), 1 << c
+    carry = torch.zeros((g, k), dtype=torch.int64, device=scalars.device)
+    digits = []
+    for w in range(msm_windows(c)):
+        q, sh = divmod(c * w, fp.BITS)
+        v = torch.zeros_like(carry)
+        if q < FR_DIGITS:
+            v = ((s[..., q] | (s[..., q + 1] << fp.BITS) | (s[..., q + 2] << 2 * fp.BITS))
+                 >> sh) & (full - 1)
+        v = v + carry
+        carry = (v > half).to(torch.int64)
+        digits.append(v - carry * full)
+    dig = torch.stack(digits, dim=1)
+    cnt = torch.zeros((g, msm_windows(c), half + 1), dtype=torch.int64, device=dig.device)
+    cnt.scatter_add_(2, dig.abs(), torch.ones_like(dig))
+    return dig.to(torch.int32), cnt[..., 1:].to(torch.int32)
+
+
+def _scan_plain(cnt):
+    """Plain version of the scan: each window's bucket counts [G, W, B] ->
+    (bucket starts [G, B + 1], each window's first positions [G, W, B])."""
+    c64 = cnt.long()
+    start = torch.nn.functional.pad(torch.cumsum(c64.sum(1), 1), (1, 0))
+    offsets = start[:, None, :-1] + torch.cumsum(c64, 1) - c64
+    return start.to(torch.int32), offsets.to(torch.int32)
+
+
+def _scatter_plain(dig, n_tab: int, nb: int):
+    """Plain version of the scatter: the entries [G, W k], w n_tab + j with
+    bit 31 set for a negative digit, in bucket, then window, then lane order;
+    0 past a blob's last."""
+    g, w, k = dig.shape
+    dev = dig.device
+    mag = dig.abs().long().reshape(g, w * k)
+    key = (torch.arange(w, device=dev)[:, None] * n_tab
+           + torch.arange(k, device=dev)[None, :]).reshape(-1)
+    order = torch.argsort(torch.where(mag > 0, mag - 1, nb) * (w * n_tab) + key, dim=1)
+    neg = (dig < 0).reshape(g, w * k).long()
+    ent = key[order] - (torch.gather(neg, 1, order) << 31)
+    ent = torch.where(torch.gather(mag, 1, order) > 0, ent, torch.zeros_like(ent))
+    return ent.to(torch.int32)
+
+
+def _g1_add_bucket_plain(P, Q):
+    """Plain version of the bucket route's unified add (totals and reduce):
+    ``_g1_add_plain``'s ops, but where P = Q it doubles (U1, S1, Z1 Z2), the
+    representation of P scaled by Z2 that the kernel still holds."""
+    X1, Y1, Z1 = P.unbind(-2)
+    X2, Y2, Z2 = Q.unbind(-2)
+    Z1Z1, Z2Z2 = _muls((Z1, Z1), (Z2, Z2))
+    U1, U2, t1, t2, Z1Z2 = _muls((X1, Z2Z2), (X2, Z1Z1), (Z2, Z2Z2), (Z1, Z1Z1), (Z1, Z2))
+    S1, S2 = _muls((Y1, t1), (Y2, t2))
+    H, r = fp.modsub(U2, U1), fp.modsub(S2, S1)
+    H2, rr = _muls((H, H), (r, r))
+    H3, V, Z3 = _muls((H, H2), (U1, H2), (H, Z1Z2))
+    X3 = fp.modsub(fp.modsub(rr, H3), fp.modadd(V, V))
+    rVX, S1H3 = _muls((r, fp.modsub(V, X3)), (S1, H3))
+    out = torch.stack([X3, fp.modsub(rVX, S1H3), Z3], dim=-2)
+    p_inf, q_inf, h_zero, r_zero = (fp.is_zero(v) for v in (Z1, Z2, H, r))
+    same_x = h_zero & ~p_inf & ~q_inf
+    dbl = same_x & r_zero
+    if bool(dbl.any()):
+        out = _sel(dbl, g1_double_jac(torch.stack([U1, S1, Z1Z2], dim=-2)), out)
+    out = _sel(same_x & ~r_zero, torch.zeros_like(out), out)
+    out = _sel(p_inf, Q, out)
+    return _sel(q_inf & ~p_inf, P, out)
+
+
+def _g1_madd_plain(P, x2, y2, q_inf):
+    """Plain version of the fill's mixed add P + (x2, y2): the unified add
+    with Z2 = 1 (U1 = X1, S1 = Y1, Z1 Z2 = Z1; 11 products), every case
+    computed and selected (Q at infinity where ``q_inf``)."""
+    X1, Y1, Z1 = P.unbind(-2)
+    (Z1Z1,) = _muls((Z1, Z1))
+    U2, t2 = _muls((x2, Z1Z1), (Z1, Z1Z1))
+    (S2,) = _muls((y2, t2))
+    H, r = fp.modsub(U2, X1), fp.modsub(S2, Y1)
+    H2, rr = _muls((H, H), (r, r))
+    H3, V, Z3 = _muls((H, H2), (X1, H2), (H, Z1))
+    X3 = fp.modsub(fp.modsub(rr, H3), fp.modadd(V, V))
+    rVX, Y1H3 = _muls((r, fp.modsub(V, X3)), (Y1, H3))
+    out = torch.stack([X3, fp.modsub(rVX, Y1H3), Z3], dim=-2)
+    p_inf, h_zero, r_zero = fp.is_zero(Z1), fp.is_zero(H), fp.is_zero(r)
+    same_x = h_zero & ~p_inf & ~q_inf
+    dbl = same_x & r_zero
+    if bool(dbl.any()):
+        out = _sel(dbl, g1_double_jac(P), out)
+    out = _sel(same_x & ~r_zero, torch.zeros_like(out), out)
+    one = fp.const(fp.ONE, P.device).expand(x2.shape)
+    q = torch.stack([x2, y2, _sel(q_inf, torch.zeros_like(one), one)], dim=-2)
+    out = _sel(p_inf, q, out)
+    return _sel(q_inf & ~p_inf, P, out)
+
+
+def _fill_plain(tables: WindowTables, ent, start):
+    """Plain version of the fill: (part [G, chunks, 3, 32], bsum [G, B, 3,
+    32]), each run of one bucket inside a chunk of MSM_CHUNK summed from the
+    zero point, its r-th entries of every run in one batched mixed add."""
+    chunk = MSM_CHUNK
+    g, cap = ent.shape
+    nb = start.shape[1] - 1
+    dev = ent.device
+    chunks = -(-cap // chunk)
+    part = torch.zeros((g, chunks, 3, fp.L), dtype=torch.int32, device=dev)
+    bsum = torch.zeros((g, nb, 3, fp.L), dtype=torch.int32, device=dev)
+    st = start.long()
+    pos = torch.arange(cap, device=dev).expand(g, cap)
+    gi, p = (pos < st[:, nb:]).nonzero(as_tuple=True)
+    if not p.numel():
+        return part, bsum
+    bkt = torch.searchsorted(st[:, 1:].contiguous(), pos.contiguous(), right=True)[gi, p]
+    head = (p % chunk == 0) | (p == st[gi, bkt])
+    run = torch.cumsum(head.long(), 0) - 1
+    run_p = p[head]
+    rank = p - run_p[run]
+    val = ent[gi, p].long() & 0x7FFFFFFF
+    neg = ent[gi, p] < 0
+    x2 = tables.points.reshape(-1, 2, fp.L)[val, 0]
+    y2 = tables.points.reshape(-1, 2, fp.L)[val, 1]
+    y2 = _sel(neg, fp.modneg(y2), y2)
+    q_inf = tables.inf.reshape(-1)[val]
+    acc = torch.zeros((int(run_p.numel()), 3, fp.L), dtype=torch.int32, device=dev)
+    for r in range(int(rank.max()) + 1):
+        at = (rank == r).nonzero().squeeze(1)
+        ids = run[at]
+        acc = acc.index_copy(0, ids, _g1_madd_plain(acc.index_select(0, ids), x2[at], y2[at],
+                                                    q_inf[at]))
+    rg, rb = gi[head], bkt[head]
+    first = run_p % chunk == 0
+    part[rg[first], run_p[first] // chunk] = acc[first]
+    bsum[rg[~first], rb[~first]] = acc[~first]
+    return part, bsum
+
+
+def _totals_plain(part, bsum, start):
+    """Plain version of the totals: each bucket's first run (its chunk's part
+    where the bucket starts a chunk, else its bsum) plus the parts of the
+    chunks that continue it, in order: [G, B, 3, 32]."""
+    chunk = MSM_CHUNK
+    g, nb = bsum.shape[:2]
+    s, e = start[:, :-1].long(), start[:, 1:].long()
+    t0 = s // chunk
+    gi = torch.arange(g, device=part.device)[:, None].expand(g, nb)
+    first = _sel(s % chunk == 0, part[gi, t0.clamp(max=part.shape[1] - 1)], bsum)
+    empty = e == s
+    acc = _sel(empty, torch.zeros_like(first), first)
+    more = torch.where(empty, 0, (e - 1) // chunk - t0)
+    for q in range(1, int(more.max()) + 1 if more.numel() else 1):
+        at = (more >= q).nonzero(as_tuple=True)
+        acc[at] = _g1_add_bucket_plain(acc[at], part[at[0], t0[at] + q])
+    return acc
+
+
+def _reduce_plain(totals):
+    """Plain version of the tree's levels (the totals launch's and the
+    reduce's) and the reduce: [G, B, 3, 32] bucket sums -> sum_b b B_b [G,
+    3, 32]. The tree level by level (a node's S and Q_0.. in one batched add
+    with its sibling's), then 2^k Q_k (Q_k doubled k times) and a halving
+    tree over S, Q_0, 2 Q_1, .. (an odd last point carried up)."""
+    level = totals[:, :, None]                  # [G, nodes, points, 3, 32]
+    while level.shape[1] > 1:
+        lo, hi = level[:, 0::2], level[:, 1::2]
+        level = torch.cat([_g1_add_bucket_plain(lo, hi), hi[:, :, :1]], dim=2)
+    pts = level[:, 0]                           # S, Q_0 .. Q_(H-1)
+    for d in range(1, pts.shape[1] - 1):        # point k + 1 doubled k times
+        pts = torch.cat([pts[:, :d + 1], g1_double_jac(pts[:, d + 1:])], dim=1)
+    while pts.shape[1] > 1:
+        m, half = pts.shape[1], pts.shape[1] // 2
+        summed = _g1_add_bucket_plain(pts[:, 0:2 * half:2], pts[:, 1:2 * half:2])
+        pts = torch.cat([summed, pts[:, m - 1:]], dim=1) if m % 2 else summed
+    return pts[:, 0]
+
+
+def _bucket_plain(tables: WindowTables, scalars, stages):
+    dig, cnt = _recode_plain(scalars, tables.c)
+    start, offsets = _scan_plain(cnt)
+    ent = _scatter_plain(dig, tables.n, tables.buckets)
+    part, bsum = _fill_plain(tables, ent, start)
+    totals = _totals_plain(part, bsum, start)
+    total = _reduce_plain(totals)
+    stages.update(digits=dig, offsets=offsets, start=start, entries=ent, totals=totals,
+                  total=total)
+    return total
+
+
+def _bucket_kernel(tables: WindowTables, scalars, stages):
+    """The seven launches of K11's bucket route (six an MSM; the tables' at
+    setup)."""
+    dev = scalars.device
+    g, k = scalars.shape[:2]
+    c, nb, w = tables.c, tables.buckets, msm_windows(tables.c)
+    scalars = scalars.contiguous()
+    i32 = torch.int32
+    dig = torch.empty((g, w, k), dtype=i32, device=dev)
+    offsets = torch.zeros((g, w, nb), dtype=i32, device=dev)
+    kernels.launch_on(dev, "g1_bucket_recode", scalars.data_ptr(), dig.data_ptr(),
+                      offsets.data_ptr(), g, k, c)
+    start = torch.empty((g, nb + 1), dtype=i32, device=dev)
+    kernels.launch_on(dev, "g1_bucket_scan", offsets.data_ptr(), start.data_ptr(), g, w, nb)
+    ent = torch.zeros((g, w * k), dtype=i32, device=dev)
+    kernels.launch_on(dev, "g1_bucket_scatter", dig.data_ptr(), offsets.data_ptr(),
+                      ent.data_ptr(), g, k, tables.n, c)
+    part = torch.empty((g, -(-(w * k) // MSM_CHUNK), 3, 12), dtype=i32, device=dev)
+    bsum = torch.empty((g, nb, 3, 12), dtype=i32, device=dev)
+    kernels.launch_on(dev, "g1_bucket_fill", tables.points.data_ptr(), tables.inf_u8.data_ptr(),
+                      ent.data_ptr(), start.data_ptr(), part.data_ptr(), bsum.data_ptr(), g,
+                      w * k, nb)
+    totals = torch.empty((g, nb, 3, fp.L), dtype=i32, device=dev)
+    sub_n = min(nb, MSM_SUBTREE)
+    sub = torch.empty((g, nb // sub_n, sub_n.bit_length(), 3, 12), dtype=i32, device=dev)
+    kernels.launch_on(dev, "g1_bucket_totals", part.data_ptr(), bsum.data_ptr(),
+                      start.data_ptr(), totals.data_ptr(), sub.data_ptr(), g, w * k, nb)
+    scratch = torch.empty((2, g, nb // 2, 3, 12), dtype=i32, device=dev)
+    total = torch.empty((g, 3, fp.L), dtype=i32, device=dev)
+    kernels.launch_on(dev, "g1_bucket_reduce", sub.data_ptr(), scratch.data_ptr(),
+                      total.data_ptr(), g, nb)
+    stages.update(digits=dig, offsets=offsets, start=start, entries=ent, totals=totals,
+                  total=total)
+    return total
+
+
+def g1_msm_fixed(tables: WindowTables, scalars, *, plain: bool = False,
+                 stages: dict | None = None):
+    """sum_j s_gj * P_j over a setup's powers, by their window tables:
+    (canonical affine [G, 2, 32], infinity [G]). scalars [G, k, 22] Fr digits
+    below 2^256 (canonical, or lazy in [r, 2r)), k <= tables.n (the first k
+    powers). On the card the six
+    launches of K11's bucket route, then the affine pass (one K3 ladder, K3
+    products, K4's canon); ``plain=True`` or CPU tensors take the plain
+    versions. ``stages``, when given, receives each stage's result by name
+    (``digits``, ``offsets``, ``start``, ``entries``, ``totals``, ``total``)."""
+    with fp.plain_mode(plain):
+        if scalars.dim() != 3 or scalars.shape[-1] != FR_DIGITS \
+                or scalars.dtype != torch.int32 or not 1 <= scalars.shape[1] <= tables.n:
+            raise ValueError(f"g1_msm_fixed: scalars must be int32 [G, 1..{tables.n}, "
+                             f"{FR_DIGITS}], got {scalars.dtype} {tuple(scalars.shape)}")
+        if scalars.device != tables.points.device:
+            raise ValueError(f"g1_msm_fixed: scalars on {scalars.device}, tables on "
+                             f"{tables.points.device}")
+        got = {} if stages is None else stages
+        if fp.use_kernel(scalars):
+            total = _bucket_kernel(tables, scalars, got)
+        else:
+            total = _bucket_plain(tables, scalars, got)
         aff, is_inf = g1_to_affine(total)
         return fp.canon(aff), is_inf
 

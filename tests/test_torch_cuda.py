@@ -744,12 +744,14 @@ def _fr_digits(shape, seed, lazy=True):
                             .reshape(tuple(shape) + (fr.L,)))
 
 
-@pytest.mark.parametrize("g,n", [(9, 16384), (3, 1), (3, 2), (2, 128)])
+@pytest.mark.parametrize("g,n", [(9, 16384), (3, 1), (3, 2), (2, 128), (2, 1024), (2, 2048),
+                                 (1, 4096), (1, 2**19)])
 def test_k10_ntt_matches_plain(cuda, g, n):
     """K10's transform at the commit path's shape (9 blobs of the PeerDAS
-    domain) and at the smallest sizes, both ways, equal to the plain version
-    on the same card (and, at n = 128, to the numpy oracle); log2 n launches
-    a transform (the n^-1 scale fused), one elementwise launch at n = 1."""
+    domain), at the smallest sizes, at the first pass's tile and its
+    multiples and with three passes, both ways, equal to the plain version
+    on the same card (and, at n = 128, to the numpy oracle); a launch a pass
+    (the gather and the n^-1 scale fused), one elementwise launch at n = 1."""
     from pos_evolution_tpu_torch.kzg import ntt
     x = _fr_digits((g, n), 31 + n).to(cuda)
     for inverse in (False, True):
@@ -757,7 +759,7 @@ def test_k10_ntt_matches_plain(cuda, g, n):
         got = ntt.ntt(x, inverse)
         torch.cuda.synchronize()
         launched = kernels.launches["fr_ntt"] + kernels.launches["fr_ew"] - before
-        assert launched == (max(n.bit_length() - 1, 0) or int(inverse))
+        assert launched == (len(ntt.passes(n)) if n > 1 else int(inverse))
         with fp.plain_mode():
             want = ntt.ntt(x, inverse)
         assert torch.equal(got, want), f"inverse={inverse}"
@@ -862,6 +864,116 @@ def test_k11_setup_matches_plain_and_host(cuda):
     assert got.g2_tau == host.g2_tau
 
 
+def _bucket_tables(cuda, n, c, seed, edges):
+    """(window tables of the _msm_case points on the card, the case)."""
+    enc, inf, scs, pts, ints = _msm_case(n, 2, seed, edges)
+    return pairing.g1_window_tables(enc.to(cuda), inf.to(cuda), c), scs.to(cuda), pts, ints
+
+
+@pytest.mark.parametrize("g,n,c", [(2, 1, 4), (3, 4, 4), (2, 64, 5), (2, 200, 13), (2, 200, 16)])
+def test_k11_bucket_matches_plain(cuda, g, n, c):
+    """K11's bucket route (recode, scan, scatter, fill, totals, reduce) equals
+    its plain version stage by stage, digit for digit, at the edge lanes
+    (zero scalar, r - 1, an infinity point, a power twice in one bucket, s and
+    r - s on one point) and the host Pippenger; six launches an MSM."""
+    from pos_evolution_tpu_torch.kzg import curve
+    tables, scs, pts, ints = _bucket_tables(cuda, n, c, 60 + n, edges=True)
+    scs = scs[:g] if scs.shape[0] >= g else scs.repeat(g, 1, 1)[:g]
+    ints = (ints * g)[:g]
+    got, want = {}, {}
+    before = dict(kernels.launches)
+    aff, inf = pairing.g1_msm_fixed(tables, scs, stages=got)
+    torch.cuda.synchronize()
+    assert all(kernels.launches[k] - before[k] == (1 if k.startswith("g1_bucket_") else 0)
+               for k in kernels.launches if k.startswith("g1_") and k != "g1_bucket_tables")
+    paff, pinf = pairing.g1_msm_fixed(tables, scs, plain=True, stages=want)
+    for name in ("digits", "offsets", "start", "entries", "totals", "total"):
+        assert torch.equal(got[name], want[name]), name
+    assert torch.equal(aff, paff) and torch.equal(inf, pinf)
+    assert pairing.g1_decode_points(aff, inf) == [curve.g1_lincomb(pts, s) for s in ints]
+
+
+@pytest.mark.parametrize("c", [4, 8, 13, 16])
+def test_k11_bucket_takes_lazy_scalars(cuda, c):
+    """Scalars in [r, 2^256) (lazy residues; c W > 256 where c divides 256
+    too): the recode and every stage equal the plain version, the sum the
+    host's over the residues mod r."""
+    from pos_evolution_tpu_torch.kzg import curve, fr
+    tables, scs, pts, ints = _bucket_tables(cuda, 64, c, 90 + c, edges=True)
+    lazy = [[v + fr.MODULUS for v in ints[0]], [(1 << 256) - 1 - v for v in ints[1]]]
+    raw = torch.from_numpy(np.stack([[fr.to_limbs(v) for v in s] for s in lazy])
+                           .astype(np.int32)).to(cuda)
+    got, want = {}, {}
+    aff, inf = pairing.g1_msm_fixed(tables, raw, stages=got)
+    paff, pinf = pairing.g1_msm_fixed(tables, raw, plain=True, stages=want)
+    torch.cuda.synchronize()
+    for name in ("digits", "offsets", "start", "entries", "totals", "total"):
+        assert torch.equal(got[name], want[name]), name
+    assert torch.equal(aff, paff) and torch.equal(inf, pinf)
+    assert pairing.g1_decode_points(aff, inf) == [
+        curve.g1_lincomb(pts, [v % fr.MODULUS for v in s]) for s in lazy]
+
+
+def test_k11_bucket_adds_that_double(cuda):
+    """The kernel's totals and tree meet P = Q (128 equal entries in one
+    bucket, split by the fill's chunks; two sibling buckets of one point)
+    and equal the plain version and the host Pippenger."""
+    from pos_evolution_tpu_torch.crypto import bls12_381 as oracle
+    from pos_evolution_tpu_torch.kzg import curve, fr
+    p = oracle.ec_mul(oracle.G1_GEN, 12345)
+    pts = [p] * 128
+    blobs = [[1] * 128, [1, 2] + [0] * 126]
+    enc, inf = pairing.g1_encode_points(pts)
+    tables = pairing.g1_window_tables(enc.to(cuda), inf.to(cuda), 4)
+    scs = torch.stack([fr.ints_to_digits(s) for s in blobs]).to(cuda)
+    got, want = {}, {}
+    aff, is_inf = pairing.g1_msm_fixed(tables, scs, stages=got)
+    pairing.g1_msm_fixed(tables, scs, plain=True, stages=want)
+    torch.cuda.synchronize()
+    for name in ("entries", "totals", "total"):
+        assert torch.equal(got[name], want[name]), name
+    assert pairing.g1_decode_points(aff, is_inf) == [curve.g1_lincomb(pts, s) for s in blobs]
+
+
+def test_k11_bucket_at_the_commit_shape(cuda):
+    """The bucket route at 9 x 16,384 over the setup's tables (c = 13): every
+    stage equal to the plain version, blob 0 to the host Pippenger."""
+    from pos_evolution_tpu_torch.kzg import curve, fr
+    from pos_evolution_tpu_torch.kzg import setup as kzg_setup
+    setup = kzg_setup.device_setup(16384, 0, cuda)
+    tables = setup.window_tables()
+    assert tables.c == pairing.MSM_WINDOW == 13
+    rng = np.random.default_rng(77)
+    ints = [[int.from_bytes(rng.bytes(32), "little") % fr.MODULUS for _ in range(16384)]
+            for _ in range(9)]
+    scs = torch.stack([fr.ints_to_digits(s) for s in ints]).to(cuda)
+    got, want = {}, {}
+    aff, inf = pairing.g1_msm_fixed(tables, scs, stages=got)
+    paff, pinf = pairing.g1_msm_fixed(tables, scs, plain=True, stages=want)
+    torch.cuda.synchronize()
+    for name in ("digits", "offsets", "start", "entries", "totals", "total"):
+        assert torch.equal(got[name], want[name]), name
+    assert torch.equal(aff, paff) and torch.equal(inf, pinf)
+    assert pairing.g1_decode_points(aff[:1], inf[:1]) == [
+        curve.g1_lincomb(setup.powers_g1(), ints[0])]
+
+
+def test_k11_window_tables_match_plain_and_oracle(cuda):
+    """The tables' doubling launch and affine pass equal the plain version at
+    300 powers, and spot entries the oracle's 2^(c w) P."""
+    from pos_evolution_tpu_torch.crypto import bls12_381 as oracle
+    enc, inf, _scs, pts, _ints = _msm_case(300, 1, 5, edges=True)
+    got = pairing.g1_window_tables(enc.to(cuda), inf.to(cuda), 13)
+    with fp.plain_mode():
+        want = pairing.g1_window_tables(enc.to(cuda), inf.to(cuda), 13)
+    torch.cuda.synchronize()
+    assert torch.equal(got.points, want.points) and torch.equal(got.inf, want.inf)
+    for w, j in ((0, 0), (1, 7), (10, 5), (19, 299), (19, 33)):
+        p = pts[j]
+        want_p = None if p is None else oracle.ec_mul(p, 1 << (13 * w))
+        assert pairing.g1_decode_points(got.points[w, j], got.inf[w, j]) == [want_p]
+
+
 def test_k10_k11_refused_launches_raise(cuda):
     """Launches K10 and K11 refuse raise and are not counted."""
     x = torch.zeros((2, 8, 22), dtype=torch.int32, device=cuda)
@@ -870,7 +982,7 @@ def test_k10_k11_refused_launches_raise(cuda):
     before = dict(kernels.launches)
     with pytest.raises(RuntimeError, match="fr_ntt launch failed"):
         kernels.launch_on(cuda, "fr_ntt", x.data_ptr(), y.data_ptr(), x.data_ptr(),
-                          x.data_ptr(), 2, 8, 3, 0)                      # stage 3 of 3
+                          x.data_ptr(), 2, 8, 0, 4, 1)                   # stages 0-3 of 3
     with pytest.raises(RuntimeError, match="fr_ew launch failed"):
         kernels.launch_on(cuda, "fr_ew", 9, x.data_ptr(), 22, x.data_ptr(), 22,
                           y.data_ptr(), 16)                              # no op 9
@@ -879,7 +991,35 @@ def test_k10_k11_refused_launches_raise(cuda):
                           x.data_ptr(), 22, 0, out.data_ptr(), 1, 0, 1)  # no lanes
     with pytest.raises(RuntimeError, match="g1_fold launch failed"):
         kernels.launch_on(cuda, "g1_fold", out.data_ptr(), out.data_ptr(), 0, 1)
+    with pytest.raises(RuntimeError, match="fr_ntt launch failed"):
+        kernels.launch_on(cuda, "fr_ntt", x.data_ptr(), y.data_ptr(), x.data_ptr(),
+                          x.data_ptr(), 2, 8, 0, 3, 8)                   # no flag 8
+    for name, args in (("g1_bucket_tables", (out.data_ptr(), out.data_ptr(), 1, 1, 17)),
+                       ("g1_bucket_recode", (x.data_ptr(), y.data_ptr(), y.data_ptr(), 1, 0, 13)),
+                       ("g1_bucket_scan", (y.data_ptr(), y.data_ptr(), 1, 20, 3)),
+                       ("g1_bucket_scatter", (x.data_ptr(), y.data_ptr(), y.data_ptr(), 1, 8, 4,
+                                              13)),
+                       ("g1_bucket_fill", (out.data_ptr(), out.data_ptr(), x.data_ptr(),
+                                           y.data_ptr(), out.data_ptr(), out.data_ptr(), 1, 8,
+                                           6)),
+                       ("g1_bucket_totals", (out.data_ptr(), out.data_ptr(), y.data_ptr(),
+                                             out.data_ptr(), out.data_ptr(), 1, 8, 4095)),
+                       ("g1_bucket_reduce", (out.data_ptr(), out.data_ptr(), out.data_ptr(), 0,
+                                             4096))):
+        with pytest.raises(RuntimeError, match=f"{name} launch failed"):
+            kernels.launch_on(cuda, name, *args)
     assert kernels.launches == before
+
+
+def test_k11_bucket_refuses_cpu_tables_and_bad_scalars(cuda):
+    """The bucket route takes the tables' device and the tables' size: a CUDA
+    batch against CPU tables, or more lanes than powers, raises."""
+    enc, inf, scs, _pts, _ints = _msm_case(8, 2, 3, edges=False)
+    tables = pairing.g1_window_tables(enc, inf, 4)
+    with pytest.raises(ValueError, match="tables on cpu"):
+        pairing.g1_msm_fixed(tables, scs.to(cuda))
+    with pytest.raises(ValueError, match="scalars must be"):
+        pairing.g1_msm_fixed(tables, torch.cat([scs, scs], dim=1))
 
 
 @pytest.mark.parametrize("m,n", [(22, 22), (32, 32), (33, 33), (32, 33)])
