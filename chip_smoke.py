@@ -38,7 +38,8 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     read just after: K6 once at setup, K1 twice a slot, K2 in the digest,
     every walk check true, 64 x 128 aggregates verified, finality reached;
     a kernel run of 1 epoch and its ``plain=True`` twin give identical
-    metrics, summary and digest; K1 at the path's shape (A=64, C=512)
+    metrics, summary and digest (run in a child process during phases
+    32-33 and checked there); K1 at the path's shape (A=64, C=512)
     against its plain version;
 11. a faulted and adversarial run at 2^20 (drops, delays, a crash window,
     an equivocator controlling 1/16, the default monitors) for 2 epochs,
@@ -72,8 +73,9 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     K3-K5 launched and K1, K2 not, each of the 3 inversion chains of a
     verify one K3 ladder launch;
 17. hold that path at B = 2: the ``plain=True`` run on the card and the
-    CPU run equal the kernel run in the aggregate keys, Miller values,
-    final exponentiation and verdicts; 8 aggregates' hashed messages and
+    CPU run (child processes during phases 32-33, checked there) equal the
+    kernel run in the aggregate keys, Miller values, final exponentiation
+    and verdicts; 8 aggregates' hashed messages and
     verdicts equal the port's oracle copy; the field launches and other
     aten ops of each verify stage at B = 2;
 18. time K3-K5 per launch at the path's shapes against their plain
@@ -113,7 +115,8 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     K7 launched as the path says; the same run without riders; equal to
     its checkpoint-resumed twin; equal to its ``plain=True`` run at 1 slot,
     and the same composition under Goldfish (whose light clients adopt a
-    head every slot) to its ``plain=True`` run at 2 slots;
+    head every slot) to its ``plain=True`` run at 2 slots (the two plain
+    twins in child processes during phases 32-33, checked there);
 25. time K6 and K7 per launch at the path's shapes (kernel ms by events,
     device ms by the CUDA graph timer, wrapper, plain) against their
     bounds; printed beside them (not in the kernels line): the parent's
@@ -162,7 +165,29 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     9 x 16,384, each launch by CUDA events between them), the tables' doublings
     and the setup's ladder against their bounds counted from this run's
     data (kernel ms by events, device ms by the CUDA graph timer, wrapper,
-    plain), the ladder's bound on the same scalars printed beside.
+    plain), the ladder's bound on the same scalars printed beside;
+32. drive the spec tier once -- ``spec_chain.run_chain`` at 2^20
+    validators, mainnet config: genesis, then 33 blocks through
+    ``specs/validator.build_block`` and ``state_transition(state, sb,
+    True)``, each after the first carrying the previous slot's 64
+    attestations of 512 (signed by K1) and a sync aggregate, across the
+    first epoch boundary -- with the launch counts zeroed just before and
+    read just after: every block accepted, its state root the chain's,
+    ``process_epoch`` through the torch backend (its epoch sweep twice:
+    the proposer's copy and the chain), K2 under every state root, K1 once
+    a slot; per-block ms, the B8 session's counts;
+33. the same blocks through a fresh fork-choice store's ``on_block_batch``
+    (one carried state, B8's resident columns patched block to block):
+    the final state root equal to phase 32's; blocks/s;
+34. the twins: the first epoch boundary at 2^20 again from the state
+    ``process_epoch`` met, on the card and on the CPU backend, every
+    registry and state column and the state root equal; phase 32's final
+    root recomputed from scratch through K2 and through its plain version,
+    equal; a 4-epoch chain at 2^14 (mainnet config) on the card and on the
+    CPU, run in child processes during phases 32-33, the state root equal
+    after every block, finality at epoch 2 or later; and the plain twins
+    of phases 10, 17 and 24, run beside them. Phase 32's times are taken
+    with those children running.
 
 Between phase groups it prints the seconds since the start (``lap``).
 
@@ -258,6 +283,10 @@ from pos_evolution_tpu_torch.kzg import curve, fr, ntt  # noqa: E402
 from pos_evolution_tpu_torch.kzg import setup as kzg_setup  # noqa: E402
 from pos_evolution_tpu_torch.kzg.scheme import KzgCellScheme  # noqa: E402
 from pos_evolution_tpu_torch.ops import pairing  # noqa: E402
+from pos_evolution_tpu_torch import spec_chain  # noqa: E402
+from pos_evolution_tpu_torch.backend import use_backend  # noqa: E402
+from pos_evolution_tpu_torch.specs.containers import BeaconState  # noqa: E402
+from pos_evolution_tpu_torch.ssz import hash_tree_root  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 flops
@@ -415,6 +444,16 @@ K11B_FUNCS = {"g1_bucket_tables": "g1_tables_kernel", "g1_bucket_recode": "g1_re
               "g1_bucket_scan": "g1_scan_kernel", "g1_bucket_scatter": "g1_scatter_kernel",
               "g1_bucket_fill": "g1_fill_kernel", "g1_bucket_totals": "g1_totals_kernel",
               "g1_bucket_reduce": "g1_reduce_kernel"}
+
+# the spec tier: 33 blocks at 2^20 cross the first epoch boundary (slot 32);
+# the twins' chain of 4 epochs at 2^14 (Gasper finalizes epoch 2 at the
+# boundary into epoch 4)
+SPEC_SLOTS, SPEC_TWIN_N, SPEC_TWIN_EPOCHS = 33, 1 << 14, 4
+SPEC_STATE_COLUMNS = ("balances", "previous_epoch_participation",
+                      "current_epoch_participation", "inactivity_scores")
+SPEC_REGISTRY_COLUMNS = ("pubkeys", "withdrawal_credentials", "effective_balance", "slashed",
+                         "activation_eligibility_epoch", "activation_epoch", "exit_epoch",
+                         "withdrawable_epoch")
 
 
 _T_START = time.perf_counter()
@@ -721,6 +760,17 @@ def chaos_sim(dev, n: int, seed: int = 21) -> DenseSimulation:
                      monitors=default_dense_monitors(parity_every=4))
 
 
+def dense_twin() -> dict:
+    """Phase 10's plain twin (a child process during phases 32-33): a
+    kernel run and a ``plain=True`` run of ``DENSE_PLAIN_EPOCHS``; whether
+    their records agree and the plain run's seconds."""
+    dev = torch.device("cuda", 0)
+    short = run_record(dense_sim(dev), DENSE_PLAIN_EPOCHS)
+    t0 = time.perf_counter()
+    ref = run_record(dense_sim(dev, plain=True), DENSE_PLAIN_EPOCHS)
+    return {"equal": ref == short, "plain_s": time.perf_counter() - t0}
+
+
 def run_record(sim, epochs: int) -> dict:
     """Run ``sim`` to ``epochs`` and what two runs must agree on."""
     sim.run_epochs(epochs)
@@ -902,7 +952,30 @@ class OpCount:
         self._mode.__exit__(*exc)
 
 
-def bls_phases(dev, card: str, census) -> list:
+def bls_small_run(small, where: str, plain: bool, count_ops: bool = False) -> dict:
+    """Phase 17's verify at B = 2 on ``where`` (``plain``: the plain
+    versions); the plain and CPU runs go to child processes during phases
+    32-33. Returns its verdicts, stage values (on the CPU), field-kernel
+    launches, seconds and, with ``count_ops``, the aten ops it made."""
+    args = [x.to(where) for x in small]
+    stages = {}
+    before = dict(kernels.launches)
+    counter = OpCount() if count_ops else contextlib.nullcontext()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), counter:
+        ok = fast_aggregate_verify_batch(*args, plain=plain, stages=stages)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    name = "kernel" if where == "cuda" and not plain else ("plain" if plain else where)
+    return {"name": name, "ok": ok.cpu(), "stages": {k: v.cpu() for k, v in stages.items()},
+            "s": time.perf_counter() - t0,
+            "launches": {k: kernels.launches[k] - before[k] for k in bls_verify.FIELD_KERNELS},
+            "ops": getattr(counter, "ops", None)}
+
+
+def bls_phases(dev, card: str, census, deferred: list) -> list:
     """Phases 15-19: the field kernels K3-K5 and the real-BLS verify path
     (BASELINE config 3). Returns K3-K5's rows of the kernels line."""
     rng = np.random.default_rng(15)
@@ -1040,36 +1113,25 @@ def bls_phases(dev, card: str, census) -> list:
 
     # 17. the path at B = 2: kernels == plain on the card == the CPU; the oracle
     small = bls_verify.VerifyTensors(t.pk_table, *(x[:BLS_SMALL] for x in t[1:]))
-    runs = {}
-    for name, where, plain in (("kernel", dev, False), ("plain", dev, True), ("cpu", "cpu", False)):
-        args = [x.to(where) for x in small]
-        stages = {}
-        before = dict(kernels.launches)
-        counter = OpCount() if name != "plain" else contextlib.nullcontext()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with torch.inference_mode(), counter:
-            ok = fast_aggregate_verify_batch(*args, plain=plain, stages=stages)
-        torch.cuda.synchronize()
-        runs[name] = {"ok": ok.cpu(), "stages": {k: v.cpu() for k, v in stages.items()},
-                      "s": time.perf_counter() - t0,
-                      "launches": {k: kernels.launches[k] - before[k]
-                                   for k in bls_verify.FIELD_KERNELS},
-                      "ops": getattr(counter, "ops", None)}
-        del args
-    for name in ("plain", "cpu"):
-        check(torch.equal(runs[name]["ok"], runs["kernel"]["ok"]), f"B=2 verdicts: {name} differs")
-        bad = [k for k, v in runs["kernel"]["stages"].items()
-               if not torch.equal(runs[name]["stages"][k], v)]
+    kernel_run = bls_small_run(small, "cuda", False, count_ops=True)
+    check(kernel_run["ok"].tolist() == [True] * BLS_SMALL, "B=2 verdicts")
+    say(f"[{card}] BLS path at B={BLS_SMALL}: kernel run {kernel_run['s']:.3f} s, "
+        f"{kernel_run['launches']} field-kernel launches and {kernel_run['ops']} other ops "
+        f"(counted, so slower)")
+
+    def bls_done(run):
+        name = run["name"]
+        check(torch.equal(run["ok"], kernel_run["ok"]), f"B=2 verdicts: {name} differs")
+        bad = [k for k, v in kernel_run["stages"].items() if not torch.equal(run["stages"][k], v)]
         check(not bad, f"B=2: the {name} run differs from the kernel run in {bad}")
-        check(not any(runs[name]["launches"].values()), f"the {name} run launched a field kernel")
-    check(runs["kernel"]["ok"].tolist() == [True] * BLS_SMALL, "B=2 verdicts")
-    say(f"[{card}] BLS path at B={BLS_SMALL}: plain=True on the card and the CPU == the kernel "
-        f"run (aggregate keys, Miller values, final exponentiation, verdicts); kernel run "
-        f"{runs['kernel']['s']:.3f} s, {runs['kernel']['launches']} field-kernel launches and "
-        f"{runs['kernel']['ops']} other ops (counted, so slower); plain run on the card "
-        f"{runs['plain']['s']:.3f} s, {runs['cpu']['ops']} ops (counted in the CPU run, "
-        f"{runs['cpu']['s']:.3f} s)")
+        check(not any(run["launches"].values()), f"the {name} run launched a field kernel")
+        say(f"phase 17 (run during phases 32-33): BLS path at B={BLS_SMALL}: the {name} run == "
+            f"the kernel run (aggregate keys, Miller values, final exponentiation, verdicts); "
+            f"{run['s']:.3f} s" + (f", {run['ops']} ops" if run["ops"] is not None else ""))
+
+    cpu_small = bls_verify.VerifyTensors(*(x.cpu() for x in small))
+    deferred.append((bls_small_run, (cpu_small, "cuda", True), bls_done))
+    deferred.append((bls_small_run, (cpu_small, "cpu", False, True), bls_done))
     sig_x, sig_sign, _, _ = g2prep.g2_compressed_to_limbs(
         bls_verify._compress(t.sig_g2[:BLS_SMALL]))
     cand, _ = g2prep.hash_to_g2_candidates(inputs.messages[:BLS_SMALL])
@@ -1433,6 +1495,25 @@ def rider_sim(dev, **kw) -> DenseSimulation:
                                                       for d in DAS_RIDERS], **kw)
 
 
+def rider_twin(variant: str, depth: int) -> dict:
+    """Phase 24's plain twin (a child process during phases 32-33): the
+    rider run under ``variant`` and its ``plain=True`` run for ``depth``
+    slots. Returns whether their records agree, the plain run's seconds
+    and its light clients' stats."""
+    dev = torch.device("cuda", 0)
+    short = rider_sim(dev, variant=variant)
+    short_p = rider_sim(dev, variant=variant, plain=True)
+    t0 = time.perf_counter()
+    for _ in range(depth):
+        short_p.run_slot()
+    ref = rider_record(short_p)
+    plain_s = time.perf_counter() - t0
+    for _ in range(depth):
+        short.run_slot()
+    return {"equal": rider_record(short) == ref, "plain_s": plain_s,
+            "lc": short_p.riders[1].stats(), "variant": variant, "depth": depth}
+
+
 def rider_record(sim) -> dict:
     """What two rider runs must agree on."""
     summary = sim.summary()
@@ -1444,7 +1525,7 @@ def rider_record(sim) -> dict:
             "digest": state_digest(sim)}
 
 
-def das_sync_phases(dev, card: str, census) -> list:
+def das_sync_phases(dev, card: str, census, deferred: list) -> list:
     """Phases 20-25, the sync and DAS slice: K6 and K7 against their plain
     versions at the path's shapes; the sync verify at 2,048 x 512, the DAS
     sample verify at 1,152 and 36,864 samples (and the host/card crossover)
@@ -1688,25 +1769,21 @@ def das_sync_phases(dev, card: str, census) -> list:
     say(f"[{card}] rider run phase budget: " + json.dumps(phases))
     say(f"[{card}] riderless run phase budget: " + json.dumps(base_phases))
     del sim
-    twins = []
+    # the plain twins: child processes during phases 32-33, checked there
+    def rider_done(res):
+        lc = res["lc"]
+        check(res["equal"], f"phase 24: the rider run ({res['variant']}) differs from its "
+                            f"plain=True run")
+        check(res["variant"] != "goldfish"
+              or (lc["updates_applied"] > 0 and lc["clients_synced"] > 0),
+              f"phase 24: the {res['variant']} rider run's light clients adopted nothing: {lc}")
+        say(f"phase 24 (run during phases 32-33): the {res['variant']} rider run == its "
+            f"plain=True twin at {res['depth']} slots (metrics, summary, rider state, "
+            f"light-client heads, digest; {lc['clients_synced']} light clients synced; "
+            f"{res['plain_s']:.3f} s plain)")
+
     for variant, depth in RIDER_PLAIN_RUNS:
-        short = rider_sim(dev, variant=variant)
-        short_p = rider_sim(dev, variant=variant, plain=True)
-        t5 = time.perf_counter()
-        for _ in range(depth):
-            short_p.run_slot()
-        ref = rider_record(short_p)
-        plain_s = time.perf_counter() - t5
-        for _ in range(depth):
-            short.run_slot()
-        check(rider_record(short) == ref, f"rider run ({variant}) differs from its plain=True run")
-        plain_lc = short_p.riders[1].stats()
-        check(variant != "goldfish"
-              or (plain_lc["updates_applied"] > 0 and plain_lc["clients_synced"] > 0),
-              f"the {variant} rider run's light clients adopted nothing: {plain_lc}")
-        twins.append(f"{variant} at {depth} slots ({plain_lc['clients_synced']} light clients "
-                     f"synced; {plain_s:.3f} s plain)")
-        del short, short_p
+        deferred.append((rider_twin, (variant, depth), rider_done))
     half_sim = rider_sim(dev)
     half_sim.run_epochs(1)
     data = half_sim.checkpoint()
@@ -1716,9 +1793,8 @@ def das_sync_phases(dev, card: str, census) -> list:
     bad = [k for k, v in rider_record(resumed).items() if v != rec[k]]
     check(not bad, f"rider run: the resumed run differs from the uninterrupted one in {bad}")
     del resumed
-    say(f"rider runs == their plain=True twins (metrics, summary, rider state, light-client "
-        f"heads, digest): {'; '.join(twins)}; the Gasper run checkpointed after epoch 1 "
-        f"({len(data)} bytes) and resumed on the card == uninterrupted")
+    say(f"rider run: the Gasper run checkpointed after epoch 1 ({len(data)} bytes) and resumed "
+        f"on the card == uninterrupted")
 
     # 25. K6 and K7 per launch at the path's shapes, against their bounds and
     # (in the printed lines only) beside the parent's times
@@ -2502,6 +2578,123 @@ def kzg_phases(dev, card: str, census) -> list:
     return rows
 
 
+# --- the spec tier (phases 32-34) ---------------------------------------------------
+
+def spec_twin_chain(device: str) -> dict:
+    """Phase 34's 4-epoch chain at 2^14 on ``device`` (a child process):
+    the state root after every block, the finalized epoch, the wall."""
+    t0 = time.perf_counter()
+    run = spec_chain.run_chain(SPEC_TWIN_N, SPEC_TWIN_EPOCHS * 32, device=device)
+    return {"roots": [r.hex() for r in run.roots], "final_root": run.summary["final_root"],
+            "finalized": run.summary["finalized_epoch"], "s": time.perf_counter() - t0,
+            "k2": run.summary["k2_launches"]}
+
+
+def spread(xs) -> str:
+    return f"{min(xs):.1f}-{max(xs):.1f} (mean {sum(xs) / len(xs):.1f})"
+
+
+def spec_states_equal(a, b) -> list:
+    """The columns in which two spec states differ."""
+    bad = [f for f in SPEC_STATE_COLUMNS if not np.array_equal(getattr(a, f), getattr(b, f))]
+    bad += [f for f in SPEC_REGISTRY_COLUMNS
+            if not np.array_equal(getattr(a.validators, f), getattr(b.validators, f))]
+    if not np.array_equal(a.justification_bits, b.justification_bits):
+        bad.append("justification_bits")
+    return bad
+
+
+def spec_phases(dev, card: str, deferred: list) -> dict:
+    """Phases 32-34, and the earlier phases' ``deferred`` plain twins
+    ((function, arguments, checker)) in child processes beside the spec
+    chain, which leaves the card mostly idle; each checker takes its
+    twin's result at the end. Returns the spec chain's launches by
+    kernel."""
+    with ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=torch.set_num_threads, initargs=(2,)) as pool:
+        twins = {d: pool.submit(spec_twin_chain, d) for d in ("cuda", "cpu")}
+        futures = [(pool.submit(fn, *args), done) for fn, args, done in deferred]
+
+        # 32. the spec chain at 2^20, counted
+        kernels.reset_launches()
+        run = spec_chain.run_chain(N_MAINNET, SPEC_SLOTS, device=dev)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        s = run.summary
+        check(len(run.blocks) == SPEC_SLOTS and int(run.state.slot) == SPEC_SLOTS,
+              f"spec chain: {len(run.blocks)} blocks, state at slot {int(run.state.slot)}")
+        check(s["final_root"] == run.roots[-1].hex(),
+              "spec chain: the final state's root differs from its last block's")
+        check(s["attestations_per_block"] == [0] + [64] * (SPEC_SLOTS - 1),
+              f"spec chain: attestations per block {s['attestations_per_block']}")
+        check(s["epoch_sweeps"] == 2 and run.pre_epoch is not None,
+              f"spec chain: the epoch boundary ran {s['epoch_sweeps']} torch-backend sweeps")
+        check(launches.get("merkle_level", 0) >= s["state_roots"] > 0,
+              f"spec chain: K2 launches {launches} for {s['state_roots']} state roots")
+        check(launches.get("agg_sig") == SPEC_SLOTS and launches.get("sha256_blocks") == 1,
+              f"spec chain: K1 once a slot and K6 once (the signers' midstates): {launches}")
+        check(s["b8"]["sweeps"] == 2 * (SPEC_SLOTS - 1),
+              f"spec chain: B8 swept {s['b8']['sweeps']} blocks")
+        say(f"spec chain n={N_MAINNET}, {SPEC_SLOTS} blocks (64 attestations of 512 and a sync "
+            f"aggregate each), every block accepted by state_transition(validate_result=True); "
+            f"launches {launches}; {s['state_roots']} state roots, "
+            f"{s['k2_launches_per_state_root']:.2f} K2 launches each; finalized epoch "
+            f"{s['finalized_epoch']}; final root {s['final_root'][:16]}")
+        say(f"[{card}] spec chain at n={N_MAINNET}: genesis {s['genesis_s']:.3f} s "
+            f"({s['genesis_k2_launches']} K2 launches); per block build_block "
+            f"{spread(s['build_ms'])} ms, state_transition {spread(s['transition_ms'])} ms "
+            f"(the boundary block {s['transition_ms'][31]:.1f}), attesting (K1) "
+            f"{spread(s['attest_ms'])} ms; B8 "
+            f"{s['b8_ms_per_sweep']:.3f} ms a block over {s['b8']['sweeps']} sweeps (uploads "
+            f"{s['b8']['uploads']}, patches {s['b8']['patches']}, reuses {s['b8']['reuses']})")
+
+        # 33. the replay through a fresh store
+        rep = spec_chain.replay(run, device=dev)
+        check(rep["final_root"] == s["final_root"],
+              "replay: the store's final state root differs from the chain's")
+        check(rep["b8"]["sweeps"] == SPEC_SLOTS - 1, f"replay: B8 swept {rep['b8']['sweeps']}")
+        say(f"[{card}] replay of the {SPEC_SLOTS} blocks through on_block_batch: "
+            f"{rep['seconds']:.3f} s, {rep['blocks_per_s']:.3f} blocks/s; final root == the "
+            f"chain's; B8 session uploads {rep['b8']['uploads']}, patches "
+            f"{rep['b8']['patches']}, reuses {rep['b8']['reuses']}; K2 {rep['k2_launches']}")
+
+        # 34. the twins
+        post_card, epoch_ms = spec_chain.boundary(run.pre_epoch, device=dev)
+        post_cpu, epoch_cpu_ms = spec_chain.boundary(run.pre_epoch, device="cpu")
+        bad = spec_states_equal(post_card, post_cpu)
+        check(not bad, f"the epoch boundary at 2^20: card differs from the CPU in {bad}")
+        with use_backend("torch", device=dev):
+            roots = {hash_tree_root(post_card), hash_tree_root(post_cpu)}
+            check(len(roots) == 1, "the epoch boundary at 2^20: card and CPU roots differ")
+            t0 = time.perf_counter()
+            fresh = incremental.ContainerTreeCache(BeaconState, dev).root(run.state)
+            fresh_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            plain = incremental.ContainerTreeCache(BeaconState, dev, plain=True).root(run.state)
+            plain_s = time.perf_counter() - t0
+        check(fresh.hex() == plain.hex() == s["final_root"],
+              "the final state root from scratch (K2, plain) differs from the chain's")
+        say(f"[{card}] process_epoch at n={N_MAINNET} (the first boundary again): card {epoch_ms:.3f} ms, "
+            f"CPU backend {epoch_cpu_ms:.3f} ms; every registry and state column and the root "
+            f"equal; the final root from scratch through K2 {fresh_s:.3f} s, through its plain "
+            f"version {plain_s:.3f} s, both == the chain's")
+        got = {d: f.result() for d, f in twins.items()}
+        late = [(f.result(), done) for f, done in futures]
+    check(got["cuda"]["roots"] == got["cpu"]["roots"],
+          "the 4-epoch chain at 2^14: card and CPU roots differ")
+    check(got["cuda"]["finalized"] == got["cpu"]["finalized"] >= 2,
+          f"the 4-epoch chain at 2^14: finalized {got['cuda']['finalized']}")
+    check(got["cuda"]["k2"] > 0 and got["cpu"]["k2"] == 0,
+          "the 4-epoch chain at 2^14: K2 on the card only")
+    say(f"4-epoch spec chain at n={SPEC_TWIN_N} ({SPEC_TWIN_EPOCHS * 32} blocks, child "
+        f"processes): card ({got['cuda']['s']:.3f} s, {got['cuda']['k2']} K2 launches) == CPU "
+        f"({got['cpu']['s']:.3f} s) at every block's state root; finalized epoch "
+        f"{got['cuda']['finalized']}")
+    for res, done in late:
+        done(res)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs one GPU",
@@ -2511,6 +2704,9 @@ def main() -> int:
     torch.cuda.set_device(dev)
     card = card_line()
     say(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    # plain twins of earlier phases, run during phases 32-33 and checked there:
+    # (function, arguments, checker)
+    deferred = []
 
     # 1. build
     t0 = time.perf_counter()
@@ -2792,15 +2988,16 @@ def main() -> int:
         f"{dense_launches} (K1 {run_launches['agg_sig']} in the run, K2 {digest_k2} in "
         f"state_digest); summary {json.dumps(summary)}; digest {digest}")
     # the plain twin at DENSE_PLAIN_EPOCHS against a kernel run of the same depth
-    # (finality is checked above on the full run)
-    short = run_record(dense_sim(dev), DENSE_PLAIN_EPOCHS)
-    t_plain = time.perf_counter()
-    ref = run_record(dense_sim(dev, plain=True), DENSE_PLAIN_EPOCHS)
-    plain_s = time.perf_counter() - t_plain
-    check(ref == short, "dense path differs from the plain=True run")
-    del short, ref
-    say(f"dense path at {DENSE_PLAIN_EPOCHS} epoch: metrics, summary and digest == the "
-        f"plain=True run ({plain_s:.3f} s for its setup, {DENSE_PLAIN_EPOCHS} epoch and digest)")
+    # (finality is checked above on the full run): a child process during
+    # phases 32-33, checked there
+
+    def dense_done(res):
+        check(res["equal"], "phase 10: the dense path differs from its plain=True run")
+        say(f"phase 10 (run during phases 32-33): the dense path at {DENSE_PLAIN_EPOCHS} epoch: "
+            f"metrics, summary and digest == the plain=True run ({res['plain_s']:.3f} s for its "
+            f"setup, {DENSE_PLAIN_EPOCHS} epoch and digest)")
+
+    deferred.append((dense_twin, (), dense_done))
     committees = torch.from_numpy(
         sim._inv_perm[: 64 * 512].reshape(512, 64).T.astype(np.int32).copy()).to(dev)
     d_bits = torch.from_numpy(np.random.default_rng(5).random((64, 512)) < 0.99).to(dev)
@@ -2894,18 +3091,22 @@ def main() -> int:
                 + f"; measured / int_pipe {b['int_pipe_ms'] / measured:.3f}")
 
     lap("phase 14")
-    field_rows = bls_phases(dev, card, census)
+    field_rows = bls_phases(dev, card, census, deferred)
     lap("phases 15-19")
-    das_rows = das_sync_phases(dev, card, census)
+    das_rows = das_sync_phases(dev, card, census, deferred)
     lap("phases 20-25")
     t_kzg = time.perf_counter()
     kzg_rows = kzg_phases(dev, card, census)
     say(f"KZG phases 26-31: {time.perf_counter() - t_kzg:.3f} s")
     lap("phases 26-31")
+    t_spec = time.perf_counter()
+    spec_launches = spec_phases(dev, card, deferred)
+    say(f"spec phases 32-34: {time.perf_counter() - t_spec:.3f} s")
+    lap("phases 32-34")
 
     big = k2[K2_LARGEST]
     say(card)
-    say(json.dumps({"kernels": [{
+    rows = [{
         "name": "agg_sig", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
         "launches": launches["agg_sig"], "max_abs_err": max_abs_err, "matches_plain": True,
         "ms": k1_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2920,7 +3121,10 @@ def main() -> int:
         "bound_ms": big["bound"]["ms"], "bound_by": big["bound"]["by"], "library_ms": None,
         "ms_1048576": k2[N_MAINNET]["ms"], "full_build_ms": builds[-1][0],
         "update_ms": updates[-1][0], "dense_launches": digest_k2}, *field_rows, *das_rows,
-        *kzg_rows]}))
+        *kzg_rows]
+    for row in rows:   # each kernel's launches in phase 32's spec chain
+        row["spec_chain_launches"] = spec_launches.get(row["name"], 0)
+    say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

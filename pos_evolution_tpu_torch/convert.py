@@ -10,6 +10,12 @@ word arrays become int32 bit-pattern tensors (see ``device.py``), uint64
 columns int64 bit patterns, and 32-byte chunk rows (N, 8) words. BLS12-381
 field elements and points travel as int32 [..., 32] base-2^12 digits in
 both packages (``limbs_to_torch`` / ``limbs_to_numpy``).
+
+Spec containers (a ``BeaconState``, a ``SignedBeaconBlock``, any SSZ
+container of the spec layer) cross as SSZ bytes: ``spec_to_port``
+serializes the JAX package's object by its own class and deserializes
+the bytes with the port's class of the same name, so the two roots agree
+wherever the SSZ code of the two packages does.
 """
 
 from __future__ import annotations
@@ -106,3 +112,15 @@ def to_numpy(x):
         return type(x)(to_numpy(v) for v in x)
     return x
 
+
+
+def spec_to_port(obj):
+    """A spec container of the JAX package (duck-typed: its class's
+    ``serialize`` and its name) as the port's container of the same name
+    (``specs/containers.py``, ``specs/helpers.py``), through SSZ bytes."""
+    from pos_evolution_tpu_torch.specs import containers, helpers
+    name = type(obj).__name__
+    cls = getattr(containers, name, None) or getattr(helpers, name, None)
+    if cls is None:
+        raise TypeError(f"no spec container named {name!r} in the port")
+    return cls.deserialize(type(obj).serialize(obj))

@@ -1,14 +1,21 @@
 """Merkleization on the device, and kernel K2 (port of
 ``pos_evolution_tpu/ops/merkle_device.py`` and ``ops/pallas_sha256.py``).
 
-Every merkle level sweep of the port goes through ``pair_hash``, which
+Every merkle level sweep of a tensor goes through ``pair_hash``, which
 hands the level to ``merkle_level``: kernel K2 (``csrc/merkle_level.cu``)
 for CUDA tensors, its plain PyTorch version ``_merkle_level`` for CPU
 tensors. The tensor's device decides; every level of a CUDA tensor goes
-through K2 at its true size. The JAX package's routing of the same
-function (the Pallas -> XLA -> NumPy fallback ladder, ``set_mode``, the
-4096-pair host/device crossover and the power-of-two batch padding) was a
-TPU-era policy and is not carried over.
+through K2 at its true size.
+
+Host rows (the spec layer's (N, 32) uint8 numpy chunks, through
+``ssz/hash.sha256_pairs`` and ``ssz/merkle.merkleize_chunks``) need a
+route: ``device_eligible`` sends a sweep to K2 on the active backend's
+device when that device is CUDA and the sweep has at least
+``Config.merkle_device_min_pairs`` pairs, and keeps it on the host
+otherwise; ``set_mode`` forces either side. The decision reads the
+backend's device, never its name. The JAX package's fallback ladder
+(Pallas -> XLA -> NumPy) and its power-of-two batch padding are not
+carried over: on a CUDA device K2 runs or raises.
 
 ``LevelSweeper`` advances many trees' level sweeps in lockstep and hashes
 each round's pairs of all of them in one ``pair_hash`` call: one K2
@@ -24,7 +31,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from pos_evolution_tpu_torch.device import i32, resolve_device, rows_to_words
+from pos_evolution_tpu_torch.device import i32, resolve_device, rows_to_words, words_to_rows
 from pos_evolution_tpu_torch.ops import kernels
 from pos_evolution_tpu_torch.ops.sha256 import sha256_pair_words
 from pos_evolution_tpu_torch.ssz.merkle import (
@@ -39,6 +46,8 @@ __all__ = [
     "merkle_level", "pair_hash", "merkleize", "merkleize_words_device", "tree_levels",
     "build_multiproof_paths", "multiproof", "digest_bytes", "DIGEST_ALGO",
     "LevelSweeper", "drive", "stats", "reset_stats",
+    "set_mode", "get_mode", "small_batch_floor", "device_eligible", "route_device",
+    "pair_hash_rows", "host_pair_hash",
 ]
 
 # Manifest tag of the payload digest: 32-byte chunks (tail zero-padded),
@@ -62,6 +71,82 @@ def stats() -> dict:
 def reset_stats() -> None:
     for k in _STATS:
         _STATS[k] = 0
+
+
+# --- the host/device route of host rows ------------------------------------------
+
+_MODES = ("auto", "device", "host")
+_MODE = "auto"
+
+
+def set_mode(mode: str) -> str:
+    """Force the route of host rows: ``"device"`` (K2 whenever the active
+    backend's device is CUDA), ``"host"`` (never), ``"auto"`` (CUDA and
+    the crossover). Returns the previous mode."""
+    global _MODE
+    if mode not in _MODES:
+        raise ValueError(f"merkle dispatch mode must be one of {_MODES}")
+    prev, _MODE = _MODE, mode
+    return prev
+
+
+def get_mode() -> str:
+    return _MODE
+
+
+def _min_pairs() -> int:
+    from pos_evolution_tpu_torch.config import cfg
+    return cfg().merkle_device_min_pairs
+
+
+def small_batch_floor(per_item_pairs: int = 1) -> int:
+    """The crossover in items of ``per_item_pairs`` pair compressions each
+    (a DAS sample is about 16): below it a batch stays on the host."""
+    return max(_min_pairs() // max(per_item_pairs, 1), 1)
+
+
+def route_device() -> torch.device:
+    """The active backend's device, where eligible host rows are hashed."""
+    from pos_evolution_tpu_torch.backend import get_backend
+    return get_backend().device
+
+
+def device_eligible(n_pairs: int) -> bool:
+    """Would a sweep of ``n_pairs`` host pairs go to K2? Only on a CUDA
+    backend device: in ``"device"`` mode always, in ``"auto"`` mode from
+    ``merkle_device_min_pairs`` pairs. The size is read before the
+    backend, so small sweeps never touch it."""
+    if _MODE == "host" or n_pairs <= 0:
+        return False
+    if _MODE == "auto" and n_pairs < _min_pairs():
+        return False
+    return route_device().type == "cuda"
+
+
+def host_pair_hash(left, right):
+    """``pair_hash`` of CPU word tensors on the host's SHA-256
+    (``ssz/hash.sha256_pairs_host``: hashlib for small batches, numpy lanes
+    for large), counted in ``stats()``: the spec state's trees on a CPU
+    device, whose many small sweeps the plain version's ~2,300 tensor ops
+    a compression would dominate. Same words as K2 and its plain version."""
+    from pos_evolution_tpu_torch.ssz.hash import sha256_pairs_host
+    n = left.shape[0]
+    if n:
+        _STATS["sweeps"] += 1
+        _STATS["pairs"] += n
+    rows = sha256_pairs_host(words_to_rows(left).numpy(), words_to_rows(right).numpy())
+    return rows_to_words(torch.from_numpy(rows))
+
+
+def pair_hash_rows(left: np.ndarray, right: np.ndarray, device=None) -> np.ndarray:
+    """SHA-256 of (N, 32) uint8 host row pairs on ``device`` (the active
+    backend's by default) through ``pair_hash``, back as (N, 32) rows."""
+    dev = route_device() if device is None else resolve_device(device)
+
+    def up(rows):
+        return rows_to_words(torch.from_numpy(np.ascontiguousarray(rows, dtype=np.uint8)).to(dev))
+
+    return words_to_rows(pair_hash(up(left), up(right))).cpu().numpy()
 
 
 # --- kernel K2 and its plain version --------------------------------------------
@@ -209,11 +294,19 @@ class LevelSweeper:
     level. Jobs are generators that yield ``(left, right)`` pair blocks and
     receive the digests back through ``send``; each round of ``run``
     concatenates every active job's block, hashes it in one call, and hands
-    each job its slice. ``plain=True`` hashes with K2's plain version."""
+    each job its slice. ``plain=True`` hashes with K2's plain version,
+    ``host=True`` with ``host_pair_hash`` (CPU words only)."""
 
-    def __init__(self, *, plain: bool = False):
+    def __init__(self, *, plain: bool = False, host: bool = False):
         self.plain = plain
+        self.host = host
         self._jobs: list = []
+
+    def combine(self, left, right):
+        """This sweeper's combiner: one ``pair_hash`` (or host) call."""
+        if self.host:
+            return host_pair_hash(left, right)
+        return pair_hash(left, right, plain=self.plain)
 
     def add(self, gen) -> None:
         """Register one tree-update generator (primed to its first pair
@@ -231,9 +324,8 @@ class LevelSweeper:
         while jobs:
             lefts = [left for _, (left, _r) in jobs]
             rights = [right for _, (_l, right) in jobs]
-            digests = pair_hash(torch.cat(lefts) if len(lefts) > 1 else lefts[0],
-                                torch.cat(rights) if len(rights) > 1 else rights[0],
-                                plain=self.plain)
+            digests = self.combine(torch.cat(lefts) if len(lefts) > 1 else lefts[0],
+                                   torch.cat(rights) if len(rights) > 1 else rights[0])
             _STATS["batched_launches"] += 1
             nxt = []
             off = 0

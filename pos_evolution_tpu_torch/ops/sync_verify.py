@@ -40,7 +40,7 @@ from pos_evolution_tpu_torch.ops.aggregation import (
     precompute_pk_states,
 )
 from pos_evolution_tpu_torch.ops.merkle_device import pair_hash
-from pos_evolution_tpu_torch.ssz.hash import sha256_pairs
+from pos_evolution_tpu_torch.ssz.hash import sha256_pairs_host
 
 __all__ = [
     "SyncUpdateBatch",
@@ -113,7 +113,7 @@ def merkle_roots_host(leaf: np.ndarray, branch: np.ndarray, index: np.ndarray) -
         right_child = bits[:, d][:, None]
         left = np.where(right_child, sib, value)
         right = np.where(right_child, value, sib)
-        value = sha256_pairs(np.ascontiguousarray(left), np.ascontiguousarray(right))
+        value = sha256_pairs_host(np.ascontiguousarray(left), np.ascontiguousarray(right))
     return value
 
 

@@ -4,7 +4,9 @@ messages (the port's copy of ``pos_evolution_tpu/ssz/hash.py``:
 
 These are the oracle and the host path of the port: a hashlib loop for
 small batches and the vectorized uint32-lane kernel of the JAX package
-for large ones (same bytes either way). The JAX package's native C++ core
+for large ones (same bytes either way). ``sha256_pairs``, the spec
+layer's merkle combiner, sends large batches to kernel K2 on the active
+backend's CUDA device; ``sha256_pairs_host`` never leaves the host. The JAX package's native C++ core
 has no counterpart here. The device path is kernel K6
 (``ops/sha256.sha256_rows``), padded on the device by ``ops/sha256.pad_words``
 to the same bytes as ``_pad_messages``.
@@ -16,7 +18,7 @@ import hashlib
 
 import numpy as np
 
-__all__ = ["hash_eth2", "sha256", "sha256_batch", "sha256_pairs"]
+__all__ = ["hash_eth2", "sha256", "sha256_batch", "sha256_pairs", "sha256_pairs_host"]
 
 
 def sha256(data: bytes) -> bytes:
@@ -107,7 +109,19 @@ def sha256_batch(msgs: np.ndarray) -> np.ndarray:
                                   for i in range(n)), dtype=np.uint8).reshape(n, 32).copy()
 
 
-def sha256_pairs(left: np.ndarray, right: np.ndarray) -> np.ndarray:
+def sha256_pairs_host(left: np.ndarray, right: np.ndarray) -> np.ndarray:
     """The merkle combiner on the host: sha256(left[i] || right[i]) for
     (N, 32) uint8 rows -> (N, 32) uint8."""
     return sha256_batch(np.concatenate([left, right], axis=1))
+
+
+def sha256_pairs(left: np.ndarray, right: np.ndarray) -> np.ndarray:
+    """sha256(left[i] || right[i]) for (N, 32) uint8 rows -> (N, 32) uint8:
+    kernel K2 on the active backend's device when
+    ``ops/merkle_device.device_eligible(N)`` (a CUDA device and at least
+    ``merkle_device_min_pairs`` pairs), ``sha256_pairs_host`` otherwise.
+    Same bytes either way."""
+    from pos_evolution_tpu_torch.ops import merkle_device
+    if merkle_device.device_eligible(len(left)):
+        return merkle_device.pair_hash_rows(left, right)
+    return sha256_pairs_host(left, right)

@@ -9,6 +9,14 @@ tensors). Checks over a handful of nodes (``mix_in_length``,
 ``is_valid_merkle_branch``, ``verify_multiproof``) hash on the host with
 hashlib.
 
+``merkleize_chunks``, ``merkleize`` and ``merkle_tree_branch`` also take
+(N, 32) uint8 numpy chunks, the JAX package's contract, which the spec
+layer (``ssz/core.py``, ``specs/``) calls them with. Such chunks go to
+the active backend's device through K2 when the first level has at least
+``merkle_device_min_pairs`` pairs and that device is CUDA
+(``ops/merkle_device.device_eligible``), and through the host SHA-256
+(``ssz/hash.sha256_pairs_host``) otherwise.
+
 The JAX package's whole-tree native call (``native.merkleize_chunks``,
 host C++ and not JAX) has no counterpart here: every level goes through
 the combiner.
@@ -21,8 +29,13 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from pos_evolution_tpu_torch.device import words_to_bytes, words_to_numpy, words_to_torch
-from pos_evolution_tpu_torch.ssz.hash import sha256
+from pos_evolution_tpu_torch.device import (
+    rows_to_words,
+    words_to_bytes,
+    words_to_numpy,
+    words_to_torch,
+)
+from pos_evolution_tpu_torch.ssz.hash import sha256, sha256_pairs_host
 
 MAX_DEPTH = 64
 
@@ -32,6 +45,7 @@ ZERO_HASHES = [bytes(32)]
 for _ in range(MAX_DEPTH):
     ZERO_HASHES.append(sha256(ZERO_HASHES[-1] * 2))
 ZERO_WORDS = np.frombuffer(b"".join(ZERO_HASHES), dtype=">u4").astype(np.uint32).reshape(-1, 8)
+ZERO_ROWS = np.frombuffer(b"".join(ZERO_HASHES), dtype=np.uint8).reshape(-1, 32)
 
 
 @lru_cache(maxsize=None)
@@ -68,11 +82,42 @@ def _next_level(layer: torch.Tensor, level: int, combine) -> torch.Tensor:
     return combine(layer[0::2], layer[1::2])
 
 
-def merkleize_chunks(chunks: torch.Tensor, limit: int | None = None,
-                     combine=_merkle_level) -> bytes:
-    """Merkle root of (N, 8) word chunks, virtually padded to ``limit``
-    chunks (``limit=None``: the vector rule, the next power of two of N).
-    Returns the 32-byte root."""
+def merkleize_chunks(chunks, limit: int | None = None, combine=None) -> bytes:
+    """Merkle root of chunks, virtually padded to ``limit`` chunks
+    (``limit=None``: the vector rule, the next power of two of N). Returns
+    the 32-byte root.
+
+    ``chunks`` is an (N, 8) word tensor, hashed where it lies through
+    ``combine`` (by default K2's wrapper), or (N, 32) uint8 numpy rows (a
+    flat array is read as rows), which ``ops/merkle_device.device_eligible``
+    routes to K2 on the active backend's device or to the host."""
+    if isinstance(chunks, torch.Tensor):
+        return _merkleize_words(chunks, limit, combine or _merkle_level)
+    rows = np.ascontiguousarray(chunks, dtype=np.uint8)
+    if rows.ndim == 1:
+        rows = rows.reshape(-1, 32)
+    count = rows.shape[0]
+    from pos_evolution_tpu_torch.ops.merkle_device import device_eligible, route_device
+    if device_eligible(count // 2):
+        words = rows_to_words(torch.from_numpy(rows).to(route_device()))
+        return _merkleize_words(words, limit, _merkle_level)
+    if limit is None:
+        limit = max(count, 1)
+    if count > limit:
+        raise ValueError(f"{count} chunks exceed limit {limit}")
+    depth = _depth_for(limit)
+    if count == 0:
+        return ZERO_HASHES[depth]
+    layer = rows
+    for level in range(depth):
+        if layer.shape[0] % 2:
+            layer = np.concatenate([layer, ZERO_ROWS[level:level + 1]])
+        layer = sha256_pairs_host(np.ascontiguousarray(layer[0::2]),
+                                  np.ascontiguousarray(layer[1::2]))
+    return layer[0].tobytes()
+
+
+def _merkleize_words(chunks: torch.Tensor, limit: int | None, combine) -> bytes:
     count = chunks.shape[0]
     if limit is None:
         limit = max(count, 1)
@@ -85,6 +130,16 @@ def merkleize_chunks(chunks: torch.Tensor, limit: int | None = None,
     for level in range(depth):
         layer = _next_level(layer, level, combine)
     return _row_bytes(layer[:1])[0]
+
+
+def merkleize(chunks, limit: int | None = None) -> bytes:
+    """``merkleize_chunks`` of a list of 32-byte chunks or of an array."""
+    if isinstance(chunks, (np.ndarray, torch.Tensor)):
+        return merkleize_chunks(chunks, limit)
+    if len(chunks) == 0:
+        return merkleize_chunks(np.empty((0, 32), dtype=np.uint8), limit)
+    return merkleize_chunks(np.frombuffer(b"".join(bytes(c) for c in chunks),
+                                          dtype=np.uint8).reshape(-1, 32), limit)
 
 
 def mix_in_length(root: bytes, length: int) -> bytes:
@@ -176,9 +231,21 @@ def verify_multiproof(leaf_values, leaf_indices, proof, depth: int, root: bytes)
     return objects.get(1) == bytes(root)
 
 
-def merkle_tree_branch(leaves: torch.Tensor, index: int, depth: int,
-                       combine=_merkle_level) -> list[bytes]:
-    """The merkle proof for ``leaves[index]`` in a depth-``depth`` tree."""
-    levels = _tree_levels(leaves, depth, combine)
-    leaf = (1 << depth) + index
-    return _node_bytes(levels, [(leaf >> d) ^ 1 for d in range(depth)], depth)
+def merkle_tree_branch(leaves, index: int, depth: int, combine=_merkle_level) -> list[bytes]:
+    """The merkle proof for ``leaves[index]`` in a depth-``depth`` tree:
+    over an (N, 8) word tensor through ``combine``, or over (N, 32) uint8
+    numpy rows on the host (the JAX package's contract)."""
+    if isinstance(leaves, torch.Tensor):
+        levels = _tree_levels(leaves, depth, combine)
+        leaf = (1 << depth) + index
+        return _node_bytes(levels, [(leaf >> d) ^ 1 for d in range(depth)], depth)
+    layer = np.ascontiguousarray(leaves, dtype=np.uint8).reshape(-1, 32)
+    branch: list[bytes] = []
+    for level in range(depth):
+        sib = index ^ 1
+        branch.append(layer[sib].tobytes() if sib < layer.shape[0] else ZERO_HASHES[level])
+        if layer.shape[0] % 2:
+            layer = np.concatenate([layer, ZERO_ROWS[level:level + 1]])
+        layer = sha256_pairs_host(layer[0::2], layer[1::2])
+        index //= 2
+    return branch

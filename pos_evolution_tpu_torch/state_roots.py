@@ -43,7 +43,7 @@ from pos_evolution_tpu_torch.epoch import (
     run_epoch,
 )
 from pos_evolution_tpu_torch.ops import kernels
-from pos_evolution_tpu_torch.ops.epoch import DenseRegistry, i64_to_epochs
+from pos_evolution_tpu_torch.ops.epoch import DenseRegistry, i64_to_epoch_bits
 from pos_evolution_tpu_torch.ops.merkle_device import LevelSweeper
 from pos_evolution_tpu_torch.ssz.incremental import (
     ValidatorRegistry,
@@ -107,9 +107,9 @@ def registry_state(reg: DenseRegistry, cols: ValidatorColumns) -> RegistryState:
             effective_balance=reg.effective_balance,
             slashed=reg.slashed,
             activation_eligibility_epoch=cols.activation_eligibility_epoch,
-            activation_epoch=i64_to_epochs(reg.activation_epoch),
-            exit_epoch=i64_to_epochs(reg.exit_epoch),
-            withdrawable_epoch=i64_to_epochs(reg.withdrawable_epoch)),
+            activation_epoch=i64_to_epoch_bits(reg.activation_epoch),
+            exit_epoch=i64_to_epoch_bits(reg.exit_epoch),
+            withdrawable_epoch=i64_to_epoch_bits(reg.withdrawable_epoch)),
         balances=reg.balance,
         previous_epoch_participation=reg.prev_flags,
         current_epoch_participation=reg.cur_flags,

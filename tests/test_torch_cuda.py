@@ -1040,3 +1040,19 @@ def test_plain_digit_plumbing_card_equals_cpu(cuda, m, n):
     x = torch.cat([want.reshape(-1, m + n - 1), ripple])
     for out_len in (m + n - 1, m + n):
         assert torch.equal(fp.carry_norm(x.to(cuda), out_len).cpu(), fp.carry_norm(x, out_len))
+
+
+def test_spec_chain_one_epoch_equals_cpu(cuda):
+    """The spec tier (``spec_chain``) over one epoch boundary at n = 4096,
+    mainnet config, on the card and on the CPU: equal state roots after
+    every block, every card state root through K2, the replay equal."""
+    from pos_evolution_tpu_torch import spec_chain
+    before = kernels.launches["merkle_level"]
+    card = spec_chain.run_chain(4096, 33, device=cuda)
+    k2 = kernels.launches["merkle_level"] - before
+    host = spec_chain.run_chain(4096, 33, device="cpu")
+    assert card.roots == host.roots
+    assert card.summary["final_root"] == host.summary["final_root"]
+    assert card.summary["state_roots"] > 0 and k2 >= card.summary["state_roots"]
+    assert card.summary["epoch_sweeps"] == host.summary["epoch_sweeps"] == 2
+    assert spec_chain.replay(card, device=cuda)["final_root"] == card.summary["final_root"]

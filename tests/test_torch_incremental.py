@@ -22,7 +22,11 @@ from pos_evolution_tpu.ssz import incremental as jinc  # noqa: E402
 from pos_evolution_tpu.ssz.merkle import merkleize_chunks  # noqa: E402
 from pos_evolution_tpu_torch import convert  # noqa: E402
 from pos_evolution_tpu_torch.device import words_to_numpy  # noqa: E402
-from pos_evolution_tpu_torch.ops.epoch import FAR_FUTURE_I64, i64_to_epochs  # noqa: E402
+from pos_evolution_tpu_torch.ops.epoch import (  # noqa: E402
+    FAR_FUTURE_I64,
+    i64_to_epoch_bits,
+    i64_to_epochs,
+)
 from pos_evolution_tpu_torch.ssz import incremental as inc  # noqa: E402
 
 LIMIT = 2**40
@@ -232,7 +236,14 @@ def test_u64_list_root_matches_sedes():
 
 
 def test_i64_to_epochs_matches_jax():
+    """``i64_to_epochs`` keeps the JAX contract (host uint64, from numpy or
+    a tensor); ``i64_to_epoch_bits`` is its int64 bit-pattern tensor form."""
     col = np.array([0, 1, 2**32, FAR_FUTURE_I64, 2**62 - 1, 12345], np.int64)
-    got = i64_to_epochs(torch.from_numpy(col)).numpy().view(np.uint64)
-    np.testing.assert_array_equal(got, jep.i64_to_epochs(col))
-    assert got[3] == np.uint64(FAR_FUTURE_EPOCH)
+    want = jep.i64_to_epochs(col)
+    for arg in (col, torch.from_numpy(col)):
+        got = i64_to_epochs(arg)
+        assert got.dtype == np.uint64
+        np.testing.assert_array_equal(got, want)
+    bits = i64_to_epoch_bits(torch.from_numpy(col)).numpy().view(np.uint64)
+    np.testing.assert_array_equal(bits, want)
+    assert bits[3] == np.uint64(FAR_FUTURE_EPOCH)

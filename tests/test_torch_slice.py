@@ -172,10 +172,10 @@ def test_blocker_blocks_only_whole_names():
 def test_port_runs_with_jax_blocked():
     """Every module of the port imports, and a tiny epoch, its state
     roots, a faulted dense simulation with its checkpoint and state
-    digest, the BLS slice's key decompression and a tower multiply, and
-    the KZG slice's NTT round trip and a commit (against the host
-    Pippenger) run on the CPU, with jax and pos_evolution_tpu impossible
-    to import."""
+    digest, the BLS slice's key decompression and a tower multiply, the
+    KZG slice's NTT round trip and a commit (against the host Pippenger),
+    and the spec tier's chain over one epoch boundary and its replay run
+    on the CPU, with jax and pos_evolution_tpu impossible to import."""
     proc = _run_blocked("""
         import pkgutil, importlib
         import pos_evolution_tpu_torch as pkg
@@ -222,6 +222,12 @@ def test_port_runs_with_jax_blocked():
         point, _comp, coeffs, wire = scheme.commit_full(grid)
         assert point == curve.g1_lincomb(scheme.setup().powers_g1(), coeffs)
         assert scheme.commit(grid) == wire
+        from pos_evolution_tpu_torch import config as spec_config, spec_chain
+        mc = spec_config.minimal_config()
+        run = spec_chain.run_chain(64, mc.slots_per_epoch + 1, device="cpu", cfg=mc)
+        assert run.summary["state_roots"] > 0 and run.pre_epoch is not None
+        assert spec_chain.replay(run, device="cpu", cfg=mc)["final_root"] == \
+            run.summary["final_root"]
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
         print("ran", out.heads.tolist())
