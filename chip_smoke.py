@@ -176,9 +176,11 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     ``process_epoch`` through the torch backend (its epoch sweep twice:
     the proposer's copy and the chain), K2 under every state root, K1 once
     a slot; per-block ms, the B8 session's counts;
-33. the same blocks through a fresh fork-choice store's ``on_block_batch``
-    (one carried state, B8's resident columns patched block to block):
-    the final state root equal to phase 32's; blocks/s;
+33. the chain's last 9 blocks (25-33, across the epoch boundary: its
+    ``process_epoch`` at 2^20 inside ``on_block_batch``) through a fresh
+    fork-choice store anchored at block 24 and the state phase 32 kept
+    after it (one carried state, B8's resident columns patched block to
+    block): the state root equal to phase 32's final root; blocks/s;
 34. the twins: the first epoch boundary at 2^20 again from the state
     ``process_epoch`` met, on the card and on the CPU backend, every
     registry and state column and the state root equal; phase 32's final
@@ -187,7 +189,28 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     CPU, run in child processes during phases 32-33, the state root equal
     after every block, finality at epoch 2 or later; and the plain twins
     of phases 10, 17 and 24, run beside them. Phase 32's times are taken
-    with those children running.
+    with those children running;
+35. drive the spec driver's path once -- ``sim/driver.run_scale``:
+    ``Simulation(65,536, accelerated_forkchoice=True)`` under the mainnet
+    config for 4 epochs, the resident fork-choice store on the card --
+    with the launch counts zeroed just before and read just after:
+    justified >= 3 and finalized >= 2, the resident head equal to
+    ``get_head_host`` and the spec walk, no resident store degraded, K2
+    under the state roots, fresh device head queries and memo answers
+    adding up to the head queries; s per epoch, the handlers' p50 and
+    p95, and a fresh head query's and a 2,048-vote flush's launches and
+    ms under ``torch.profiler``;
+36. the twins, the card against the CPU backend (both run in child
+    processes during phases 32-33), equal in every per-slot record, view,
+    violation and piece of evidence, no resident store degraded: BASELINE
+    config 1 (1,024 validators, 32 slots, every fresh head audited); a
+    faulted and adversarial run at 1,024 for 2 epochs (drops, duplicates,
+    reorders, a crash-restart by checkpoint sync, an equivocator with
+    1/16 of the stake, the default monitors), its checkpoint after epoch
+    1 resumed on the card equal to it; Goldfish and SSF at 256;
+37. B9 (``ops/forkchoice.py``'s incremental vote buckets) on the card
+    against the CPU at the path's shapes (65,536 rows, 4,096 votes with
+    duplicates), timed.
 
 Between phase groups it prints the seconds since the start (``lap``).
 
@@ -287,6 +310,17 @@ from pos_evolution_tpu_torch import spec_chain  # noqa: E402
 from pos_evolution_tpu_torch.backend import use_backend  # noqa: E402
 from pos_evolution_tpu_torch.specs.containers import BeaconState  # noqa: E402
 from pos_evolution_tpu_torch.ssz import hash_tree_root  # noqa: E402
+from pos_evolution_tpu_torch.ops import forkchoice as ofc  # noqa: E402
+from pos_evolution_tpu_torch.sim import (  # noqa: E402
+    CrashWindow,
+    Equivocator,
+    FaultPlan,
+    Simulation,
+    default_monitors,
+    faulty_schedule,
+)
+from pos_evolution_tpu_torch.sim.driver import run_scale  # noqa: E402
+from pos_evolution_tpu_torch.variants import GoldfishVariant, SsfVariant  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 flops
@@ -449,6 +483,17 @@ K11B_FUNCS = {"g1_bucket_tables": "g1_tables_kernel", "g1_bucket_recode": "g1_re
 # the twins' chain of 4 epochs at 2^14 (Gasper finalizes epoch 2 at the
 # boundary into epoch 4)
 SPEC_SLOTS, SPEC_TWIN_N, SPEC_TWIN_EPOCHS = 33, 1 << 14, 4
+# phase 33 replays the chain's last 9 blocks (all 33 until the spec driver's phases
+# needed the time) from the state after block 24, across the epoch boundary, to
+# phase 32's final root
+SPEC_REPLAY_BLOCKS = 9
+SPEC_REPLAY_FROM = SPEC_SLOTS - SPEC_REPLAY_BLOCKS
+# the spec driver: Simulation(65,536, accelerated_forkchoice=True) under the mainnet
+# config for 4 epochs (scripts/scale_demo.py's run); its twins at BASELINE config 1's
+# 1,024 validators and the variants at 256; B9 at the path's table and a slot pair's votes
+DRIVER_N, DRIVER_EPOCHS, DRIVER_TWIN_N, DRIVER_VARIANT_N = 65_536, 4, 1024, 256
+B9_ROWS, B9_VOTES = 65_536, 4096
+DRIVER_TWINS = ("chaos", "config1", "goldfish", "ssf")
 SPEC_STATE_COLUMNS = ("balances", "previous_epoch_participation",
                       "current_epoch_participation", "inactivity_scores")
 SPEC_REGISTRY_COLUMNS = ("pubkeys", "withdrawal_credentials", "effective_balance", "slashed",
@@ -2617,7 +2662,7 @@ def spec_phases(dev, card: str, deferred: list) -> dict:
 
         # 32. the spec chain at 2^20, counted
         kernels.reset_launches()
-        run = spec_chain.run_chain(N_MAINNET, SPEC_SLOTS, device=dev)
+        run = spec_chain.run_chain(N_MAINNET, SPEC_SLOTS, device=dev, keep=(SPEC_REPLAY_FROM,))
         torch.cuda.synchronize()
         launches = {k: v for k, v in kernels.launches.items() if v}
         s = run.summary
@@ -2648,14 +2693,18 @@ def spec_phases(dev, card: str, deferred: list) -> dict:
             f"{s['b8_ms_per_sweep']:.3f} ms a block over {s['b8']['sweeps']} sweeps (uploads "
             f"{s['b8']['uploads']}, patches {s['b8']['patches']}, reuses {s['b8']['reuses']})")
 
-        # 33. the replay through a fresh store
-        rep = spec_chain.replay(run, device=dev)
-        check(rep["final_root"] == s["final_root"],
-              "replay: the store's final state root differs from the chain's")
-        check(rep["b8"]["sweeps"] == SPEC_SLOTS - 1, f"replay: B8 swept {rep['b8']['sweeps']}")
-        say(f"[{card}] replay of the {SPEC_SLOTS} blocks through on_block_batch: "
-            f"{rep['seconds']:.3f} s, {rep['blocks_per_s']:.3f} blocks/s; final root == the "
-            f"chain's; B8 session uploads {rep['b8']['uploads']}, patches "
+        # 33. the replay of the last blocks, across the epoch boundary, through a fresh store
+        rep = spec_chain.replay(run, device=dev, start=SPEC_REPLAY_FROM)
+        run.kept.clear()
+        check(rep["blocks"] == SPEC_REPLAY_BLOCKS and rep["final_root"] == s["final_root"],
+              f"replay: {rep['blocks']} blocks from block {SPEC_REPLAY_FROM}, the store's state "
+              f"root differs from the chain's final root")
+        check(rep["b8"]["sweeps"] == SPEC_REPLAY_BLOCKS,
+              f"replay: B8 swept {rep['b8']['sweeps']}")
+        say(f"[{card}] replay of blocks {SPEC_REPLAY_FROM + 1}-{SPEC_SLOTS} (across the epoch "
+            f"boundary) through on_block_batch, anchored at block {SPEC_REPLAY_FROM}: "
+            f"{rep['seconds']:.3f} s, {rep['blocks_per_s']:.3f} blocks/s; root == the chain's "
+            f"final root; B8 session uploads {rep['b8']['uploads']}, patches "
             f"{rep['b8']['patches']}, reuses {rep['b8']['reuses']}; K2 {rep['k2_launches']}")
 
         # 34. the twins
@@ -2693,6 +2742,258 @@ def spec_phases(dev, card: str, deferred: list) -> dict:
     for res, done in late:
         done(res)
     return launches
+
+
+# --- the spec driver (phases 35-37) -------------------------------------------------
+
+def driver_chaos():
+    """Phase 36's faulted and adversarial run at DRIVER_TWIN_N: drops,
+    duplicates and reorders, view group 1 down for slots 8-23 and back by
+    checkpoint sync, an equivocator with 1/16 of the stake, the default
+    monitors (their evidence broadcast as slashings)."""
+    plan = FaultPlan(seed=5, drop_p=0.05, duplicate_p=0.05, reorder_p=0.05,
+                     crashes=(CrashWindow(1, 8, 24),))
+    return faulty_schedule(DRIVER_TWIN_N, plan, n_groups=2), \
+        [Equivocator(set(range(DRIVER_TWIN_N // 16)))], default_monitors()
+
+
+def driver_record(sim) -> dict:
+    """What two spec-driver runs must agree on: every per-slot record, each
+    view's final checkpoints, the monitors' violations and evidence."""
+    acc = [m for m in sim.monitors if hasattr(m, "evidence")]
+    return {"metrics": sim.metrics, "slot": sim.slot,
+            "views": [(int(g.store.justified_checkpoint.epoch),
+                       bytes(g.store.justified_checkpoint.root).hex(),
+                       int(g.store.finalized_checkpoint.epoch), len(g.store.blocks),
+                       sorted(g.store.equivocating_indices)) for g in sim.groups],
+            "violations": [(v["monitor"], v["kind"], v["slot"]) for v in sim.monitor_violations],
+            "evidence": [hash_tree_root(e).hex() for m in acc for e in m.evidence],
+            "residents": [None if g.resident is None else
+                          (g.resident.degraded, list(g.resident.incidents)) for g in sim.groups]}
+
+
+def driver_run(kind: str, device: str) -> dict:
+    """One of phase 36's runs on ``device`` (a child process during phases
+    32-33): ``config1`` (BASELINE config 1,
+    LMD-GHOST at 1,024 validators for 32 slots, every fresh head audited),
+    ``chaos`` (``driver_chaos`` for 2 epochs, checkpointed after epoch 1;
+    the checkpoint resumed with fresh adversaries and monitors and run to
+    epoch 2 too), ``goldfish`` or ``ssf`` (256 validators, 1 epoch)."""
+    t0 = time.perf_counter()
+    k2 = kernels.launches["merkle_level"]
+    out = {}
+    if kind == "config1":
+        sim = Simulation(DRIVER_TWIN_N, accelerated_forkchoice=True, device=device)
+        for g in sim.groups:
+            g.resident.selfcheck_every = 1
+        sim.run_until_slot(31)
+        out["stats"] = dict(sim.groups[0].resident.stats)
+        out["head_queries"] = len(sim.timer.samples["get_head"])
+    elif kind == "chaos":
+        schedule, adversaries, monitors = driver_chaos()
+        sim = Simulation(DRIVER_TWIN_N, schedule=schedule, accelerated_forkchoice=True,
+                         adversaries=adversaries, monitors=monitors, device=device)
+        sim.run_epochs(1)
+        data = sim.checkpoint()
+        sim.run_epochs(2)
+        schedule, adversaries, monitors = driver_chaos()
+        back = Simulation.resume(data, schedule=schedule, adversaries=adversaries,
+                                 monitors=monitors, device=device)
+        back.run_epochs(2)
+        out["resumed"] = driver_record(back)
+        out["checkpoint"] = hashlib.sha256(data).hexdigest()
+        out["checkpoint_bytes"] = len(data)
+    else:
+        variant = GoldfishVariant() if kind == "goldfish" else SsfVariant()
+        sim = Simulation(DRIVER_VARIANT_N, variant=variant, device=device)
+        sim.run_epochs(1)
+        out["variant_state"] = json.dumps(variant.state_blob(sim), sort_keys=True, default=str)
+    out.update(driver_record(sim), s=time.perf_counter() - t0,
+               k2=kernels.launches["merkle_level"] - k2,
+               devices=sorted({str(g.resident.buckets.device) for g in sim.groups
+                               if g.resident is not None}))
+    return out
+
+
+def b9_inputs(dev):
+    """Phase 37's operands at the path's shapes: a 65,536-row message table
+    over 256 blocks, a 4,096-vote batch with duplicates (validators drawn
+    from 1,500), inactive entries and votes for no block, and a tree."""
+    rng = np.random.default_rng(37)
+    n, nb, k = B9_ROWS, 256, B9_VOTES
+    mb = rng.integers(-1, nb, n).astype(np.int32)
+    me = np.where(mb >= 0, rng.integers(0, 6, n), 0).astype(np.int64)
+    w = rng.integers(16, 33, n).astype(np.int64) * 10**9
+    val = rng.integers(0, 1500, k).astype(np.int32)
+    block = rng.integers(-1, nb, k).astype(np.int32)
+    epoch = rng.integers(0, 8, k).astype(np.int64)
+    active = rng.random(k) < 0.9
+    parent = np.concatenate([[-1], rng.integers(np.maximum(np.arange(1, nb) - 4, 0),
+                                                np.arange(1, nb))]).astype(np.int32)
+    rank = rng.permutation(nb).astype(np.int32)
+    viable = rng.random(nb) < 0.95
+    host = [mb, me, w, val, block, epoch, active, w[val], parent, np.ones(nb, bool), rank,
+            viable]
+    return [torch.from_numpy(a).to(dev) for a in host]
+
+
+def b9_all(t):
+    """Every B9 function (and the head query from buckets) on ``b9_inputs``."""
+    mb, me, w, val, block, epoch, active, wv, parent, real, rank, viable = t
+    nb = parent.shape[0]
+    buckets = ofc.rebuild_buckets(mb, w, nb)
+    landed = ofc.apply_latest_messages(mb, me, buckets, val, block, epoch, wv, active)
+    removed = ofc.remove_latest_messages(*landed, val[:64], wv[:64])
+    cols = ofc.rebuild_epoch_buckets(mb, me, w, nb, 4, 2)
+    windowed = ofc.apply_latest_messages_windowed(mb, me, cols, 2, val, block, epoch, wv, active)
+    head = ofc.head_from_buckets(parent, real, rank, viable, 0, landed[2], 7, 32 * 10**9, nb)
+    whead = ofc.head_from_epoch_buckets(parent, real, rank, viable, 0, windowed[2], 2, 4, -1, 0,
+                                        nb, 4)
+    return {"buckets": buckets, "landed": landed, "removed": removed, "epoch_buckets": cols,
+            "windowed": windowed, "head": head, "windowed_head": whead}
+
+
+def driver_phases(dev, card: str, twins: dict) -> dict:
+    """Phases 35-37. ``twins`` holds phase 36's runs by (kind, device),
+    made in child processes during phases 32-33. Returns phase 35's
+    launches by kernel."""
+    # 35. the spec driver's path at 65,536 validators, mainnet config, 4 epochs, counted
+    kernels.reset_launches()
+    out = run_scale(DRIVER_N, DRIVER_EPOCHS, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    sim = out.pop("sim")
+    check(out["justified_epoch"] >= 3 and out["finalized_epoch"] >= 2,
+          f"spec driver: justified {out['justified_epoch']}, finalized {out['finalized_epoch']}")
+    check(out["resident_head_equals_spec_walk"] and out["resident_head_equals_host_walk"],
+          "spec driver: the resident head differs from the spec walk or get_head_host")
+    check(not any(out["degraded"]) and not any(out["incidents"]),
+          f"spec driver: resident stores degraded {out['degraded']}: {out['incidents']}")
+    check(launches.get("merkle_level", 0) >= out["state_roots"] > 0,
+          f"spec driver: K2 launches {launches} for {out['state_roots']} state roots")
+    st = out["resident_stats"][0]
+    check(st["device_heads"] + st["memo_hits"] == out["head_queries"],
+          f"spec driver: {st} against {out['head_queries']} head queries")
+    check(all(g.resident.buckets.device.type == "cuda" for g in sim.groups),
+          "spec driver: the resident store is not on the card")
+    h = out["handler_timers_after_first_epoch"]
+    say(f"spec driver n={DRIVER_N}, {DRIVER_EPOCHS} mainnet epochs ({sim.slot - 1} slots, "
+        f"{out['n_blocks']} blocks): launches {launches}; justified {out['justified_epoch']}, "
+        f"finalized {out['finalized_epoch']}; resident head == get_head_host == the spec walk; "
+        f"no resident store degraded; {out['state_roots']} state roots, "
+        f"{out['k2_launches_per_state_root']:.2f} K2 launches each; head queries "
+        f"{out['head_queries']} = {st['device_heads']} on the card + {st['memo_hits']} memo; "
+        f"{st['flushes']} flushes, {st['rebuilds']} rebuilds")
+    say(f"[{card}] spec driver at n={DRIVER_N}: set-up {out['init_s']:.3f} s; per epoch "
+        + ", ".join(f"{x:.3f}" for x in out["per_epoch_s"])
+        + f" s (mean {sum(out['per_epoch_s']) / DRIVER_EPOCHS:.3f}); after the first epoch "
+        + "; ".join(f"{k} p50 {v['p50_ms']:.3f} ms p95 {v['p95_ms']:.3f} ms ({v['count']}, "
+                    f"{v['total_s']:.3f} s)" for k, v in sorted(h.items())))
+    res, store = sim.groups[0].resident, sim.groups[0].store
+    with use_backend(sim.backend):
+        def fresh():
+            res._rev += 1
+            res._device_head(store)
+        head_prof = profiled_launches(fresh)
+        rng = np.random.default_rng(35)
+        tip = res.roots[-1]
+
+        def flush():
+            res.note_attestation(rng.integers(0, DRIVER_N, 2048), DRIVER_EPOCHS, tip)
+            res.flush()
+        flush_prof = profiled_launches(flush)
+    say(f"[{card}] resident store at n={DRIVER_N}, capacity {res.capacity}: a fresh head "
+        f"query {head_prof['wall_ms']:.3f} ms, {head_prof['launches']:.0f} launches, device "
+        f"busy {head_prof['busy_ms']:.3f} ms; a flush of 2,048 votes {flush_prof['wall_ms']:.3f} "
+        f"ms, {flush_prof['launches']:.0f} launches, busy {flush_prof['busy_ms']:.3f} ms")
+    del sim, res, store
+    lap("phase 35")
+
+    # 36. the twins: the card against the CPU, and a checkpoint resumed (child processes)
+    for kind in DRIVER_TWINS:
+        got, want = twins[(kind, "cuda")], twins[(kind, "cpu")]
+        keys = [k for k in want if k not in ("s", "k2", "devices")]
+        bad = [k for k in keys if got[k] != want[k]]
+        check(not bad, f"spec driver twin {kind}: the card differs from the CPU in {bad}")
+        check(got["k2"] > 0 and want["k2"] == 0 and all(d.startswith("cuda")
+                                                         for d in got["devices"]),
+              f"spec driver twin {kind}: K2 {got['k2']} / {want['k2']}, residents on "
+              f"{got['devices']}")
+        for rec in (got, got.get("resumed")):
+            if rec is not None:
+                check(all(r is None or r == (False, []) for r in rec["residents"]),
+                      f"spec driver twin {kind}: a resident store degraded: {rec['residents']}")
+        extra = ""
+        if kind == "config1":
+            st = got["stats"]
+            check(st["device_heads"] + st["memo_hits"] == got["head_queries"]
+                  and st["device_heads"] > 0, f"config 1: {st}, {got['head_queries']} queries")
+            extra = (f"; {st['device_heads']} fresh head queries each audited by get_head_host, "
+                     f"{st['memo_hits']} memo")
+        if kind == "chaos":
+            # Monitors are not simulation state (the JAX package's contract:
+            # a stateful monitor replays exactly only from an episode-start
+            # checkpoint), so the resumed run's fresh accountable-safety
+            # monitor holds no vote seen before the checkpoint and can pair
+            # fewer equivocations into slashings: the views' equivocator
+            # sets may differ from the uninterrupted run's. Nothing else
+            # may, and the resumed run equals the CPU's resumed run (above)
+            # in everything; on the CPU the JAX package resumes such a
+            # checkpoint to the port's record, equivocator sets included
+            # (tests/test_torch_sim_driver.py).
+            resumed = got["resumed"]
+            rbad = [k for k in ("metrics", "residents") if resumed[k] != got[k]]
+            if [v[:4] for v in resumed["views"]] != [v[:4] for v in got["views"]]:
+                rbad.append("views")
+            check(not rbad, f"chaos: the resumed run differs from the uninterrupted in {rbad}")
+            check(got["evidence"] and all(v[4] for v in got["views"]),
+                  "chaos: no evidence reached a view's store")
+            extra = (f"; {len(got['evidence'])} slashings of evidence, {len(got['violations'])} "
+                     f"violations, equivocators in the views "
+                     f"{[len(v[4]) for v in got['views']]}; the checkpoint after epoch 1 "
+                     f"({got['checkpoint_bytes']} bytes, == the CPU's) resumed on the card == the "
+                     f"CPU's resumed run, and == the uninterrupted run in every per-slot record "
+                     f"and view checkpoint (equivocators {[len(v[4]) for v in resumed['views']]})")
+        say(f"[{card}] spec driver twin {kind} (child processes during phases 32-33): card "
+            f"{got['s']:.3f} s, {got['k2']} K2 launches == CPU ({want['s']:.3f} s) in every "
+            f"per-slot record ({len(got['metrics'])}), view, "
+            f"violation and piece of evidence; final {got['metrics'][-1]['head_root']} "
+            f"justified {got['metrics'][-1]['justified_epoch']}{extra}")
+    lap("phase 36")
+
+    # 37. B9 on the card against the CPU at the path's shapes
+    t_dev = b9_inputs(dev)
+    got, want = b9_all(t_dev), b9_all(b9_inputs("cpu"))
+    flat = lambda d: [x for v in d.values() for x in (v if isinstance(v, tuple) else (v,))]  # noqa: E731
+    bad = [i for i, (a, b) in enumerate(zip(flat(got), flat(want))) if not torch.equal(a.cpu(), b)]
+    check(not bad, f"B9 on the card differs from the CPU at outputs {bad}")
+    mb, me, _w, val, block, epoch, active, wv = t_dev[:8]
+    landed_ms = time_ms(lambda: ofc.apply_latest_messages(mb, me, got["buckets"], val, block,
+                                                          epoch, wv, active), 20)
+    window_ms = time_ms(lambda: ofc.apply_latest_messages_windowed(
+        mb, me, got["epoch_buckets"], 2, val, block, epoch, wv, active), 20)
+    say(f"[{card}] B9 at {B9_ROWS} rows, a batch of {B9_VOTES} votes with duplicates: every "
+        f"output == the CPU's; apply_latest_messages {landed_ms:.3f} ms, the windowed twin "
+        f"{window_ms:.3f} ms")
+    lap("phase 37")
+    return launches
+
+
+def profiled_launches(fn, reps: int = 5) -> dict:
+    """``fn`` ``reps`` times under ``torch.profiler``: wall ms, device
+    launches (kernels and copies) and device busy ms, each a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {"wall_ms": wall, "launches": sum(e.count for e in dev_events) / reps,
+            "busy_ms": sum(e.self_device_time_total for e in dev_events) / 1e3 / reps}
 
 
 def main() -> int:
@@ -3099,10 +3400,19 @@ def main() -> int:
     kzg_rows = kzg_phases(dev, card, census)
     say(f"KZG phases 26-31: {time.perf_counter() - t_kzg:.3f} s")
     lap("phases 26-31")
+    # phase 36's runs on the card and the CPU, run beside phases 32-33 (first,
+    # the longest first) and kept for phase 36
+    driver_twins = {}
+    deferred[:0] = [(driver_run, (kind, where),
+                     lambda res, key=(kind, where): driver_twins.__setitem__(key, res))
+                    for kind in DRIVER_TWINS for where in ("cpu", "cuda")]
     t_spec = time.perf_counter()
     spec_launches = spec_phases(dev, card, deferred)
     say(f"spec phases 32-34: {time.perf_counter() - t_spec:.3f} s")
     lap("phases 32-34")
+    t_driver = time.perf_counter()
+    driver_launches = driver_phases(dev, card, driver_twins)
+    say(f"spec driver phases 35-37: {time.perf_counter() - t_driver:.3f} s")
 
     big = k2[K2_LARGEST]
     say(card)
@@ -3122,8 +3432,9 @@ def main() -> int:
         "ms_1048576": k2[N_MAINNET]["ms"], "full_build_ms": builds[-1][0],
         "update_ms": updates[-1][0], "dense_launches": digest_k2}, *field_rows, *das_rows,
         *kzg_rows]
-    for row in rows:   # each kernel's launches in phase 32's spec chain
+    for row in rows:   # each kernel's launches in phase 32's spec chain and phase 35's driver
         row["spec_chain_launches"] = spec_launches.get(row["name"], 0)
+        row["spec_driver_launches"] = driver_launches.get(row["name"], 0)
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

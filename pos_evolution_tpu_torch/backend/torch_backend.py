@@ -94,31 +94,19 @@ class TorchBackend:
                 w[p] += w[i]
         return w
 
-    def _masked_index_add(self, idx, weight, ok, n: int) -> np.ndarray:
-        i = self._t(np.asarray(idx, dtype=np.int64))
-        ok_t = self._t(np.asarray(ok, dtype=bool))
-        w = self._t(np.asarray(weight, dtype=np.int64))
-        out = torch.zeros(n, dtype=torch.int64, device=self.device)
-        out.index_add_(0, torch.where(ok_t, i, 0), torch.where(ok_t, w, 0))
-        return out.cpu().numpy()
-
     def variant_tally(self, block_idx, vote_slot, weight, active, lo_slot, hi_slot,
                       n_blocks):
         """Per-block weight of the active votes in ``[lo_slot, hi_slot]``
-        (``ops/variant_tally.windowed_vote_tally_host``'s contract), as a
-        masked ``index_add_`` on the device."""
-        bi = np.asarray(block_idx, np.int64)
-        vs = np.asarray(vote_slot, np.int64)
-        ok = (np.asarray(active, bool) & (bi >= 0) & (bi < n_blocks)
-              & (vs >= int(lo_slot)) & (vs <= int(hi_slot)))
-        return self._masked_index_add(bi, weight, ok, int(n_blocks))
+        (``ops/variant_tally.windowed_vote_tally_device`` on this device)."""
+        from pos_evolution_tpu_torch.ops.variant_tally import windowed_vote_tally_device
+        return windowed_vote_tally_device(block_idx, vote_slot, weight, active, lo_slot,
+                                          hi_slot, n_blocks, self.device)
 
     def link_tally(self, link_idx, weight, active, n_links):
-        """Per-link weight of the active votes (``link_tally_host``'s
-        contract), as a masked ``index_add_`` on the device."""
-        li = np.asarray(link_idx, np.int64)
-        ok = np.asarray(active, bool) & (li >= 0) & (li < n_links)
-        return self._masked_index_add(li, weight, ok, int(n_links))
+        """Per-link weight of the active votes
+        (``ops/variant_tally.link_tally_device`` on this device)."""
+        from pos_evolution_tpu_torch.ops.variant_tally import link_tally_device
+        return link_tally_device(link_idx, weight, active, n_links, self.device)
 
     # --- the state transition -----------------------------------------------------
 

@@ -15,7 +15,9 @@ Spec containers (a ``BeaconState``, a ``SignedBeaconBlock``, any SSZ
 container of the spec layer) cross as SSZ bytes: ``spec_to_port``
 serializes the JAX package's object by its own class and deserializes
 the bytes with the port's class of the same name, so the two roots agree
-wherever the SSZ code of the two packages does.
+wherever the SSZ code of the two packages does. A whole spec-driver
+``Simulation`` crosses as its checkpoint bytes (``simulation_to_port``),
+and a resident fork-choice store as its arrays (``resident_to_port``).
 """
 
 from __future__ import annotations
@@ -124,3 +126,37 @@ def spec_to_port(obj):
     if cls is None:
         raise TypeError(f"no spec container named {name!r} in the port")
     return cls.deserialize(type(obj).serialize(obj))
+
+
+def simulation_to_port(checkpoint: bytes, schedule=None, device=None, **resume_kwargs):
+    """A JAX package ``Simulation.checkpoint()`` (framed SSZ and JSON that
+    names no class path) resumed as the port's ``sim/driver.Simulation``
+    on ``device`` (the thread backend's when None). ``schedule`` is the
+    run's own, built from the port's ``sim/schedule`` and ``sim/faults``;
+    ``resume_kwargs`` go to ``Simulation.resume`` (adversaries, monitors,
+    variant)."""
+    from pos_evolution_tpu_torch.sim.driver import Simulation
+    return Simulation.resume(bytes(checkpoint), schedule=schedule, device=device,
+                             **resume_kwargs)
+
+
+def resident_to_port(arrays: dict, store, device=None):
+    """A JAX ``ResidentForkChoice``'s resident image, as a dict of numpy
+    arrays by its attribute names (``ops/resident.RESIDENT_ARRAYS``, plus
+    ``roots``), placed as the port's ``ResidentForkChoice`` over ``store``
+    (the port's spec store of the same chain) on ``device`` (the thread
+    backend's when None). The store's fingerprint and memo start from the
+    carried image, so the next head query reads it as it is."""
+    from pos_evolution_tpu_torch.backend import get_backend, use_backend
+    from pos_evolution_tpu_torch.ops.resident import RESIDENT_ARRAYS, ResidentForkChoice
+    on = use_backend(get_backend()) if device is None else use_backend("torch", device=device)
+    with on:
+        res = ResidentForkChoice(store, capacity=len(arrays["parent"]))
+    dev = res.device
+    for name in RESIDENT_ARRAYS:
+        setattr(res, name, torch.from_numpy(np.array(arrays[name], copy=True)).to(dev))
+    res.roots = [bytes(r) for r in arrays["roots"]]
+    res.index_of = {r: i for i, r in enumerate(res.roots)}
+    res.capacity = int(res.parent.shape[0])
+    res._rev += 1
+    return res

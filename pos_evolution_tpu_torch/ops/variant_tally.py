@@ -1,16 +1,18 @@
-"""Host oracles of the protocol-variant tallies (port of
-``pos_evolution_tpu/ops/variant_tally.py:40-93``).
+"""The protocol-variant tallies (port of
+``pos_evolution_tpu/ops/variant_tally.py``, Queue 2 B10).
 
 The expiry-windowed vote tally and the supermajority-link /
 acknowledgment tally of Goldfish, RLMD-GHOST and single-slot finality,
-as masked int64 segment sums in numpy: the bit-exact oracles the dense
-variants read on a single device. The jitted device twins of the JAX
-module (``:95-144``) are not ported here.
+as masked int64 segment sums: the numpy host oracles, and their device
+twins (``windowed_vote_tally_device``, ``link_tally_device``), one masked
+``index_add_`` on a device, exact in any order. The backend's
+``variant_tally`` and ``link_tally`` call the device twins.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def next_pow2(x: int) -> int:
@@ -48,3 +50,33 @@ def link_tally_host(link_idx: np.ndarray, weight: np.ndarray,
     out = np.zeros(n_links, np.int64)
     np.add.at(out, link_idx[ok], weight[ok])
     return out
+
+
+def _masked_tally(idx, weight, ok, n: int, device) -> np.ndarray:
+    """int64[n]: ``weight`` summed by ``idx`` where ``ok``, on ``device``."""
+    dev = torch.device(device)
+    i = torch.from_numpy(np.ascontiguousarray(idx, dtype=np.int64)).to(dev)
+    ok_t = torch.from_numpy(np.ascontiguousarray(ok, dtype=bool)).to(dev)
+    w = torch.from_numpy(np.ascontiguousarray(weight, dtype=np.int64)).to(dev)
+    out = torch.zeros(n, dtype=torch.int64, device=dev)
+    out.index_add_(0, torch.where(ok_t, i, 0), torch.where(ok_t, w, 0))
+    return out.cpu().numpy()
+
+
+def windowed_vote_tally_device(block_idx, vote_slot, weight, active, lo_slot: int,
+                               hi_slot: int, n_blocks: int, device="cuda") -> np.ndarray:
+    """Device twin of ``windowed_vote_tally_host`` on ``device``: the same
+    mask, one int64 ``index_add_`` -> int64[n_blocks] numpy."""
+    bi = np.asarray(block_idx, np.int64)
+    vs = np.asarray(vote_slot, np.int64)
+    ok = (np.asarray(active, bool) & (bi >= 0) & (bi < n_blocks)
+          & (vs >= int(lo_slot)) & (vs <= int(hi_slot)))
+    return _masked_tally(bi, np.asarray(weight, np.int64), ok, int(n_blocks), device)
+
+
+def link_tally_device(link_idx, weight, active, n_links: int, device="cuda") -> np.ndarray:
+    """Device twin of ``link_tally_host`` on ``device`` -> int64[n_links]
+    numpy."""
+    li = np.asarray(link_idx, np.int64)
+    ok = np.asarray(active, bool) & (li >= 0) & (li < n_links)
+    return _masked_tally(li, np.asarray(weight, np.int64), ok, int(n_links), device)

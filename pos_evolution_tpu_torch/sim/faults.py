@@ -1,25 +1,33 @@
-"""Dense fault plans: message loss, delay, crash blackouts and view
-partitions as masks over the validator axis (port of the dense half of
-``pos_evolution_tpu/sim/faults.py``: ``:40-90`` and ``:256-351``).
+"""Fault plans as data (port of ``pos_evolution_tpu/sim/faults.py``).
 
-Every per-(slot, view, validator) decision is a pure function of its
-identity: one blake2b word of (seed, key) expanded over the validator
-axis with a splitmix64 finalizer, in uint64 numpy. No RNG cursor, so a
-run resumed from a checkpoint replays the same faults, and the masks
-are byte-equal to the JAX package's. The spec-tier ``FaultPlan`` is not
-ported here.
+The spec tier's half (``CrashWindow``, ``FaultPlan``, ``lossy_plan``,
+``chaos_plan``; the original's ``:91-238``) decides each (message,
+recipient group) delivery's fate, drop, duplicate or reorder, by a
+stateless seeded hash of the message's identity, and declares crash
+windows of whole view groups that ``sim/driver.Simulation`` rejoins by
+checkpoint sync. The dense half (``:256-351``) expresses message loss,
+delay, crash blackouts and view partitions as masks over the validator
+axis: one blake2b word of (seed, key) expanded with a splitmix64
+finalizer, in uint64 numpy.
+
+Every decision is a pure function of its identity, with no RNG cursor,
+so a run resumed from a checkpoint replays the same faults, and the
+decisions are byte-equal to the JAX package's.
 """
 
 from __future__ import annotations
 
 import hashlib
 import struct
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
-__all__ = ["DenseCrashWindow", "DenseFaultPlan", "stateless_unit", "stateless_unit_array",
-           "stateless_word"]
+__all__ = ["CrashWindow", "DenseCrashWindow", "DenseFaultPlan", "FaultPlan", "chaos_plan",
+           "lossy_plan", "stateless_unit", "stateless_unit_array", "stateless_word"]
+
+# integer tags for message kinds (stable fault-decision identity)
+_KIND_TAG = {"block": 0, "attestation": 1, "slashing": 2}
 
 
 def stateless_word(seed: int, *key: int) -> int:
@@ -51,6 +59,156 @@ def stateless_unit_array(seed: int, *key: int, n: int) -> np.ndarray:
         z = (z ^ (z >> np.uint64(27))) * _SM_M2
         z = z ^ (z >> np.uint64(31))
     return z.astype(np.float64) / 2.0**64
+
+
+@dataclass(frozen=True)
+class CrashWindow:
+    """View group ``group`` is down for slots [crash_slot, rejoin_slot):
+    it processes nothing, receives nothing (messages in flight are lost),
+    and at ``rejoin_slot`` rejoins by checkpoint sync from a live peer."""
+
+    group: int
+    crash_slot: int
+    rejoin_slot: int
+
+    def __post_init__(self):
+        assert self.crash_slot < self.rejoin_slot, "empty crash window"
+
+
+@dataclass
+class FaultPlan:
+    """Composable message-fault policy; attach via ``Schedule.faults``."""
+
+    seed: int = 0
+    # Per-(message, recipient-group) probabilities, active before GST.
+    drop_p: float = 0.0
+    duplicate_p: float = 0.0
+    reorder_p: float = 0.0
+    # A reordered (or duplicated) copy lands up to this many seconds late —
+    # the adversary's "target a message for delivery ... just before a
+    # certain point in time" capability (pos-evolution.md:1328) expressed
+    # as bounded jitter.
+    reorder_max_delay: float = 4.0
+    # Global stabilization time in seconds since genesis; None = faults
+    # stay active for the whole run (no partial-synchrony window).
+    gst: float | None = None
+    crashes: tuple = ()
+    # Observability: when True, every non-trivial fault decision appends a
+    # dict to ``log`` (tests assert drop invariants against it). The log
+    # is NOT part of simulation state: a resumed run re-records only
+    # post-resume decisions.
+    record_log: bool = False
+    log: list = field(default_factory=list)
+    # Telemetry sink (an ``EventBus`` or anything with ``.emit``): every
+    # non-trivial decision also lands as a ``fault`` event carrying the
+    # seeded hash inputs that decided it — (seed, kind tag, slot, src,
+    # msg_id, dst) plus the drawn uniform and its threshold — so a run
+    # report can attribute "why did THIS message vanish" without the live
+    # plan. Like ``log``, the sink is not simulation state (the driver
+    # re-attaches it on resume alongside the schedule).
+    sink: object = None
+
+    # -- stateless randomness --------------------------------------------------
+
+    def _unit(self, *key: int) -> float:
+        """Uniform [0, 1) from a hash of (seed, key): no RNG stream, no
+        call-order dependence — the same message identity always draws the
+        same number, before or after a checkpoint/resume."""
+        return stateless_unit(self.seed, *key)
+
+    # -- message faults --------------------------------------------------------
+
+    def active(self, time: float) -> bool:
+        """Message faults apply only before GST (pos-evolution.md:199)."""
+        return self.gst is None or time < self.gst
+
+    def delivery_offsets(self, kind: str, slot: int, src: int, msg_id: int,
+                         dst_group: int, base_time: float) -> list[float]:
+        """Extra delays (seconds, added to the scheduled delivery time) for
+        each copy of one (message, recipient-group) delivery. ``[]`` means
+        dropped; two entries mean duplicated; a single nonzero entry is a
+        reorder past later-sent messages."""
+        if not self.active(base_time):
+            return [0.0]
+        tag = _KIND_TAG.get(kind, 3)
+        key = (tag, slot, src, msg_id, dst_group)
+        if self.drop_p > 0.0:
+            u = self._unit(0, *key)
+            if u < self.drop_p:
+                self._log("drop", kind, slot, src, msg_id, dst_group,
+                          u=u, p=self.drop_p)
+                return []
+        offsets = [0.0]
+        if self.reorder_p > 0.0:
+            u = self._unit(1, *key)
+            if u < self.reorder_p:
+                offsets = [self._unit(2, *key) * self.reorder_max_delay]
+                self._log("reorder", kind, slot, src, msg_id, dst_group,
+                          u=u, p=self.reorder_p, delay_s=offsets[0])
+        if self.duplicate_p > 0.0:
+            u = self._unit(3, *key)
+            if u < self.duplicate_p:
+                extra = self._unit(4, *key) * self.reorder_max_delay
+                offsets.append(extra)
+                self._log("duplicate", kind, slot, src, msg_id, dst_group,
+                          u=u, p=self.duplicate_p, delay_s=extra)
+        return offsets
+
+    def _log(self, action: str, kind: str, slot: int, src: int, msg_id: int,
+             dst_group: int, u: float | None = None, p: float | None = None,
+             delay_s: float | None = None) -> None:
+        if self.record_log:
+            self.log.append({"action": action, "kind": kind, "slot": slot,
+                             "src": src, "msg_id": msg_id, "dst": dst_group})
+        if self.sink is not None:
+            # fault attribution: the full seeded-hash identity that decided
+            # this fate, replayable via _unit(seed, tag, slot, src, msg_id,
+            # dst) — enough for run_report to explain any one lost message
+            ev = {"action": action, "kind": kind, "slot": slot, "src": src,
+                  "msg_id": msg_id, "dst": dst_group, "seed": self.seed,
+                  "tag": _KIND_TAG.get(kind, 3)}
+            if u is not None:
+                # unrounded: JSON round-trips doubles losslessly, and the
+                # replay contract (DESIGN.md §11) is EXACT equality with
+                # re-drawing this identity through _unit
+                ev["u"] = u
+                ev["threshold"] = p
+            if delay_s is not None:
+                ev["delay_s"] = round(delay_s, 6)
+            self.sink.emit("fault", **ev)
+
+    def dropped(self, kind: str | None = None) -> list[dict]:
+        """Recorded drop events (requires ``record_log=True``)."""
+        return [e for e in self.log if e["action"] == "drop"
+                and (kind is None or e["kind"] == kind)]
+
+    # -- crash windows ---------------------------------------------------------
+
+    def crashed(self, group: int, slot: int) -> bool:
+        """Pure function of the slot — no crash state to checkpoint."""
+        return any(w.group == group and w.crash_slot <= slot < w.rejoin_slot
+                   for w in self.crashes)
+
+    def rejoins(self, group: int, slot: int) -> bool:
+        """True exactly at the slot where ``group`` comes back up (and is
+        not immediately re-crashed by an overlapping window)."""
+        return (any(w.group == group and w.rejoin_slot == slot
+                    for w in self.crashes)
+                and not self.crashed(group, slot))
+
+
+def lossy_plan(seed: int = 0, drop_p: float = 0.1,
+               gst: float | None = None) -> FaultPlan:
+    """Message loss only — the minimal ebb-and-flow adversary."""
+    return FaultPlan(seed=seed, drop_p=drop_p, gst=gst)
+
+
+def chaos_plan(seed: int = 0, drop_p: float = 0.05, duplicate_p: float = 0.05,
+               reorder_p: float = 0.1, gst: float | None = None,
+               crashes: tuple = ()) -> FaultPlan:
+    """Drops + duplicates + reorders + optional crash windows."""
+    return FaultPlan(seed=seed, drop_p=drop_p, duplicate_p=duplicate_p,
+                     reorder_p=reorder_p, gst=gst, crashes=tuple(crashes))
 
 
 # stateless_unit_array decision domains

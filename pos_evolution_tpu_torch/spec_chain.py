@@ -12,8 +12,9 @@ the port's backend (``backend/torch_backend.py``).
    mainnet config that is 64 committees of 512 a slot. Slot 32 crosses
    the first epoch boundary, so ``process_epoch`` runs (the backend's
    epoch sweep and the registry churn on the device).
-3. With ``replay``: the same blocks through a fresh fork-choice store's
-   ``on_block_batch`` (checkpoint sync and backfill), one carried state
+3. With ``replay``: the same blocks (or those after a kept state)
+   through a fresh fork-choice store's ``on_block_batch`` (checkpoint
+   sync and backfill), one carried state
    through the backend's ``multi_block_apply``, so that the block sweep's
    resident columns (Queue 2 B8) are reused or patched from block to
    block.
@@ -132,8 +133,10 @@ class ChainRun:
     final ``state``, the ``blocks``, the ``genesis`` state and ``anchor``
     block (untouched copies), ``pre_epoch`` (the state ``process_epoch``
     meets at the first epoch boundary: the last slot's block and its
-    ``process_slot`` applied; None when the chain stops short of it) and
-    ``roots`` (the state root after every block)."""
+    ``process_slot`` applied; None when the chain stops short of it),
+    ``roots`` (the state root after every block) and ``kept`` (copies of
+    the state after the blocks ``run_chain`` was asked to keep, by block
+    number)."""
 
     summary: dict
     state: object
@@ -142,17 +145,20 @@ class ChainRun:
     anchor: object
     pre_epoch: object = None
     roots: list = field(default_factory=list)
+    kept: dict = field(default_factory=dict)
 
 
-def run_chain(n: int = N_MAINNET, slots: int = 33, *, device="cuda", cfg=None) -> ChainRun:
+def run_chain(n: int = N_MAINNET, slots: int = 33, *, device="cuda", cfg=None,
+              keep=()) -> ChainRun:
     """Genesis and a block a slot for ``slots`` slots on ``device`` under
     ``cfg`` (mainnet by default), every block checked by
-    ``state_transition``. Sets the active config and backend for its
-    duration."""
+    ``state_transition``; a copy of the state after each block numbered
+    in ``keep`` is kept for ``replay``. Sets the active config and backend
+    for its duration."""
     cfg = cfg or spec_config.mainnet_config()
     dev = resolve_device(device)
     with spec_config.use_config(cfg), use_backend("torch", device=dev):
-        return _run_chain(n, slots, dev, cfg)
+        return _run_chain(n, slots, dev, cfg, set(keep))
 
 
 def _sync(dev) -> None:
@@ -160,7 +166,7 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _run_chain(n, slots, dev, cfg) -> ChainRun:
+def _run_chain(n, slots, dev, cfg, keep) -> ChainRun:
     b8.reset_session()
     t0 = time.perf_counter()
     k0 = _k2()
@@ -174,7 +180,7 @@ def _run_chain(n, slots, dev, cfg) -> ChainRun:
     build_ms, attest_ms, transition_ms, roots, blocks = [], [], [], [], []
     head = hash_tree_root(anchor)
     atts = []
-    pre_epoch = None
+    pre_epoch, kept = None, {}
     pk_states = precompute_pk_states(state.validators.pubkeys, dev)
     b8_0 = b8.session_stats()
     k0, htr0 = _k2(), incremental.stats()["htr_calls"]
@@ -191,6 +197,8 @@ def _run_chain(n, slots, dev, cfg) -> ChainRun:
         blocks.append(sb)
         head = hash_tree_root(sb.message)
         roots.append(bytes(sb.message.state_root))
+        if slot in keep:
+            kept[slot] = state.copy()
         if (slot + 1) % cfg.slots_per_epoch == 0 and pre_epoch is None:
             pre_epoch = state.copy()
             process_slot(pre_epoch)
@@ -215,7 +223,7 @@ def _run_chain(n, slots, dev, cfg) -> ChainRun:
         "finalized_epoch": int(state.finalized_checkpoint.epoch),
         "final_root": hash_tree_root(state).hex(),
     }
-    return ChainRun(summary, state, blocks, genesis, anchor, pre_epoch, roots)
+    return ChainRun(summary, state, blocks, genesis, anchor, pre_epoch, roots, kept)
 
 
 def boundary(pre_epoch, *, device="cuda", cfg=None):
@@ -234,27 +242,34 @@ def boundary(pre_epoch, *, device="cuda", cfg=None):
     return state, ms
 
 
-def replay(run: ChainRun, *, device="cuda", cfg=None) -> dict:
-    """``run``'s blocks through a fresh store's ``on_block_batch``, from
-    its genesis. Returns the replay's numbers and final state root."""
+def replay(run: ChainRun, *, device="cuda", cfg=None, start: int = 0) -> dict:
+    """``run``'s blocks after block ``start`` through a fresh store's
+    ``on_block_batch``: from its genesis when ``start`` is 0, else
+    anchored (checkpoint sync) at block ``start`` and the state after it,
+    which ``run_chain(keep=)`` kept. Returns the replay's numbers and
+    final state root."""
     cfg = cfg or spec_config.mainnet_config()
     dev = resolve_device(device)
+    chain = run.blocks[start:]
     with spec_config.use_config(cfg), use_backend("torch", device=dev):
         b8.reset_session()
-        genesis = run.genesis.copy()
-        store = get_forkchoice_store(genesis, run.anchor.copy())
-        last = run.blocks[-1].message
-        on_tick(store, int(genesis.genesis_time) + cfg.seconds_per_slot * int(last.slot))
+        if start:
+            anchor_state, anchor = run.kept[start], run.blocks[start - 1].message
+        else:
+            anchor_state, anchor = run.genesis, run.anchor
+        store = get_forkchoice_store(anchor_state, anchor)
+        last = chain[-1].message
+        on_tick(store, int(anchor_state.genesis_time) + cfg.seconds_per_slot * int(last.slot))
         s0, k0 = b8.session_stats(), _k2()
         t0 = time.perf_counter()
-        on_block_batch(store, run.blocks)
+        on_block_batch(store, chain)
         _sync(dev)
         seconds = time.perf_counter() - t0
         s1 = b8.session_stats()
         final = store.block_states[hash_tree_root(last)]
         return {
-            "blocks": len(run.blocks), "seconds": seconds,
-            "blocks_per_s": len(run.blocks) / seconds,
+            "blocks": len(chain), "seconds": seconds,
+            "blocks_per_s": len(chain) / seconds,
             "k2_launches": _k2() - k0,
             "b8": {k: s1[k] - s0[k] for k in s0},
             "finalized_epoch": int(store.finalized_checkpoint.epoch),

@@ -1056,3 +1056,56 @@ def test_spec_chain_one_epoch_equals_cpu(cuda):
     assert card.summary["state_roots"] > 0 and k2 >= card.summary["state_roots"]
     assert card.summary["epoch_sweeps"] == host.summary["epoch_sweeps"] == 2
     assert spec_chain.replay(card, device=cuda)["final_root"] == card.summary["final_root"]
+
+
+def test_spec_driver_one_epoch_equals_cpu(cuda):
+    """The spec driver (``sim/driver.Simulation``) at 1,024 validators,
+    mainnet config, with the resident fork choice, for one epoch on the
+    card and on the CPU: equal per-slot records, no resident store
+    degraded, every card head query on the card's resident store, and K2
+    under the card's state roots."""
+    from pos_evolution_tpu_torch.config import mainnet_config, use_config
+    from pos_evolution_tpu_torch.sim.driver import Simulation
+    runs = {}
+    with use_config(mainnet_config()):
+        for dev in (cuda, "cpu"):
+            before = kernels.launches["merkle_level"]
+            sim = Simulation(1024, accelerated_forkchoice=True, device=dev)
+            for g in sim.groups:
+                g.resident.selfcheck_every = 1
+            sim.run_epochs(1)
+            runs[str(dev)] = (sim, kernels.launches["merkle_level"] - before)
+    (card, k2), (host, k2_host) = runs[str(cuda)], runs["cpu"]
+    assert card.metrics == host.metrics and len(card.metrics) == 33
+    for sim in (card, host):
+        res = sim.groups[0].resident
+        assert not res.degraded and res.incidents == []
+    res = card.groups[0].resident
+    assert res.buckets.device.type == "cuda" and res.stats["device_heads"] > 0
+    assert k2 > 0 and k2_host == 0
+
+
+def test_b9_card_equals_cpu(cuda):
+    """The incremental vote buckets (Queue 2 B9) on the card against the
+    CPU at a 65,536-row table and a 4,096-vote batch with duplicates."""
+    from pos_evolution_tpu_torch.ops import forkchoice as ofc
+    rng = np.random.default_rng(5)
+    n, nb, k = 65_536, 256, 4096
+    mb = rng.integers(-1, nb, n).astype(np.int32)
+    me = np.where(mb >= 0, rng.integers(0, 6, n), 0).astype(np.int64)
+    w = rng.integers(1, 64, n).astype(np.int64) * 10**9
+    val = rng.integers(0, 1500, k).astype(np.int32)
+    block = rng.integers(-1, nb, k).astype(np.int32)
+    epoch = rng.integers(0, 8, k).astype(np.int64)
+    active = rng.random(k) < 0.9
+    args = [torch.from_numpy(a) for a in (mb, me)]
+    host_b = ofc.rebuild_buckets(args[0], torch.from_numpy(w), nb)
+    extra = [torch.from_numpy(a) for a in (val, block, epoch, w[val], active)]
+    host = ofc.apply_latest_messages(*args, host_b, *extra)
+    card = ofc.apply_latest_messages(*(a.to(cuda) for a in args), host_b.to(cuda),
+                                     *(a.to(cuda) for a in extra))
+    assert all(torch.equal(c.cpu(), h) for c, h in zip(card, host))
+    hw = ofc.rebuild_epoch_buckets(args[0], args[1], torch.from_numpy(w), nb, 4, 2)
+    cw = ofc.rebuild_epoch_buckets(args[0].to(cuda), args[1].to(cuda),
+                                   torch.from_numpy(w).to(cuda), nb, 4, 2)
+    assert torch.equal(cw.cpu(), hw)

@@ -249,3 +249,44 @@ def test_chip_smoke_imports_without_jax_and_refuses_cpu():
     assert proc.returncode == 2, proc.stderr
     assert "ok" not in proc.stdout
     assert "blocked import" not in proc.stderr
+
+
+def test_spec_driver_runs_with_jax_blocked():
+    """The spec driver's modules (``sim.driver``, ``ops.resident``,
+    ``utils.snapshot``, ``utils.metrics``, ``variants``) import, and a
+    small accelerated ``Simulation`` with a faulted schedule, an
+    equivocator and the default monitors runs, checkpoints and resumes,
+    and a Goldfish run proceeds, on the CPU with jax and
+    pos_evolution_tpu impossible to import."""
+    proc = _run_blocked("""
+        import importlib
+        for name in ("sim.driver", "ops.resident", "utils.snapshot", "utils.metrics",
+                     "variants", "sim.monitors", "sim.adversary", "sim.attacks"):
+            importlib.import_module("pos_evolution_tpu_torch." + name)
+        from pos_evolution_tpu_torch import config as tc
+        from pos_evolution_tpu_torch import sim
+        from pos_evolution_tpu_torch.variants import GoldfishVariant
+        with tc.use_config(tc.minimal_config()):
+            plan = sim.FaultPlan(seed=1, drop_p=0.1, crashes=(sim.CrashWindow(1, 3, 6),))
+            s = sim.Simulation(32, schedule=sim.faulty_schedule(32, plan, n_groups=2),
+                               accelerated_forkchoice=True, device="cpu",
+                               adversaries=[sim.Equivocator({0, 1})],
+                               monitors=sim.default_monitors())
+            s.run_until_slot(7)
+            back = sim.Simulation.resume(s.checkpoint(),
+                                         schedule=sim.faulty_schedule(32, plan, n_groups=2),
+                                         device="cpu", adversaries=[sim.Equivocator({0, 1})],
+                                         monitors=sim.default_monitors())
+            s.run_until_slot(9)
+            back.run_until_slot(9)
+            assert back.metrics == s.metrics
+            assert not any(g.resident.degraded for g in s.groups)
+            g = sim.Simulation(16, variant=GoldfishVariant(), device="cpu")
+            g.run_until_slot(4)
+            assert g.metrics[-1]["n_blocks"] > 1
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not bad, bad
+        print("ran", s.metrics[-1]["head_root"])
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ran")

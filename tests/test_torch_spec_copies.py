@@ -1,4 +1,6 @@
-"""The port's copies of the JAX package's jax-free spec layer: each copied
+"""The port's copies of the JAX package's jax-free spec layer, and of the
+spec driver's schedules, monitors, adversaries, attacks and protocol
+variants: each copied
 module's source equals its original with ``pos_evolution_tpu.`` replaced
 by ``pos_evolution_tpu_torch.`` and nothing else, and the FakeBLS
 signature prefix the copy carries is the one kernel K1's wrapper hashes."""
@@ -29,6 +31,17 @@ COPIES = [
     "specs/deposits.py",
     "specs/slasher.py",
     "specs/weak_subjectivity.py",
+    "models/pvm.py",
+    "sim/schedule.py",
+    "sim/monitors.py",
+    "sim/adversary.py",
+    "sim/attacks.py",
+    "variants/__init__.py",
+    "variants/base.py",
+    "variants/gasper.py",
+    "variants/goldfish.py",
+    "variants/rlmd.py",
+    "variants/ssf.py",
 ]
 
 

@@ -319,6 +319,20 @@ def test_replay_of_carried_blocks_equals_jax():
     _assert_states_equal(js, tstore.block_states[last])
 
 
+def test_spec_chain_replay_from_a_kept_state():
+    """``replay(start=k)`` anchors a fresh store at block ``k`` and the state
+    ``run_chain(keep=(k,))`` kept after it, and replays the blocks after it
+    across the epoch boundary to the chain's final state root."""
+    c = tc.minimal_config()
+    k = c.slots_per_epoch - 2
+    run = spec_chain.run_chain(64, c.slots_per_epoch + 2, device="cpu", cfg=c, keep=(k,))
+    assert list(run.kept) == [k] and thtr(run.kept[k]) == run.roots[k - 1]
+    rep = spec_chain.replay(run, device="cpu", cfg=c, start=k)
+    assert rep["blocks"] == 4 and rep["final_root"] == run.summary["final_root"]
+    assert rep["b8"]["sweeps"] == 4, "every block after the anchor carries attestations"
+    assert thtr(run.kept[k]) == run.roots[k - 1], "the kept state is left as it was"
+
+
 def test_spec_chain_run_and_replay_agree():
     """``spec_chain``'s chain (its own attestations) and its replay reach one
     root, equal to the chain of ``attest_all_committees`` blocks."""
