@@ -46,7 +46,8 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     and the same run checkpointed after epoch 1 and resumed on the card:
     equal metrics, monitor violations, evidence and digest;
 12. the dense driver on the card against the CPU at n = 256 (honest) and
-    n = 384 (the faulted composition);
+    n = 384 (the faulted composition), in child processes during phases
+    32-33 and checked there;
 13. time the dense path: seconds per simulated epoch, its phase budget,
     and the device's busy share under ``torch.profiler`` over one epoch;
     K1 at the path's shape against its bound;
@@ -191,15 +192,24 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     of phases 10, 17 and 24, run beside them. Phase 32's times are taken
     with those children running;
 35. drive the spec driver's path once -- ``sim/driver.run_scale``:
-    ``Simulation(65,536, accelerated_forkchoice=True)`` under the mainnet
-    config for 4 epochs, the resident fork-choice store on the card --
-    with the launch counts zeroed just before and read just after:
-    justified >= 3 and finalized >= 2, the resident head equal to
-    ``get_head_host`` and the spec walk, no resident store degraded, K2
-    under the state roots, fresh device head queries and memo answers
-    adding up to the head queries; s per epoch, the handlers' p50 and
-    p95, and a fresh head query's and a 2,048-vote flush's launches and
-    ms under ``torch.profiler``;
+    ``Simulation(65,536, accelerated_forkchoice=True, das="merkle")``
+    under the mainnet config with the PeerDAS geometry (``sim/driver.
+    PEERDAS``: 128 extended cells of 2,048 bytes, 9 blobs a block) for 4
+    epochs, 100,000 sampling clients and 8 light clients attached, the
+    resident fork-choice store on the card -- with the launch counts
+    zeroed just before and read just after: justified >= 3 and finalized
+    >= 2, the resident head equal to ``get_head_host`` and the spec walk,
+    no resident store degraded, K2 under the state roots, fresh device
+    head queries and memo answers adding up to the head queries; 9
+    sidecars built and accepted a proposal, none refused; every served
+    block verified with all 100,000 clients satisfied; after
+    ``flush_light_clients`` every light client on the full node's
+    finalized checkpoint root, none rejected; the rider phases' launches
+    a call (``RIDER_LAUNCHES``: K1, K2, K6, K7); s per epoch and the
+    riders' seconds by phase, the handlers' and the light clients' p50
+    and p95, the sample serving's latencies, coalescing and verify ms,
+    the best update a fresh head, and a fresh head query's and a
+    2,048-vote flush's launches and ms under ``torch.profiler``;
 36. the twins, the card against the CPU backend (both run in child
     processes during phases 32-33), equal in every per-slot record, view,
     violation and piece of evidence, no resident store degraded: BASELINE
@@ -207,10 +217,21 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     faulted and adversarial run at 1,024 for 2 epochs (drops, duplicates,
     reorders, a crash-restart by checkpoint sync, an equivocator with
     1/16 of the stake, the default monitors), its checkpoint after epoch
-    1 resumed on the card equal to it; Goldfish and SSF at 256;
+    1 resumed on the card equal to it; Goldfish and SSF at 256; the
+    riders at 1,024 under the PeerDAS geometry and a lossy plan (2,000
+    samplers, 2 light clients, 8 slots), its checkpoint after slot 4
+    resumed on the card equal to it in every record, blob key and served
+    block;
 37. B9 (``ops/forkchoice.py``'s incremental vote buckets) on the card
     against the CPU at the path's shapes (65,536 rows, 4,096 votes with
-    duplicates), timed.
+    duplicates), timed;
+38. the kzg rider on the card, counted, in a child process during phases
+    32-33: 1,024 validators, the PeerDAS geometry,
+    ``das=BlobEngine(scheme="kzg")``, 16 samplers, 2 slots --
+    every sidecar accepted, every served aggregate proof verifying, K10
+    and K11 launched a proposal as phase 30 counts them; and its twin,
+    the card against the CPU at the minimal geometry (16 validators, 1
+    blob), run in child processes during phases 32-33.
 
 Between phase groups it prints the seconds since the start (``lap``).
 
@@ -318,8 +339,10 @@ from pos_evolution_tpu_torch.sim import (  # noqa: E402
     Simulation,
     default_monitors,
     faulty_schedule,
+    lossy_plan,
 )
-from pos_evolution_tpu_torch.sim.driver import run_scale  # noqa: E402
+from pos_evolution_tpu_torch.sim.driver import PEERDAS, run_scale  # noqa: E402
+from pos_evolution_tpu_torch.config import minimal_config, use_config  # noqa: E402
 from pos_evolution_tpu_torch.variants import GoldfishVariant, SsfVariant  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): 3.35 TB/s of HBM;
@@ -393,7 +416,6 @@ ADDSUB_OPS = ("modadd", "modsub", "modneg", "canon")     # K4's one-step tapes
 # 2,048 bytes, k = 64; EIP-7691: 9 blobs a block), 100,000 sampling clients
 # and 100,000 light clients (das/sampler.py's range), sync batches of 2,048
 # updates of 512 lanes (K1's epoch shape)
-PEERDAS = dict(das_cells_per_blob=64, das_cell_bytes=2048, das_max_blobs_per_block=9)
 DAS_BLOBS, DAS_K, DAS_CELL, DAS_CLIENTS = 9, 64, 2048, 100_000
 DAS_RIDERS = ({"kind": "das", "scheme": "merkle", "n_blobs": DAS_BLOBS,
                "n_clients": DAS_CLIENTS, "samples_per_client": 8, "seed": 0, "verify_every": 1},
@@ -493,7 +515,35 @@ SPEC_REPLAY_FROM = SPEC_SLOTS - SPEC_REPLAY_BLOCKS
 # 1,024 validators and the variants at 256; B9 at the path's table and a slot pair's votes
 DRIVER_N, DRIVER_EPOCHS, DRIVER_TWIN_N, DRIVER_VARIANT_N = 65_536, 4, 1024, 256
 B9_ROWS, B9_VOTES = 65_536, 4096
-DRIVER_TWINS = ("chaos", "config1", "goldfish", "ssf")
+DRIVER_TWINS = ("chaos", "config1", "goldfish", "ssf", "riders")
+# the spec driver's riders (phase 35; scripts/das_demo.py's): das="merkle" under the
+# PeerDAS geometry, 100,000 samplers of 8 samples over a window of 2 blocks, 8 light
+# clients flushed at the end
+DRIVER_DAS_CLIENTS, DRIVER_LIGHT_CLIENTS = 100_000, 8
+# phase 35's launches a call of each rider phase (sim/driver.RiderMeter), by kernel:
+# a proposal's build (K6 for the counter streams and the cell leaves, K7 the
+# extension, K2 the 7 tree levels), one sidecar's ingest (its commitment and its
+# reconstruction), one light client's update (a batch of 1: K6 the committee's
+# midstates, K1, K2 the 6 + 5 branch levels)
+RIDER_LAUNCHES = {"blob_build": {"sha256_blocks": 2, "gf256_matmul": 1, "merkle_level": 7},
+                  "sidecar_ingest": {"sha256_blocks": 1, "gf256_matmul": 1, "merkle_level": 7},
+                  "lc_update": {"sha256_blocks": 1, "agg_sig": 1, "merkle_level": 11}}
+# phase 36's rider twin at DRIVER_TWIN_N: the PeerDAS geometry under a lossy plan,
+# RIDER_TWIN_CLIENTS samplers and RIDER_TWIN_LCS light clients for RIDER_TWIN_SLOTS slots,
+# the checkpoint after RIDER_TWIN_CKPT resumed on the card
+# (a slot of it costs ~10 s on the CPU backend, the plain SHA-256 over 9 x 128 cells of
+# 2,048 bytes: the depth is cut from 2 epochs to 8 slots to fit beside phases 32-34)
+RIDER_TWIN_CLIENTS, RIDER_TWIN_LCS, RIDER_TWIN_SLOTS, RIDER_TWIN_CKPT = 2000, 2, 8, 4
+# phase 38: the kzg rider on the card (1,024 validators, the PeerDAS geometry, 16
+# samplers), and its twin, card against CPU, at the minimal geometry (16 validators, 1 blob)
+# through slot 1 (one proposal and one aggregate proof: a pairing check on the CPU
+# backend's plain field arithmetic takes ~30 s)
+# (4 slots cut to 2, and run in a child process beside phases 32-33, to keep the smoke
+# inside its budget: a served kzg block is ~6 s of host work)
+KZG_DRIVER_N, KZG_DRIVER_SLOTS, KZG_DRIVER_CLIENTS = 1024, 2, 16
+KZG_TWIN_N, KZG_TWIN_SLOTS = 16, 1
+KZG_PROPOSAL_LAUNCHES = {"fr_ntt": 2, "fr_ew": 2, **{f"g1_bucket_{s}": 1 for s in (
+    "recode", "scan", "scatter", "fill", "totals", "reduce")}}
 SPEC_STATE_COLUMNS = ("balances", "previous_epoch_participation",
                       "current_epoch_participation", "inactivity_scores")
 SPEC_REGISTRY_COLUMNS = ("pubkeys", "withdrawal_credentials", "effective_balance", "slashed",
@@ -814,6 +864,23 @@ def dense_twin() -> dict:
     t0 = time.perf_counter()
     ref = run_record(dense_sim(dev, plain=True), DENSE_PLAIN_EPOCHS)
     return {"equal": ref == short, "plain_s": time.perf_counter() - t0}
+
+
+# phase 12's small dense runs: (make, n, epochs, keywords) by label
+SMALL_DENSE = {"honest": ("dense_sim", 256, 4, {"seed": 11, "check_walk_every": 8}),
+               "chaos": ("chaos_sim", 384, 3, {})}
+
+
+def small_dense_twin(label: str) -> dict:
+    """Phase 12's ``label`` run on the CPU and on the card (a child
+    process): the keys of ``run_record`` where the two differ."""
+    t0 = time.perf_counter()
+    make, n, epochs, kw = SMALL_DENSE[label]
+    make = globals()[make]
+    a_cpu = run_record(make("cpu", n, **kw), epochs)
+    a_dev = run_record(make("cuda", n, **kw), epochs)
+    return {"label": label, "n": n, "epochs": epochs, "s": time.perf_counter() - t0,
+            "bad": [k for k in a_cpu if a_cpu[k] != a_dev[k]]}
 
 
 def run_record(sim, epochs: int) -> dict:
@@ -2655,7 +2722,7 @@ def spec_phases(dev, card: str, deferred: list) -> dict:
     chain, which leaves the card mostly idle; each checker takes its
     twin's result at the end. Returns the spec chain's launches by
     kernel."""
-    with ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn"),
+    with ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("spawn"),
                              initializer=torch.set_num_threads, initargs=(2,)) as pool:
         twins = {d: pool.submit(spec_twin_chain, d) for d in ("cuda", "cpu")}
         futures = [(pool.submit(fn, *args), done) for fn, args, done in deferred]
@@ -2772,13 +2839,67 @@ def driver_record(sim) -> dict:
                           (g.resident.degraded, list(g.resident.incidents)) for g in sim.groups]}
 
 
+def spec_rider_sim(device, resume: bytes | None = None):
+    """Phase 36's rider twin on ``device`` under the active (PeerDAS)
+    config: ``Simulation(DRIVER_TWIN_N, das=True)`` with the resident fork
+    choice under ``lossy_plan(seed=13, drop_p=0.15)`` up to the first
+    epoch's end, RIDER_TWIN_CLIENTS samplers and RIDER_TWIN_LCS light
+    clients; or the checkpoint ``resume`` resumed, its samplers attached
+    again (light clients are not simulation state)."""
+    plan = lossy_plan(seed=13, drop_p=0.15, gst=32 * 12)
+    schedule = faulty_schedule(DRIVER_TWIN_N, plan)
+    if resume is not None:
+        sim = Simulation.resume(resume, schedule=schedule, das=True, device=device)
+    else:
+        sim = Simulation(DRIVER_TWIN_N, schedule=schedule, accelerated_forkchoice=True,
+                         das=True, device=device)
+        for _ in range(RIDER_TWIN_LCS):
+            sim.attach_light_client()
+    sim.attach_das_clients(RIDER_TWIN_CLIENTS, seed=7)
+    return sim
+
+
+#: a served summary's fields that are wall-clock times or depend on the proof
+#: cache's history (a resumed run's server starts cold)
+SERVE_VOLATILE = ("p50_ms", "p95_ms", "verify_ms", "cache_hits", "cache_misses",
+                  "cache_hit_rate")
+
+
+def spec_rider_record(sim) -> dict:
+    """What two rider runs must agree on beyond ``driver_record``: each
+    view's verified blob keys, every served summary (its times aside),
+    the server's counters, the refused sidecars, each view's imported
+    blocks whose sidecars it does not hold (none: ``on_block`` gates on
+    them), each light client's
+    summary (its times aside), records and finalized root."""
+    lcs = []
+    for node in sim.light_clients:
+        summary = node.summary()
+        summary.pop("timing")
+        lcs.append((summary, node.records, node.finalized_root().hex()))
+    srv = sim.das_server
+    return {"blob_keys": [sorted((r.hex(), i) for r, i in g.blob_store.sidecars)
+                          for g in sim.groups],
+            "unavailable": [sum(not g.blob_store.is_available(r, b)
+                                for r, b in g.store.blocks.items()) for g in sim.groups],
+            "served": [{k: v for k, v in x.items() if k not in SERVE_VOLATILE[:3]}
+                       for x in sim.das_serves],
+            "server": (srv.served_blocks, srv.samples_served, srv.scheme_builds,
+                       srv.proof_cache.hits, srv.proof_cache.misses),
+            "rejected": sim.meter.rejected_sidecars, "light_clients": lcs,
+            "archived": sum(len(v) for v in sim.blob_archive.values()),
+            "final_root": bytes(sim.groups[0].store.finalized_checkpoint.root).hex()}
+
+
 def driver_run(kind: str, device: str) -> dict:
     """One of phase 36's runs on ``device`` (a child process during phases
     32-33): ``config1`` (BASELINE config 1,
     LMD-GHOST at 1,024 validators for 32 slots, every fresh head audited),
     ``chaos`` (``driver_chaos`` for 2 epochs, checkpointed after epoch 1;
     the checkpoint resumed with fresh adversaries and monitors and run to
-    epoch 2 too), ``goldfish`` or ``ssf`` (256 validators, 1 epoch)."""
+    epoch 2 too), ``goldfish`` or ``ssf`` (256 validators, 1 epoch),
+    ``riders`` (``spec_rider_sim``, its checkpoint resumed on the card) or
+    ``kzg`` (phase 38's twin: the kzg rider at the minimal geometry)."""
     t0 = time.perf_counter()
     k2 = kernels.launches["merkle_level"]
     out = {}
@@ -2789,6 +2910,26 @@ def driver_run(kind: str, device: str) -> dict:
         sim.run_until_slot(31)
         out["stats"] = dict(sim.groups[0].resident.stats)
         out["head_queries"] = len(sim.timer.samples["get_head"])
+    elif kind == "riders":
+        with use_config(mainnet_config().replace(**PEERDAS)):
+            sim = spec_rider_sim(device)
+            sim.run_until_slot(RIDER_TWIN_CKPT)
+            data = sim.checkpoint()
+            sim.run_until_slot(RIDER_TWIN_SLOTS)
+            sim.flush_light_clients()
+            out["riders"] = spec_rider_record(sim)
+            if device != "cpu":
+                back = spec_rider_sim(device, resume=data)
+                back.run_until_slot(RIDER_TWIN_SLOTS)
+                out["resumed"] = {**driver_record(back), "riders": spec_rider_record(back)}
+            out["checkpoint"] = hashlib.sha256(data).hexdigest()
+    elif kind == "kzg":
+        with use_config(minimal_config()):
+            sim = Simulation(KZG_TWIN_N, device=device, das=BlobEngine(
+                minimal_config(), n_blobs=1, scheme="kzg", device=device))
+            sim.attach_das_clients(KZG_DRIVER_CLIENTS)
+            sim.run_until_slot(KZG_TWIN_SLOTS)
+            out["riders"] = spec_rider_record(sim)
     elif kind == "chaos":
         schedule, adversaries, monitors = driver_chaos()
         sim = Simulation(DRIVER_TWIN_N, schedule=schedule, accelerated_forkchoice=True,
@@ -2808,7 +2949,7 @@ def driver_run(kind: str, device: str) -> dict:
         sim = Simulation(DRIVER_VARIANT_N, variant=variant, device=device)
         sim.run_epochs(1)
         out["variant_state"] = json.dumps(variant.state_blob(sim), sort_keys=True, default=str)
-    out.update(driver_record(sim), s=time.perf_counter() - t0,
+    out.update(driver_record(sim), s=time.perf_counter() - t0, meter=sim.meter.launches,
                k2=kernels.launches["merkle_level"] - k2,
                devices=sorted({str(g.resident.buckets.device) for g in sim.groups
                                if g.resident is not None}))
@@ -2853,16 +2994,103 @@ def b9_all(t):
             "windowed": windowed, "head": head, "windowed_head": whead}
 
 
+def driver_twin_check(card: str, kind: str, got: dict, want: dict) -> None:
+    """Phase 36 for one twin: the card's run ``got`` against the CPU's
+    ``want`` (``driver_run``), and the kind's own checks."""
+    keys = [k for k in want if k not in ("s", "k2", "devices", "meter")]
+    bad = [k for k in keys if got[k] != want[k]]
+    check(not bad, f"spec driver twin {kind}: the card differs from the CPU in {bad}")
+    check(got["k2"] > 0 and want["k2"] == 0 and all(d.startswith("cuda")
+                                                     for d in got["devices"]),
+          f"spec driver twin {kind}: K2 {got['k2']} / {want['k2']}, residents on "
+          f"{got['devices']}")
+    for rec in (got, got.get("resumed")):
+        if rec is not None:
+            check(all(r is None or r == (False, []) for r in rec["residents"]),
+                  f"spec driver twin {kind}: a resident store degraded: {rec['residents']}")
+    extra = ""
+    if kind == "config1":
+        st = got["stats"]
+        check(st["device_heads"] + st["memo_hits"] == got["head_queries"]
+              and st["device_heads"] > 0, f"config 1: {st}, {got['head_queries']} queries")
+        extra = (f"; {st['device_heads']} fresh head queries each audited by get_head_host, "
+                 f"{st['memo_hits']} memo")
+    if kind == "riders":
+        resumed = got["resumed"]
+        rbad = [k for k in ("metrics", "residents") if resumed[k] != got[k]]
+        if [v[:4] for v in resumed["views"]] != [v[:4] for v in got["views"]]:
+            rbad.append("views")
+        r, rr = got["riders"], resumed["riders"]
+        if rr["blob_keys"] != r["blob_keys"]:
+            rbad.append("blob_keys")
+        tail = r["served"][-len(rr["served"]):] if rr["served"] else []
+        strip = lambda xs: [{k: v for k, v in x.items() if k not in SERVE_VOLATILE}  # noqa: E731
+                            for x in xs]
+        if not rr["served"] or strip(rr["served"]) != strip(tail):
+            rbad.append("served")
+        check(not rbad, f"riders: the resumed run differs from the uninterrupted in {rbad}")
+        served = r["served"]
+        check(r["rejected"] == 0 and r["unavailable"] == [0] * len(r["blob_keys"]),
+              f"riders twin: {r['rejected']} sidecars refused, imported blocks without "
+              f"their sidecars {r['unavailable']}")
+        check(served and all(x["failed"] == 0 and x["clients_all_ok"] == RIDER_TWIN_CLIENTS
+                             for x in served), "riders twin: a served block failed")
+        check(all(lc[2] == r["final_root"] and lc[0]["rejected"] == 0
+                  for lc in r["light_clients"]),
+              "riders twin: a light client is off the full node's finalized root")
+        extra = (f"; {r['archived']} sidecars built, {[len(k) for k in r['blob_keys']]} "
+                 f"held (dropped ones pulled at import), none refused, every imported "
+                 f"block available, "
+                 f"{len(served)} blocks served with no failure, {RIDER_TWIN_LCS} light "
+                 f"clients on the finalized root; the checkpoint after slot "
+                 f"{RIDER_TWIN_CKPT} resumed on the card == the uninterrupted run in "
+                 f"every record, view, blob key and its {len(rr['served'])} served blocks")
+    if kind == "chaos":
+        # Monitors are not simulation state (the JAX package's contract:
+        # a stateful monitor replays exactly only from an episode-start
+        # checkpoint), so the resumed run's fresh accountable-safety
+        # monitor holds no vote seen before the checkpoint and can pair
+        # fewer equivocations into slashings: the views' equivocator
+        # sets may differ from the uninterrupted run's. Nothing else
+        # may, and the resumed run equals the CPU's resumed run (above)
+        # in everything; on the CPU the JAX package resumes such a
+        # checkpoint to the port's record, equivocator sets included
+        # (tests/test_torch_sim_driver.py).
+        resumed = got["resumed"]
+        rbad = [k for k in ("metrics", "residents") if resumed[k] != got[k]]
+        if [v[:4] for v in resumed["views"]] != [v[:4] for v in got["views"]]:
+            rbad.append("views")
+        check(not rbad, f"chaos: the resumed run differs from the uninterrupted in {rbad}")
+        check(got["evidence"] and all(v[4] for v in got["views"]),
+              "chaos: no evidence reached a view's store")
+        extra = (f"; {len(got['evidence'])} slashings of evidence, {len(got['violations'])} "
+                 f"violations, equivocators in the views "
+                 f"{[len(v[4]) for v in got['views']]}; the checkpoint after epoch 1 "
+                 f"({got['checkpoint_bytes']} bytes, == the CPU's) resumed on the card == the "
+                 f"CPU's resumed run, and == the uninterrupted run in every per-slot record "
+                 f"and view checkpoint (equivocators {[len(v[4]) for v in resumed['views']]})")
+    say(f"[{card}] spec driver twin {kind} (child processes during phases 32-33): card "
+        f"{got['s']:.3f} s, {got['k2']} K2 launches == CPU ({want['s']:.3f} s) in every "
+        f"per-slot record ({len(got['metrics'])}), view, "
+        f"violation and piece of evidence; final {got['metrics'][-1]['head_root']} "
+        f"justified {got['metrics'][-1]['justified_epoch']}{extra}")
+
+
 def driver_phases(dev, card: str, twins: dict) -> dict:
     """Phases 35-37. ``twins`` holds phase 36's runs by (kind, device),
     made in child processes during phases 32-33. Returns phase 35's
     launches by kernel."""
-    # 35. the spec driver's path at 65,536 validators, mainnet config, 4 epochs, counted
+    # 35. the spec driver's path at 65,536 validators, mainnet config with the PeerDAS
+    # geometry, its riders attached, 4 epochs, counted
     kernels.reset_launches()
-    out = run_scale(DRIVER_N, DRIVER_EPOCHS, device=dev)
+    with use_config(mainnet_config().replace(**PEERDAS)):
+        out = run_scale(DRIVER_N, DRIVER_EPOCHS, device=dev, das="merkle",
+                        das_clients=DRIVER_DAS_CLIENTS, light_clients=DRIVER_LIGHT_CLIENTS)
     torch.cuda.synchronize()
     launches = {k: v for k, v in kernels.launches.items() if v}
     sim = out.pop("sim")
+    out["riders"]["serves"] = sim.das_serves
+    riders_ok = driver_riders_check(sim, out["riders"], launches)
     check(out["justified_epoch"] >= 3 and out["finalized_epoch"] >= 2,
           f"spec driver: justified {out['justified_epoch']}, finalized {out['finalized_epoch']}")
     check(out["resident_head_equals_spec_walk"] and out["resident_head_equals_host_walk"],
@@ -2883,12 +3111,13 @@ def driver_phases(dev, card: str, twins: dict) -> dict:
         f"no resident store degraded; {out['state_roots']} state roots, "
         f"{out['k2_launches_per_state_root']:.2f} K2 launches each; head queries "
         f"{out['head_queries']} = {st['device_heads']} on the card + {st['memo_hits']} memo; "
-        f"{st['flushes']} flushes, {st['rebuilds']} rebuilds")
+        f"{st['flushes']} flushes, {st['rebuilds']} rebuilds; {riders_ok}")
     say(f"[{card}] spec driver at n={DRIVER_N}: set-up {out['init_s']:.3f} s; per epoch "
         + ", ".join(f"{x:.3f}" for x in out["per_epoch_s"])
         + f" s (mean {sum(out['per_epoch_s']) / DRIVER_EPOCHS:.3f}); after the first epoch "
         + "; ".join(f"{k} p50 {v['p50_ms']:.3f} ms p95 {v['p95_ms']:.3f} ms ({v['count']}, "
                     f"{v['total_s']:.3f} s)" for k, v in sorted(h.items())))
+    driver_riders_report(card, out)
     res, store = sim.groups[0].resident, sim.groups[0].store
     with use_backend(sim.backend):
         def fresh():
@@ -2911,54 +3140,7 @@ def driver_phases(dev, card: str, twins: dict) -> dict:
 
     # 36. the twins: the card against the CPU, and a checkpoint resumed (child processes)
     for kind in DRIVER_TWINS:
-        got, want = twins[(kind, "cuda")], twins[(kind, "cpu")]
-        keys = [k for k in want if k not in ("s", "k2", "devices")]
-        bad = [k for k in keys if got[k] != want[k]]
-        check(not bad, f"spec driver twin {kind}: the card differs from the CPU in {bad}")
-        check(got["k2"] > 0 and want["k2"] == 0 and all(d.startswith("cuda")
-                                                         for d in got["devices"]),
-              f"spec driver twin {kind}: K2 {got['k2']} / {want['k2']}, residents on "
-              f"{got['devices']}")
-        for rec in (got, got.get("resumed")):
-            if rec is not None:
-                check(all(r is None or r == (False, []) for r in rec["residents"]),
-                      f"spec driver twin {kind}: a resident store degraded: {rec['residents']}")
-        extra = ""
-        if kind == "config1":
-            st = got["stats"]
-            check(st["device_heads"] + st["memo_hits"] == got["head_queries"]
-                  and st["device_heads"] > 0, f"config 1: {st}, {got['head_queries']} queries")
-            extra = (f"; {st['device_heads']} fresh head queries each audited by get_head_host, "
-                     f"{st['memo_hits']} memo")
-        if kind == "chaos":
-            # Monitors are not simulation state (the JAX package's contract:
-            # a stateful monitor replays exactly only from an episode-start
-            # checkpoint), so the resumed run's fresh accountable-safety
-            # monitor holds no vote seen before the checkpoint and can pair
-            # fewer equivocations into slashings: the views' equivocator
-            # sets may differ from the uninterrupted run's. Nothing else
-            # may, and the resumed run equals the CPU's resumed run (above)
-            # in everything; on the CPU the JAX package resumes such a
-            # checkpoint to the port's record, equivocator sets included
-            # (tests/test_torch_sim_driver.py).
-            resumed = got["resumed"]
-            rbad = [k for k in ("metrics", "residents") if resumed[k] != got[k]]
-            if [v[:4] for v in resumed["views"]] != [v[:4] for v in got["views"]]:
-                rbad.append("views")
-            check(not rbad, f"chaos: the resumed run differs from the uninterrupted in {rbad}")
-            check(got["evidence"] and all(v[4] for v in got["views"]),
-                  "chaos: no evidence reached a view's store")
-            extra = (f"; {len(got['evidence'])} slashings of evidence, {len(got['violations'])} "
-                     f"violations, equivocators in the views "
-                     f"{[len(v[4]) for v in got['views']]}; the checkpoint after epoch 1 "
-                     f"({got['checkpoint_bytes']} bytes, == the CPU's) resumed on the card == the "
-                     f"CPU's resumed run, and == the uninterrupted run in every per-slot record "
-                     f"and view checkpoint (equivocators {[len(v[4]) for v in resumed['views']]})")
-        say(f"[{card}] spec driver twin {kind} (child processes during phases 32-33): card "
-            f"{got['s']:.3f} s, {got['k2']} K2 launches == CPU ({want['s']:.3f} s) in every "
-            f"per-slot record ({len(got['metrics'])}), view, "
-            f"violation and piece of evidence; final {got['metrics'][-1]['head_root']} "
-            f"justified {got['metrics'][-1]['justified_epoch']}{extra}")
+        driver_twin_check(card, kind, twins[(kind, "cuda")], twins[(kind, "cpu")])
     lap("phase 36")
 
     # 37. B9 on the card against the CPU at the path's shapes
@@ -2976,6 +3158,139 @@ def driver_phases(dev, card: str, twins: dict) -> dict:
         f"output == the CPU's; apply_latest_messages {landed_ms:.3f} ms, the windowed twin "
         f"{window_ms:.3f} ms")
     lap("phase 37")
+    return launches
+
+
+def driver_riders_check(sim, r: dict, launches: dict) -> str:
+    """Phase 35's rider checks: 9 sidecars built a proposal, every one
+    accepted in every view and none refused; every served block verified
+    with every one of the DRIVER_DAS_CLIENTS satisfied; after the flush,
+    every light client on the full node's finalized checkpoint root with
+    no update rejected; each rider phase's launches a call as
+    RIDER_LAUNCHES counts them, and K1, K2, K6 and K7 launched. Returns a
+    line for the log."""
+    sc, srv, lc = r["sidecars"], r["das_server"], r["light_clients"]
+    want = DAS_BLOBS * sc["proposals"]
+    check(sc["proposals"] > 0 and sc["archived"] == want and sc["rejected"] == 0
+          and sc["held"] == [want] * len(sim.groups),
+          f"spec driver riders: sidecars {sc} for {sc['proposals']} proposals of {DAS_BLOBS}")
+    check(srv["served_blocks"] == len(sim.das_serves) > 0 and srv["served_all_ok"]
+          and all(x["clients_all_ok"] == DRIVER_DAS_CLIENTS for x in sim.das_serves),
+          f"spec driver riders: a served block failed or left clients unsatisfied: {srv}")
+    check(len(lc["summaries"]) == DRIVER_LIGHT_CLIENTS and all(lc["on_full_node_finalized_root"])
+          and all(x["rejected"] == 0 and x["applied"] > 0 for x in lc["summaries"]),
+          f"spec driver riders: light clients {lc['on_full_node_finalized_root']}, "
+          f"{[x['rejected'] for x in lc['summaries']]} rejected")
+    per = r["launches_per_call"]
+    for phase, want_launches in RIDER_LAUNCHES.items():
+        check(per.get(phase) == want_launches,
+              f"spec driver riders: {phase} launches a call {per.get(phase)}, want {want_launches}")
+    check(all(launches.get(k, 0) > 0 for k in ("agg_sig", "merkle_level", "sha256_blocks",
+                                               "gf256_matmul")),
+          f"spec driver riders: K1, K2, K6 or K7 not launched: {launches}")
+    return (f"riders: {sc['proposals']} proposals x {DAS_BLOBS} sidecars, every one accepted, "
+            f"none refused; {srv['served_blocks']} blocks served to {DRIVER_DAS_CLIENTS} "
+            f"clients, none failed; {DRIVER_LIGHT_CLIENTS} light clients on the finalized root")
+
+
+def driver_riders_report(card: str, out: dict) -> None:
+    """Phase 35's rider measurements: seconds an epoch by rider phase and
+    the riders' share, launches a call by phase, the sample serving's
+    latencies, coalescing and verify ms, the handlers' and light clients'
+    percentiles, the best update a fresh head."""
+    r = out["riders"]
+    split = " | ".join(", ".join(f"{k} {v:.3f}" for k, v in e.items())
+                       for e in r["rider_s_per_epoch"])
+    say(f"[{card}] spec driver riders, s per epoch by phase: {split}; riders' share "
+        + ", ".join(f"{x:.3f}" for x in r["rider_share"])
+        + f"; calls {json.dumps(r['phase_calls'])}; seconds "
+        + json.dumps({k: round(v, 3) for k, v in r["phase_seconds"].items()}))
+    say("spec driver riders, launches a call: " + json.dumps(
+        {k: {n: round(v, 3) for n, v in d.items()} for k, d in r["launches_per_call"].items()}))
+    srv, lc = r["das_server"], r["light_clients"]
+    serves = r["serves"]
+    say(f"[{card}] serve_samples over {len(serves)} served blocks: p50 "
+        f"{spread([x['p50_ms'] for x in serves])} ms, p95 {spread([x['p95_ms'] for x in serves])} "
+        f"ms, verify {spread([x['verify_ms'] for x in serves])} ms, coalescing "
+        f"{spread([x['coalescing'] for x in serves])}; served {srv['served_blocks']} blocks, "
+        f"{srv['samples_served']} samples, {srv['scheme_builds']} scheme builds, proof-cache hit "
+        f"rate {srv['proof_cache_hit_rate']:.4f}; last {json.dumps(srv['last_serve'])}")
+    timing = [x["timing"].get("process_light_client_update", {}) for x in lc["summaries"]]
+    h = out["handler_timers_after_first_epoch"].get("on_blob_sidecar", {})
+    say(f"[{card}] on_blob_sidecar after the first epoch p50 {h.get('p50_ms')} ms p95 "
+        f"{h.get('p95_ms')} ms ({h.get('count')}); process_light_client_update p50 "
+        f"{spread([t.get('p50_ms', 0) for t in timing])} ms, p95 "
+        f"{spread([t.get('p95_ms', 0) for t in timing])} ms; best update "
+        f"{lc['best_update_ms_per_fresh_head']:.3f} ms and "
+        f"{lc['best_update_k2_per_fresh_head']:.2f} K2 launches a fresh head "
+        f"({lc['fresh_heads']} heads); light clients "
+        + json.dumps([{k: v for k, v in x.items() if k != "timing"} for x in lc["summaries"]]))
+
+
+def kzg_card_run() -> dict:
+    """Phase 38's run on the card, counted (a child process during phases
+    32-33, its launch counts zeroed just before and read just after):
+    KZG_DRIVER_N validators under the PeerDAS geometry,
+    ``das=BlobEngine(scheme="kzg")``, KZG_DRIVER_CLIENTS samplers,
+    KZG_DRIVER_SLOTS slots. Returns its record, launches, served
+    summaries, launches a call and seconds by rider phase."""
+    cfg = mainnet_config().replace(**PEERDAS)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with use_config(cfg):
+        sim = Simulation(KZG_DRIVER_N, accelerated_forkchoice=True, device="cuda",
+                         das=BlobEngine(cfg, scheme="kzg", device="cuda"))
+        sim.attach_das_clients(KZG_DRIVER_CLIENTS)
+        sim.run_until_slot(KZG_DRIVER_SLOTS)
+    torch.cuda.synchronize()
+    return {"s": time.perf_counter() - t0,
+            "launches": {k: v for k, v in kernels.launches.items() if v},
+            "record": spec_rider_record(sim), "served": sim.das_serves,
+            "proposals": sim.meter.calls.get("blob_build", 0),
+            "per_call": {k: sim.meter.per_call(k) for k in sim.meter.calls},
+            "seconds": dict(sim.meter.seconds)}
+
+
+def kzg_driver_phase(card: str, twins: dict) -> dict:
+    """Phase 38: the kzg rider on the card (``kzg_card_run``, run in a child
+    process during phases 32-33) -- every sidecar accepted, every served
+    block's aggregate proof verifying, K10 and K11 launched a proposal as
+    phase 30 counts them; and its twin, the card against the CPU at the
+    minimal geometry, run beside it. Returns the run's launches by
+    kernel."""
+    run = twins[("kzg", "run")]
+    r, served, proposals, launches = (run["record"], run["served"], run["proposals"],
+                                      run["launches"])
+    check(proposals > 0 and r["archived"] == DAS_BLOBS * proposals and r["rejected"] == 0
+          and all(len(k) == r["archived"] for k in r["blob_keys"]),
+          f"kzg rider: {r['archived']} sidecars for {proposals} proposals, {r['rejected']} refused")
+    check(served and all(x["aggregated"] and x["failed"] == 0
+                         and x["clients_all_ok"] == KZG_DRIVER_CLIENTS for x in served),
+          "kzg rider: an aggregate proof failed to verify")
+    build = run["per_call"].get("blob_build", {})
+    got = {k: build.get(k) for k in KZG_PROPOSAL_LAUNCHES}
+    check(got == KZG_PROPOSAL_LAUNCHES,
+          f"kzg rider: K10 and K11 launches a proposal {got}, want {KZG_PROPOSAL_LAUNCHES}")
+    per = {k: {n: round(v, 3) for n, v in d.items()} for k, d in run["per_call"].items()}
+    say(f"kzg rider n={KZG_DRIVER_N}, PeerDAS geometry, {KZG_DRIVER_SLOTS} slots (a child "
+        f"process during phases 32-33): launches {launches}; {proposals} proposals x "
+        f"{DAS_BLOBS} sidecars accepted; {len(served)} aggregate proofs served and verified "
+        f"({served[-1]['proof_bytes']} bytes, {served[-1]['unique_requests']} cells); "
+        f"launches a call {json.dumps(per)}")
+    say(f"[{card}] kzg rider: {run['s']:.3f} s for {KZG_DRIVER_SLOTS} slots (beside phase 32); "
+        "seconds by phase " + json.dumps({k: round(v, 3) for k, v in run["seconds"].items()})
+        + f"; serve_samples verify {spread([x['verify_ms'] for x in served])} ms")
+    got, want = twins[("kzg", "cuda")], twins[("kzg", "cpu")]
+    keys = [k for k in want if k not in ("s", "k2", "devices", "meter")]
+    bad = [k for k in keys if got[k] != want[k]]
+    check(not bad, f"kzg rider twin: the card differs from the CPU in {bad}")
+    tw = got["riders"]["served"]
+    check(tw and all(x["aggregated"] and x["failed"] == 0 for x in tw),
+          "kzg rider twin: an aggregate proof failed")
+    say(f"[{card}] kzg rider twin at n={KZG_TWIN_N}, the minimal geometry, 1 blob, "
+        f"{KZG_TWIN_SLOTS} slots (child processes during phases 32-33): card {got['s']:.3f} s "
+        f"== CPU ({want['s']:.3f} s) in every per-slot record, blob key and served summary "
+        f"({len(tw)} aggregate proofs verified)")
     return launches
 
 
@@ -3332,14 +3647,15 @@ def main() -> int:
         f"digest); {(t4 - t3) / 2:.3f} s per chaos epoch")
     del data
 
-    # 12. the dense driver on the card against the CPU at small size
-    for label, make, n, epochs in (("honest", dense_sim, 256, 4), ("chaos", chaos_sim, 384, 3)):
-        kw = {"seed": 11, "check_walk_every": 8} if label == "honest" else {}
-        a_cpu = run_record(make("cpu", n, **kw), epochs)
-        a_dev = run_record(make(dev, n, **kw), epochs)
-        bad = [k for k in a_cpu if a_cpu[k] != a_dev[k]]
-        check(not bad, f"small dense {label} run: card differs from CPU in {bad}")
-    say("small dense runs (honest n=256, chaos n=384): card == CPU")
+    # 12. the dense driver on the card against the CPU at small size: child processes
+    # during phases 32-33, checked there
+    def small_done(res):
+        check(not res["bad"], f"small dense {res['label']} run: card differs from CPU in "
+              f"{res['bad']}")
+        say(f"phase 12 (run during phases 32-33): small dense {res['label']} run "
+            f"(n={res['n']}, {res['epochs']} epochs): card == CPU ({res['s']:.3f} s)")
+
+    deferred.extend((small_dense_twin, (label,), small_done) for label in SMALL_DENSE)
 
     # 13. dense timings: a steady epoch, then one under the profiler
     t5 = time.perf_counter()
@@ -3405,7 +3721,10 @@ def main() -> int:
     driver_twins = {}
     deferred[:0] = [(driver_run, (kind, where),
                      lambda res, key=(kind, where): driver_twins.__setitem__(key, res))
-                    for kind in DRIVER_TWINS for where in ("cpu", "cuda")]
+                    for kind in ("riders", "kzg", *DRIVER_TWINS[:-1])
+                    for where in ("cpu", "cuda")]
+    deferred.insert(2, (kzg_card_run, (),
+                        lambda res: driver_twins.__setitem__(("kzg", "run"), res)))
     t_spec = time.perf_counter()
     spec_launches = spec_phases(dev, card, deferred)
     say(f"spec phases 32-34: {time.perf_counter() - t_spec:.3f} s")
@@ -3413,6 +3732,8 @@ def main() -> int:
     t_driver = time.perf_counter()
     driver_launches = driver_phases(dev, card, driver_twins)
     say(f"spec driver phases 35-37: {time.perf_counter() - t_driver:.3f} s")
+    kzg_driver_launches = kzg_driver_phase(card, driver_twins)
+    lap("phase 38")
 
     big = k2[K2_LARGEST]
     say(card)
@@ -3432,9 +3753,10 @@ def main() -> int:
         "ms_1048576": k2[N_MAINNET]["ms"], "full_build_ms": builds[-1][0],
         "update_ms": updates[-1][0], "dense_launches": digest_k2}, *field_rows, *das_rows,
         *kzg_rows]
-    for row in rows:   # each kernel's launches in phase 32's spec chain and phase 35's driver
+    for row in rows:   # each kernel's launches in phase 32's spec chain, phases 35 and 38
         row["spec_chain_launches"] = spec_launches.get(row["name"], 0)
         row["spec_driver_launches"] = driver_launches.get(row["name"], 0)
+        row["spec_driver_kzg_launches"] = kzg_driver_launches.get(row["name"], 0)
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,7 @@ serializes the JAX package's object by its own class and deserializes
 the bytes with the port's class of the same name, so the two roots agree
 wherever the SSZ code of the two packages does. A whole spec-driver
 ``Simulation`` crosses as its checkpoint bytes (``simulation_to_port``),
+a DAS run's blob engine as its ``describe()`` (``blob_engine_to_port``),
 and a resident fork-choice store as its arrays (``resident_to_port``).
 """
 
@@ -134,10 +135,27 @@ def simulation_to_port(checkpoint: bytes, schedule=None, device=None, **resume_k
     on ``device`` (the thread backend's when None). ``schedule`` is the
     run's own, built from the port's ``sim/schedule`` and ``sim/faults``;
     ``resume_kwargs`` go to ``Simulation.resume`` (adversaries, monitors,
-    variant)."""
+    variant, and ``das``: a checkpoint of a DAS run takes the port's
+    engine, e.g. ``blob_engine_to_port(jax_engine.describe(), cfg,
+    device)``, under the run's config)."""
     from pos_evolution_tpu_torch.sim.driver import Simulation
     return Simulation.resume(bytes(checkpoint), schedule=schedule, device=device,
                              **resume_kwargs)
+
+
+def blob_engine_to_port(describe: dict, cfg, device=None):
+    """The port's ``das/engine.BlobEngine`` for a JAX engine's
+    ``describe()`` (its scheme, blob count and seed) under config ``cfg``
+    on ``device`` (CUDA when None): it regenerates the same sidecars, and
+    its ``describe()`` is the one a checkpoint of the run records."""
+    from pos_evolution_tpu_torch.das.engine import BlobEngine
+    if describe.get("kind") != "blob_engine":
+        raise ValueError(f"not a blob engine's describe(): {describe}")
+    engine = BlobEngine(cfg, n_blobs=int(describe["n_blobs"]), scheme=describe["scheme"],
+                        seed=int(describe["seed"]), device="cuda" if device is None else device)
+    if engine.describe() != describe:
+        raise ValueError(f"engine {engine.describe()} does not carry {describe}")
+    return engine
 
 
 def resident_to_port(arrays: dict, store, device=None):

@@ -28,7 +28,7 @@ import itertools
 import numpy as np
 import torch
 
-from pos_evolution_tpu_torch.das.commitment import MerkleCellScheme, get_scheme
+from pos_evolution_tpu_torch.das.commitment import CellCommitmentScheme, get_scheme
 from pos_evolution_tpu_torch.das.containers import (
     BlobSidecar,
     commitments_digest,
@@ -38,7 +38,6 @@ from pos_evolution_tpu_torch.das.containers import (
 )
 from pos_evolution_tpu_torch.das.erasure import extension_matrix
 from pos_evolution_tpu_torch.device import rows_to_words, words_to_rows
-from pos_evolution_tpu_torch.kzg.scheme import KzgCellScheme
 from pos_evolution_tpu_torch.ops.das_verify import gf_matmul, reconstruct_check_batch
 from pos_evolution_tpu_torch.ops.sha256 import sha256_rows
 
@@ -55,8 +54,8 @@ class BlobEngine:
         validate_das_config(cfg)
         self.cfg = cfg
         self.n_blobs = n_blobs
-        self.scheme: MerkleCellScheme | KzgCellScheme = (
-            scheme if isinstance(scheme, (MerkleCellScheme, KzgCellScheme))
+        self.scheme: CellCommitmentScheme = (
+            scheme if isinstance(scheme, CellCommitmentScheme)
             else get_scheme(scheme, device, plain=plain, cfg=cfg))
         self.device = self.scheme.device
         self.plain = bool(plain)
@@ -110,6 +109,26 @@ class BlobEngine:
         grids (host arrays), their commitments and the graffiti marker."""
         grids, commitments = self.build_batch(slot, parent_root)
         return list(grids.cpu().numpy()), commitments, das_graffiti(commitments)
+
+    def sidecars_for(self, signed_block, block_root: bytes,
+                     grids: list[np.ndarray],
+                     commitments: list[bytes]) -> list[BlobSidecar]:
+        block = signed_block.message
+        return [BlobSidecar(slot=int(block.slot),
+                            proposer_index=int(block.proposer_index),
+                            block_root=bytes(block_root),
+                            blob_index=i,
+                            n_blobs=len(grids),
+                            cells=grid,
+                            commitment=commitments[i])
+                for i, grid in enumerate(grids)]
+
+    def regenerate(self, signed_block, block_root: bytes) -> list[BlobSidecar]:
+        """Rebuild a block's sidecars from the block alone (the resume path,
+        late joiners): blob content is a pure function of the seed."""
+        block = signed_block.message
+        grids, commitments, _ = self.build_for(int(block.slot), bytes(block.parent_root))
+        return self.sidecars_for(signed_block, block_root, grids, commitments)
 
     def describe(self) -> dict:
         return {"kind": "blob_engine", "scheme": self.scheme.name,

@@ -40,6 +40,7 @@ import torch
 
 from pos_evolution_tpu_torch.config import mainnet_config
 from pos_evolution_tpu_torch.crypto.bls12_381 import g1_compress
+from pos_evolution_tpu_torch.das.commitment import CellCommitmentScheme, register_scheme
 from pos_evolution_tpu_torch.device import resolve_device, rows_to_words, words_to_rows
 from pos_evolution_tpu_torch.kzg import aggregate, fr, ntt
 from pos_evolution_tpu_torch.kzg.setup import device_setup
@@ -72,7 +73,7 @@ class _Commitment:
         return self._coeffs
 
 
-class KzgCellScheme:
+class KzgCellScheme(CellCommitmentScheme):
     """KZG commitments and aggregated multiproofs for the DAS cell grid,
     under config ``cfg`` (mainnet's by default), on ``device``."""
 
@@ -286,3 +287,6 @@ class KzgCellScheme:
     @staticmethod
     def proof_n_bytes(proof: dict) -> int:
         return aggregate.proof_n_bytes(proof)
+
+
+register_scheme(KzgCellScheme)

@@ -61,6 +61,8 @@ __all__ = [
     "reconstruct_check_host",
     "reconstruct_check_device",
     "reconstruct_check_batch",
+    "verify_das_samples",
+    "reconstruct_check",
 ]
 
 
@@ -217,3 +219,19 @@ def reconstruct_check_device(cells: np.ndarray, present: np.ndarray, device="cud
     ok, data = reconstruct_check_batch(cells_t[None], np.asarray(present, dtype=bool)[None],
                                        plain=plain)
     return bool(ok[0]), data[0].cpu().numpy()
+
+
+# --- backend dispatch ---------------------------------------------------------
+
+def verify_das_samples(batch: DasSampleBatch) -> dict:
+    """Verify a coalesced sample batch through the thread's backend."""
+    from pos_evolution_tpu_torch.backend import get_backend
+    fn = getattr(get_backend(), "das_verify", None)
+    return verify_samples_host(batch) if fn is None else fn(batch)
+
+
+def reconstruct_check(cells: np.ndarray, present: np.ndarray) -> tuple[bool, np.ndarray]:
+    """Erasure-consistency check of one blob through the thread's backend."""
+    from pos_evolution_tpu_torch.backend import get_backend
+    fn = getattr(get_backend(), "das_reconstruct", None)
+    return reconstruct_check_host(cells, present) if fn is None else fn(cells, present)

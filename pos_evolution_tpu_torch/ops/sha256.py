@@ -16,6 +16,9 @@ SHA-256 of many equal-length pre-padded messages, whose plain version is
 
 from __future__ import annotations
 
+import warnings
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -52,31 +55,87 @@ def h0_state(shape, device) -> torch.Tensor:
     return torch.as_tensor(H0.astype(np.int64), device=device).expand(*shape, 8)
 
 
+def _schedule_wk(block: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``w[t] + K[t]`` for the 64 schedule words of (..., 16) block words
+    (< 2^32) -> (..., 64). A rotation reads the word doubled into 64 bits
+    (x | x << 32: bits n..n+31 of it are ROTR(x, n)), so two rotations cost
+    one doubling, two shifts and one mask."""
+    m = 0xFFFFFFFF
+    w = list(block.unbind(-1))
+    for t in range(16, 64):
+        x = w[t - 15]
+        y = w[t - 2]
+        xx = x | (x << 32)
+        yy = y | (y << 32)
+        s0 = (((xx >> 7) ^ (xx >> 18)) & m) ^ (x >> 3)
+        s1 = (((yy >> 17) ^ (yy >> 19)) & m) ^ (y >> 10)
+        w.append((w[t - 16] + w[t - 7] + s0 + s1) & m)
+    return torch.stack(w, dim=-1) + k
+
+
+def _rounds(state: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
+    """The 64 rounds over (..., 8) state words and (..., 64) ``w + K``,
+    plus the feed-forward."""
+    m = 0xFFFFFFFF
+    a = state[..., 0]
+    b = state[..., 1]
+    c = state[..., 2]
+    d = state[..., 3]
+    e = state[..., 4]
+    f = state[..., 5]
+    g = state[..., 6]
+    h = state[..., 7]
+    for t in range(64):
+        ee = e | (e << 32)
+        t1 = h + (((ee >> 6) ^ (ee >> 11) ^ (ee >> 25)) & m) + (g ^ (e & (f ^ g))) + wk[..., t]
+        aa = a | (a << 32)
+        s0 = ((aa >> 2) ^ (aa >> 13) ^ (aa >> 22)) & m
+        maj = (a & (b | c)) | (b & c)
+        h = g
+        g = f
+        f = e
+        e = (d + t1) & m
+        d = c
+        c = b
+        b = a
+        a = (t1 + s0 + maj) & m
+    return (state + torch.stack([a, b, c, d, e, f, g, h], dim=-1)) & m
+
+
+@lru_cache(maxsize=None)
+def _compiled():
+    """``_schedule_wk`` and ``_rounds`` through TorchScript, which runs
+    their few thousand small tensor ops with less overhead a op than
+    eager mode (about twice as fast at the merkle levels' sizes; the same
+    ATen ops, so the same words), or as they are where TorchScript is
+    unavailable. Scripted at the first call, not at import."""
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            return torch.jit.script(_schedule_wk), torch.jit.script(_rounds)
+    except Exception:
+        return _schedule_wk, _rounds
+
+
+@lru_cache(maxsize=None)
+def _constants(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """K and the constant ``w + K`` of the padding block of a 64-byte
+    message, (64,) int64 on ``device``."""
+    k = torch.as_tensor(_K.astype(np.int64), device=device)
+    pad = torch.zeros(16, dtype=torch.int64, device=device)
+    pad[0], pad[15] = 0x80000000, 512
+    return k, _compiled()[0](pad, k)
+
+
 def sha256_compress(state, block_words):
     """One compression: state (..., 8), block_words (..., 16) -> (..., 8).
 
     The two leading shapes broadcast against each other, so a block shared
     by many lanes (shape 1 on their axis) has its schedule computed once.
     """
-    state = u32(state)
+    schedule, rounds = _compiled()
     block = u32(block_words)
-    w = [block[..., t] for t in range(16)]
-    for t in range(16, 64):
-        s0 = _rotr(w[t - 15], 7) ^ _rotr(w[t - 15], 18) ^ (w[t - 15] >> 3)
-        s1 = _rotr(w[t - 2], 17) ^ _rotr(w[t - 2], 19) ^ (w[t - 2] >> 10)
-        w.append((w[t - 16] + s0 + w[t - 7] + s1) & MASK32)
-
-    a, b, c, d, e, f, g, h = (state[..., i] for i in range(8))
-    for t in range(64):
-        s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
-        ch = (e & f) ^ ((e ^ MASK32) & g)
-        t1 = h + s1 + ch + int(_K[t]) + w[t]
-        s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
-        maj = (a & b) ^ (a & c) ^ (b & c)
-        h, g, f, e, d, c, b, a = (g, f, e, (d + t1) & MASK32, c, b, a,
-                                  (t1 + s0 + maj) & MASK32)
-    out = torch.stack([a, b, c, d, e, f, g, h], dim=-1)
-    return (state + out) & MASK32
+    return rounds(u32(state), schedule(block, _constants(block.device)[0]))
 
 
 def sha256_words(msg_words):
@@ -90,14 +149,12 @@ def sha256_words(msg_words):
 
 def sha256_pair_words(left, right):
     """Merkle combiner H(left || right) for (N, 8) digest words: the
-    64-byte message, then one fixed padding block."""
+    64-byte message, then the fixed padding block, whose schedule is a
+    constant."""
     n = left.shape[0]
-    pad = torch.zeros((n, 16), dtype=torch.int64, device=left.device)
-    pad[:, 0] = 0x80000000
-    pad[:, 15] = 512
     state = sha256_compress(h0_state((n,), left.device),
                             torch.cat([u32(left), u32(right)], dim=-1))
-    return sha256_compress(state, pad)
+    return _compiled()[1](state, _constants(left.device)[1])
 
 
 # --- kernel K6 and its plain version ----------------------------------------------

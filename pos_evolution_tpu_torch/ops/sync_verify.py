@@ -50,6 +50,7 @@ __all__ = [
     "merkle_walk",
     "verify_batch_host",
     "verify_batch_device",
+    "verify_sync_update_batch",
 ]
 
 
@@ -203,3 +204,10 @@ def verify_batch_device(batch: SyncUpdateBatch, device="cuda", *, plain: bool = 
     sc_ok = (sc_root == batch.sc_root).all(axis=1) & batch.sc_present
     return _result(sig_ok.cpu().numpy(), participation.cpu().numpy(), weight.cpu().numpy(),
                    fin_root, fin_ok, sc_root, sc_ok)
+
+
+def verify_sync_update_batch(batch: SyncUpdateBatch) -> dict:
+    """Verify a batch through the thread's backend."""
+    from pos_evolution_tpu_torch.backend import get_backend
+    fn = getattr(get_backend(), "sync_update_verify", None)
+    return verify_batch_host(batch) if fn is None else fn(batch)

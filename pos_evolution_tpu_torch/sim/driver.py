@@ -24,20 +24,37 @@ fork-choice store (``ops/resident.py``) run there. The knobs of the JAX
 package's driver that are not ported raise ``ValueError`` naming their
 ROADMAP item: ``telemetry=``, ``profile=``, ``compile_cache=``,
 ``autocheckpoint=`` and ``resume_latest`` (item 7, the tooling);
-``das=``, ``serve=``, ``attach_das_clients`` and ``attach_light_client``
-(item 4c); a ``sharded=`` other than None or False goes to the backend,
-which raises (item 3).
+``serve=`` (item 4d, the serving tier); a ``sharded=`` other than None or
+False goes to the backend, which raises (item 3).
+
+The riders are the JAX package's. ``das=`` (True, a scheme name, or a
+``das/engine.BlobEngine``; ``blob_engine_for``) makes proposals carry
+blob sidecars, sent before their block, and gives every view a
+``BlobStore`` on ``store.blob_store`` that gates ``on_block`` on verified
+sidecars; a missing sidecar is pulled from the archive at import
+(``_resolve_blobs``). ``attach_das_clients`` serves a sampling population
+from a group's head through the copied ``das/server.DasServer`` at the end
+of every slot; ``attach_light_client`` bootstraps a copied
+``lightclient/node.LightClientNode`` served one update a slot, and
+``flush_light_clients`` serves the off-chain finality update of the head.
+The engine, the population and the server run under the config the
+``Simulation`` was built under (``cfg``): the copied server reads the
+thread's config, so the caller runs the simulation under it. ``meter``
+(``RiderMeter``) keeps the riders' seconds and kernel launches by phase.
 
 Run: ``python -m pos_evolution_tpu_torch.sim.driver [n] [--epochs E]
-[--device cuda|cpu]``: 65,536 validators under ``mainnet_config()`` for 4
-epochs with the resident fork choice by default; one JSON object, or an
-exit with a message and no timings when a resident store degraded.
+[--device cuda|cpu] [--das merkle|kzg] [--das-clients N]
+[--light-clients L]``: 65,536 validators under ``mainnet_config()`` for 4
+epochs with the resident fork choice by default (``--das`` also applies
+the PeerDAS geometry, ``PEERDAS``); one JSON object, or an exit with a
+message and no timings when a resident store degraded.
 """
 
 from __future__ import annotations
 
 import heapq
 import time as _time
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -60,14 +77,74 @@ from pos_evolution_tpu_torch.specs.validator import (
 )
 from pos_evolution_tpu_torch.ssz import cached_root, hash_tree_root
 
-_ITEMS = {"3": "the multi-GPU mode", "4c": "the DAS, light-client and serving riders "
-          "of the spec driver", "7": "the tooling"}
+_ITEMS = {"3": "the multi-GPU mode", "4d": "the serving tier of the spec driver",
+          "7": "the tooling"}
+
+#: The PeerDAS blob geometry, applied over ``mainnet_config()`` (whose 8
+#: samples a client it keeps): EIP-7594's 128 extended cells of 2,048 bytes
+#: (64 data cells a blob) and EIP-7691's 9 blobs a block.
+PEERDAS = {"das_cells_per_blob": 64, "das_cell_bytes": 2048, "das_max_blobs_per_block": 9}
 
 
 def _not_ported(what: str, item) -> ValueError:
     item = str(item)
     return ValueError(f"Simulation: {what} is not ported yet "
                       f"(ROADMAP Queue 1 item {item}, {_ITEMS[item]})")
+
+
+def blob_engine_for(das, cfg, device):
+    """The ``BlobEngine`` a ``Simulation(das=...)`` runs: ``das`` itself
+    when it is one (its geometry must be ``cfg``'s), else the default
+    engine (seed 0) under ``cfg`` on ``device`` with the scheme ``das``
+    names (True: merkle)."""
+    from pos_evolution_tpu_torch.das import BlobEngine
+    if isinstance(das, BlobEngine):
+        keys = ("das_cells_per_blob", "das_cell_bytes", "das_max_blobs_per_block")
+        if any(getattr(das.cfg, k) != getattr(cfg, k) for k in keys):
+            raise ValueError("Simulation(das=engine): the engine's DAS geometry "
+                             f"{[getattr(das.cfg, k) for k in keys]} is not the run's "
+                             f"{[getattr(cfg, k) for k in keys]}")
+        return das
+    return BlobEngine(cfg, scheme="merkle" if das is True else das, device=device)
+
+
+class RiderMeter:
+    """Seconds, calls and kernel launches (``ops/kernels.launches``
+    deltas) of the riders' work, by phase: ``blob_build`` (a proposal's
+    grids, commitments and sidecars), ``sidecar_ingest`` (a view's
+    verification of one sidecar, delivered or backfilled),
+    ``das_serve`` (one served block), ``lc_bootstrap`` (one light client's
+    bootstrap), ``lc_best_update`` (the serving group's update, built or
+    from the cache, and the flush's head update) and ``lc_update`` (one
+    light client's update). Each phase's work reads its results to the host, so
+    the host clock covers its device work. ``rejected_sidecars`` counts the
+    sidecars a view's store refused."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self.calls: dict[str, int] = {}
+        self.launches: dict[str, dict[str, int]] = {}
+        self.rejected_sidecars = 0
+
+    @contextmanager
+    def phase(self, name: str):
+        from pos_evolution_tpu_torch.ops import kernels
+        k0 = dict(kernels.launches)
+        t0 = _time.perf_counter()
+        try:
+            yield
+        finally:
+            self.seconds[name] = self.seconds.get(name, 0.0) + _time.perf_counter() - t0
+            self.calls[name] = self.calls.get(name, 0) + 1
+            acc = self.launches.setdefault(name, {})
+            for k, v in kernels.launches.items():
+                if v != k0.get(k, 0):
+                    acc[k] = acc.get(k, 0) + v - k0.get(k, 0)
+
+    def per_call(self, name: str) -> dict[str, float]:
+        """Launches of each kernel per call of phase ``name``."""
+        n = self.calls.get(name, 0)
+        return {k: v / n for k, v in self.launches.get(name, {}).items()} if n else {}
 
 
 def _backend_for(device):
@@ -84,7 +161,7 @@ def _backend_for(device):
 class _QueuedMessage:
     time: float
     seq: int
-    kind: str = field(compare=False)     # "block" | "attestation" | "slashing"
+    kind: str = field(compare=False)     # "block" | "attestation" | "slashing" | "blob"
     payload: object = field(compare=False)
 
 
@@ -114,6 +191,12 @@ class ViewGroup:
         # Device-resident dense mirror (ops/resident.py) when the sim runs
         # accelerated fork choice; handlers below forward their deltas.
         self.resident = resident
+        # DAS availability view (das/engine.BlobStore) when the sim runs a
+        # blob workload; also attached to ``store.blob_store`` so on_block
+        # gates imports on verified sidecars.
+        self.blob_store = None
+        # the simulation's RiderMeter when it runs a blob workload
+        self.meter = None
         # Protocol-variant overlay (variants/base.VariantVoteLog) when a
         # successor variant drives the run; mirrored on
         # ``store.variant_view`` so the handlers feed it.
@@ -198,12 +281,25 @@ class ViewGroup:
                         evil = fc.on_attester_slashing(self.store, msg.payload)
                         if self.resident is not None:
                             self.resident.note_slashing(evil)
+                elif msg.kind == "blob":
+                    # sidecar gossip: verification (commitment recompute +
+                    # erasure consistency) happens inside the blob store;
+                    # a failed sidecar is a reject, not an exception
+                    with track("on_blob_sidecar"), _metered(self.meter, "sidecar_ingest"):
+                        accepted = (self.blob_store is not None
+                                    and self.blob_store.on_sidecar(msg.payload))
+                    if not accepted and self.meter is not None:
+                        self.meter.rejected_sidecars += 1
             except AssertionError:
                 # Invalid-at-this-time messages are dropped (the reference
                 # permits re-queueing; the driver keeps the simple policy).
                 # Pre-anchor walks in a checkpoint-synced view land here too
                 # via the handlers' own asserts.
                 pass
+
+
+def _metered(meter, phase: str):
+    return nullcontext() if meter is None else meter.phase(phase)
 
 
 class Simulation:
@@ -219,16 +315,16 @@ class Simulation:
         for knob, value, item in (("telemetry=", telemetry, 7), ("profile=", profile, 7),
                                   ("compile_cache=", compile_cache, 7),
                                   ("autocheckpoint=", autocheckpoint, 7),
-                                  ("das=", das, "4c"), ("serve=", serve, "4c")):
+                                  ("serve=", serve, "4d")):
             if value is not None and value is not False:
                 raise _not_ported(knob, item)
         self.backend = _backend_for(device)
         with use_backend(self.backend):
             self._init(n_validators, schedule, genesis_time, accelerated_forkchoice,
-                       adversaries, monitors, prewarm, variant, sharded)
+                       adversaries, monitors, prewarm, variant, sharded, das)
 
     def _init(self, n_validators, schedule, genesis_time, accelerated_forkchoice,
-              adversaries, monitors, prewarm, variant, sharded) -> None:
+              adversaries, monitors, prewarm, variant, sharded, das) -> None:
         self.cfg = cfg()
         self.schedule = schedule or honest_schedule(n_validators)
         self.n_validators = n_validators
@@ -260,6 +356,29 @@ class Simulation:
             # pools) before the first block, on the card only
             from pos_evolution_tpu_torch.ops.transition import prewarm_block_sweep
             prewarm_block_sweep(state)
+        # DAS blob workload (das/): ``das`` is a das.engine.BlobEngine, or
+        # True / a scheme name for the default one (``blob_engine_for``).
+        # Proposals then carry blob sidecars, every view group runs an
+        # availability store gating on_block imports, and
+        # ``attach_das_clients`` hangs a sampling population off the
+        # serving group. Like the schedule, the engine is passed again to
+        # ``resume`` (sidecar payloads are seeded pure functions of the
+        # chain, so a resumed run regenerates them bit-identically).
+        if das is not None and das is not False:
+            das = blob_engine_for(das, self.cfg, self.backend.device)
+        else:
+            das = None
+        self.das = das
+        self.blob_archive: dict[bytes, list] = {}
+        self.das_server = None
+        self.das_population = None
+        self._das_group = 0
+        self._das_window = 2
+        # every served block's ``serve_samples`` summary, in order (the
+        # JAX package emits each as a ``das_serve`` event; not simulation
+        # state)
+        self.das_serves: list[dict] = []
+        self.meter = RiderMeter()
         # One PoW-chain view per Simulation (shared by its groups — the PoW
         # chain is objective): merge-transition state never leaks between
         # Simulation instances in the same process.
@@ -278,6 +397,11 @@ class Simulation:
                 view = self.variant.make_view(g)
                 group.variant_view = view
                 store.variant_view = view
+            if self.das is not None:
+                from pos_evolution_tpu_torch.das import BlobStore
+                group.blob_store = BlobStore(self.das, registry=None, group=g)
+                store.blob_store = group.blob_store
+                group.meter = self.meter
             return group
 
         self.groups = [_make_group(g) for g in range(self.schedule.n_groups)]
@@ -296,6 +420,12 @@ class Simulation:
         # on_attestation via utils.metrics.
         from pos_evolution_tpu_torch.utils.metrics import HandlerTimer
         self.timer = HandlerTimer()
+        # Light clients following this simulation via sync-protocol updates
+        # (lightclient/): attached with ``attach_light_client``, served one
+        # update per slot from the serving group's head, subject to the
+        # run's FaultPlan. Not simulation state: a resumed run re-attaches.
+        self.light_clients: list = []
+        self._lc_group = 0
         # In-loop adversary engine + online property monitors
         # (sim/adversary.py, sim/monitors.py). Neither is simulation
         # state: like the schedule, pass them again to ``resume``.
@@ -372,6 +502,7 @@ class Simulation:
         block becomes a delayed one the moment any descendant arrives, and
         a checkpoint-synced rejoiner catches up from its anchor the same
         way. Deterministic (the archive is checkpointed state)."""
+        self._resolve_blobs(dst, signed_block)
         missing = []
         parent = bytes(signed_block.message.parent_root)
         while parent not in dst.store.blocks:
@@ -380,7 +511,28 @@ class Simulation:
                 return  # unconnectable (pre-anchor history): let on_block fail
             missing.append(sb)
             parent = bytes(sb.message.parent_root)
-        dst._process_block_chain(list(reversed(missing)))
+        chain = list(reversed(missing))
+        for sb in chain:
+            self._resolve_blobs(dst, sb)
+        dst._process_block_chain(chain)
+
+    def _resolve_blobs(self, group: ViewGroup, signed_block) -> None:
+        """Blob-by-root backfill (the sidecar req/resp of real DAS nets):
+        when a block is about to import but its committed sidecars never
+        arrived (FaultPlan drops, crash outages), pull them from the
+        archive and run them through the group's verifying store — a
+        dropped sidecar becomes a delayed one exactly like a dropped
+        block, keeping faults transient."""
+        if group.blob_store is None:
+            return
+        block = signed_block.message
+        root = cached_root(block)
+        if group.blob_store.is_available(root, block):
+            return
+        for sc in self.blob_archive.get(root, ()):
+            with self.meter.phase("sidecar_ingest"):
+                accepted = group.blob_store.on_sidecar(sc)
+            self.meter.rejected_sidecars += not accepted
 
     # -- fault layer (sim/faults.py) -------------------------------------------
 
@@ -490,7 +642,15 @@ class Simulation:
                                            head_state=head_state)
             sync_agg = self._make_sync_aggregate(group, slot, head,
                                                  head_state, round_index)
+            # DAS: blob payloads are committed at build time through the
+            # graffiti marker (state_root covers graffiti), so grids and
+            # commitments exist BEFORE the block does.
             graffiti = b"\x00" * 32
+            das_grids = das_commitments = None
+            if self.das is not None:
+                with self.meter.phase("blob_build"):
+                    das_grids, das_commitments, graffiti = \
+                        self.das.build_for(slot, head)
             try:
                 sb = build_block(group.store.block_states[head], slot,
                                  attestations=atts, sync_aggregate=sync_agg,
@@ -504,9 +664,21 @@ class Simulation:
                                  graffiti=graffiti)
             block_root = cached_root(sb.message)
             self.block_archive[block_root] = sb
+            if das_grids:
+                self.blob_archive[block_root] = self.das.sidecars_for(
+                    sb, block_root, das_grids, das_commitments)
             self._observe("block", sb)
             for dst in self.groups:
                 delay = self.schedule.block_delay(int(proposer), slot, dst.id)
+                # sidecars ride the block's gossip timing but their own
+                # fault decisions (a dropped sidecar with a delivered
+                # block leaves the block unimportable until the req/resp
+                # backfill pulls the blobs) — enqueued BEFORE the block so
+                # the in-order case verifies availability pre-import
+                for sc in self.blob_archive.get(block_root, ()):
+                    self._send(dst, t0, delay, "blob", sc, slot,
+                               src=int(proposer),
+                               msg_id=int(sc.blob_index))
                 self._send(dst, t0, delay, "block", sb, slot,
                            src=int(proposer), msg_id=0)
 
@@ -640,6 +812,8 @@ class Simulation:
         self.variant.on_slot_end(self, slot)
         self._record_metrics(slot)
         self._run_monitors(slot)
+        self._serve_light_clients(slot)
+        self._serve_das(slot)
         self.slot += 1
 
     def run_until_slot(self, slot: int) -> None:
@@ -662,13 +836,177 @@ class Simulation:
         rec["head"] = rec["head_root"][:8]
         self.metrics.append(rec)
 
-    # -- riders not ported (item 4c) --------------------------------------------
+    # -- light clients (lightclient/) ------------------------------------------
 
     def attach_light_client(self, group: int = 0):
-        raise _not_ported("attach_light_client", "4c")
+        """Bootstrap a ``LightClientNode`` from ``group``'s finalized
+        (weak-subjectivity) checkpoint and register it for per-slot update
+        serving. The serving group is fixed to the first attach."""
+        from pos_evolution_tpu_torch.lightclient import (
+            LightClientNode,
+            bootstrap_from_store,
+        )
+        g = self.groups[group]
+        assert not g.crashed, "cannot bootstrap from a crashed group"
+        assert not self.light_clients or group == self._lc_group, \
+            "light clients are all served from one group; re-attach uses " \
+            f"group {self._lc_group}"
+        with use_backend(self.backend), self.meter.phase("lc_bootstrap"):
+            trusted_root, bootstrap = bootstrap_from_store(g.store)
+            state = g.store.block_states[bytes(g.store.finalized_checkpoint.root)]
+            node = LightClientNode.from_bootstrap(
+                trusted_root, bootstrap,
+                fork_version=bytes(state.fork.current_version),
+                genesis_validators_root=bytes(state.genesis_validators_root),
+                node_id=len(self.light_clients))
+        self._lc_group = group
+        self.light_clients.append(node)
+        return node
 
-    def attach_das_clients(self, *args, **kwargs):
-        raise _not_ported("attach_das_clients", "4c")
+    def _serve_light_clients(self, slot: int) -> None:
+        """End-of-slot update serving: derive the best update from the
+        serving group's head and offer it to every attached client, routed
+        through the FaultPlan (a dropped update is simply never seen — the
+        client survives on the force-update path)."""
+        if not self.light_clients:
+            return
+        group = self.groups[self._lc_group]
+        # A crashed server stops SERVING, but the clients are independent
+        # processes: their force-update timeout still ticks and their lag
+        # is measured against the server's frozen view.
+        head = self._get_head(group)
+        update = None
+        if not group.crashed:
+            with self.meter.phase("lc_best_update"):
+                if self.das_server is not None:
+                    # best-update LRU (das/server.py): one proof build per
+                    # distinct head, however many slots serve it
+                    update = self.das_server.best_update(
+                        group.store, head, archive=self.block_archive)
+                else:
+                    from pos_evolution_tpu_torch.lightclient import build_update
+                    update = build_update(group.store, head,
+                                          archive=self.block_archive)
+        full_head_slot = int(group.store.blocks[head].slot)
+        full_finalized_epoch = int(group.store.finalized_checkpoint.epoch)
+        plan = self.schedule.faults
+        t = self.slot_start(slot)
+        for node in self.light_clients:
+            if update is not None:
+                delivered = (plan is None
+                             or plan.delivery_offsets("lc_update", slot,
+                                                      self._lc_group, 0,
+                                                      1_000_000 + node.id, t))
+                if delivered:
+                    with self.meter.phase("lc_update"):
+                        node.on_update(update, current_slot=slot)
+            node.advance(slot, full_head_slot, full_finalized_epoch)
+
+    def flush_light_clients(self) -> None:
+        """Serve one off-chain finality update for the serving group's
+        CURRENT head: the sync committee's signatures over the head exist
+        before any block includes them (real networks gossip them as
+        FinalityUpdates), so attached clients converge to the full node's
+        exact finalized head instead of trailing one inclusion round."""
+        if not self.light_clients:
+            return
+        group = self.groups[self._lc_group]
+        if group.crashed:
+            return
+        with use_backend(self.backend):
+            self._flush_light_clients(group)
+
+    def _flush_light_clients(self, group: ViewGroup) -> None:
+        from pos_evolution_tpu_torch.lightclient import build_head_update
+        head = self._get_head(group)
+        head_state = group.store.block_states[head]
+        signature_slot = int(group.store.blocks[head].slot) + 1
+        signing_state = advance_state_to_slot(head_state, signature_slot)
+        round_index = signature_slot * self.cfg.intervals_per_slot
+        aggregate = self._make_sync_aggregate(group, signature_slot, head,
+                                              signing_state, round_index)
+        if aggregate is None:
+            return
+        with self.meter.phase("lc_best_update"):
+            update = build_head_update(group.store, head, aggregate,
+                                       signature_slot, archive=self.block_archive)
+        if update is None:
+            return
+        full_head_slot = int(group.store.blocks[head].slot)
+        full_finalized_epoch = int(group.store.finalized_checkpoint.epoch)
+        for node in self.light_clients:
+            with self.meter.phase("lc_update"):
+                node.on_update(update, current_slot=signature_slot)
+            node.advance(signature_slot, full_head_slot, full_finalized_epoch)
+
+    # -- DAS sampling clients (das/) --------------------------------------------
+
+    def attach_das_clients(self, n_clients: int,
+                           samples_per_client: int | None = None,
+                           group: int = 0, seed: int = 0,
+                           proof_cache: int = 4096, update_cache: int = 64,
+                           window: int = 2):
+        """Attach a vectorized sampling-client population (10^5-10^6
+        clients as arrays, das/sampler.py) served once per slot from
+        ``group``'s head through a coalescing ``DasServer``. Clients
+        sample the newest ``window`` blocks of the canonical chain each
+        slot (the availability-window retry behaviour of real DAS nets)
+        — re-served blocks answer from the proof-path LRU, which is what
+        makes the cache-hit metrics meaningful. Also swaps the
+        light-client update serving onto the server's best-update LRU.
+        The population hashes on the simulation's device, under its
+        config. Not simulation state: a resumed run re-attaches."""
+        assert self.das is not None, \
+            "attach_das_clients requires Simulation(das=...)"
+        from pos_evolution_tpu_torch.das import DasServer, SamplingClientPopulation
+        self._das_group = group
+        self._das_window = max(int(window), 1)
+        self.das_server = DasServer(self.das.scheme, registry=None,
+                                    proof_cache=proof_cache,
+                                    update_cache=update_cache)
+        self.das_population = SamplingClientPopulation(
+            self.cfg, n_clients, samples_per_client, seed=seed,
+            device=self.backend.device)
+        return self.das_population
+
+    def _das_targets(self, group) -> list[tuple[bytes, object]]:
+        """The newest ``window`` canonical blob-carrying blocks from
+        ``group``'s head — the per-slot serving window."""
+        from pos_evolution_tpu_torch.das.containers import parse_das_graffiti
+        targets = []
+        root = self._get_head(group)
+        while len(targets) < self._das_window and root in group.store.blocks:
+            block = group.store.blocks[root]
+            if parse_das_graffiti(bytes(block.body.graffiti)) is not None:
+                targets.append((root, block))
+            if int(block.slot) == 0:
+                break
+            root = bytes(block.parent_root)
+        return targets
+
+    def _serve_das(self, slot: int) -> None:
+        """End-of-slot sampling round: the serving group's head block's
+        sidecars are sampled by the whole population through the
+        coalescing server; each summary is appended to ``das_serves``."""
+        if self.das_population is None:
+            return
+        from pos_evolution_tpu_torch.das.containers import parse_das_graffiti
+        group = self.groups[self._das_group]
+        if group.crashed:
+            return
+        # the head freshly, its recent ancestors again (their cells
+        # answer from the proof-path LRU warmed by the previous slots)
+        for _age, (root, block) in enumerate(self._das_targets(group)):
+            n_blobs = parse_das_graffiti(bytes(block.body.graffiti))[0]
+            sidecars = (group.blob_store.sidecars_for_block(root)
+                        if group.blob_store is not None else [])
+            if len(sidecars) < n_blobs:
+                sidecars = self.blob_archive.get(root, [])
+            if len(sidecars) < n_blobs:
+                continue  # serving node itself lacks the data
+            with self.meter.phase("das_serve"):
+                self.das_serves.append(self.das_server.serve_samples(
+                    root, sidecars, self.das_population))
 
     # -- whole-simulation checkpoint / resume ----------------------------------
     def checkpoint(self) -> bytes:
@@ -691,8 +1029,9 @@ class Simulation:
         callables, which do not serialize); None resumes an honest
         synchronous run. ``adversaries``/``monitors`` re-attach strategy
         and monitor instances; ``variant`` re-attaches a ProtocolVariant
-        (None rebuilds one from the checkpoint's fingerprint).
-        ``telemetry`` and ``das`` raise (items 7 and 4c)."""
+        (None rebuilds one from the checkpoint's fingerprint); ``das``
+        re-attaches the run's blob engine (its ``describe()`` must match
+        the checkpoint's). ``telemetry`` raises (item 7)."""
         from pos_evolution_tpu_torch.utils.snapshot import load_simulation
         backend = _backend_for(device)
         with use_backend(backend):
@@ -724,15 +1063,19 @@ class Simulation:
 # --- the entry point ----------------------------------------------------------
 
 
-def run_scale(n: int = 65_536, epochs: int = 4, device="cuda", on_epoch=None) -> dict:
-    """``Simulation(n, accelerated_forkchoice=True)`` under the active
-    config for ``epochs`` epochs on ``device`` -> the summary the entry
-    point prints: set-up and per-epoch seconds, justified and finalized
-    epochs, the resident head against the spec walk, the resident stores'
-    degradation, the handler percentiles after the first epoch (its
-    samples hold the first launches and capacity growth), K2 launches a
-    state root, the run's head queries and each resident store's counts
-    of fresh device queries, memo answers, flushes and rebuilds.
+def run_scale(n: int = 65_536, epochs: int = 4, device="cuda", on_epoch=None, *,
+              das=None, das_clients: int = 0, light_clients: int = 0) -> dict:
+    """``Simulation(n, accelerated_forkchoice=True, das=das)`` under the
+    active config for ``epochs`` epochs on ``device``, with ``das_clients``
+    sampling clients (``attach_das_clients``) and ``light_clients`` light
+    clients attached before the first slot and flushed after the last ->
+    the summary the entry point prints: set-up and per-epoch seconds,
+    justified and finalized epochs, the resident head against the spec
+    walk, the resident stores' degradation, the handler percentiles after
+    the first epoch (its samples hold the first launches and capacity
+    growth), K2 launches a state root, the run's head queries and each
+    resident store's counts of fresh device queries, memo answers, flushes
+    and rebuilds; with riders, ``riders`` (``_rider_summary``).
     ``on_epoch(e, sim)`` runs after each epoch."""
     import torch
 
@@ -745,21 +1088,29 @@ def run_scale(n: int = 65_536, epochs: int = 4, device="cuda", on_epoch=None) ->
     roots0 = incremental.stats()["htr_calls"]
     k2_0 = kernels.launches.get("merkle_level", 0)
     t0 = _time.perf_counter()
-    sim = Simulation(n, accelerated_forkchoice=True, device=backend)
+    sim = Simulation(n, accelerated_forkchoice=True, device=backend, das=das)
+    if das_clients:
+        sim.attach_das_clients(das_clients)
+    for _ in range(light_clients):
+        sim.attach_light_client()
     sync()
     init_s = _time.perf_counter() - t0
     per_epoch = []
+    rider_epochs = []
     head_queries = 0
     for e in range(1, epochs + 1):
         te = _time.perf_counter()
+        s0 = dict(sim.meter.seconds)
         sim.run_epochs(e)
         sync()
         per_epoch.append(_time.perf_counter() - te)
+        rider_epochs.append({k: v - s0.get(k, 0.0) for k, v in sim.meter.seconds.items()})
         if e == 1:
             head_queries += len(sim.timer.samples.get("get_head", ()))
             sim.timer.reset()
         if on_epoch is not None:
             on_epoch(e, sim)
+    sim.flush_light_clients()
     group = sim.groups[0]
     with use_backend(sim.backend):
         spec_head = fc.get_head(group.store)
@@ -768,7 +1119,11 @@ def run_scale(n: int = 65_536, epochs: int = 4, device="cuda", on_epoch=None) ->
     summary_after_first = sim.trace_summary()
     head_queries += summary_after_first.get("get_head", {}).get("count", 0)
     roots = incremental.stats()["htr_calls"] - roots0
-    k2 = kernels.launches.get("merkle_level", 0) - k2_0
+    # the state roots' K2 launches: the riders' own (sidecars, samples, proofs) aside
+    k2 = (kernels.launches.get("merkle_level", 0) - k2_0
+          - sum(d.get("merkle_level", 0) for d in sim.meter.launches.values()))
+    riders = (_rider_summary(sim, per_epoch, rider_epochs)
+              if sim.das is not None or sim.light_clients else None)
     return {
         "n_validators": n, "epochs": epochs, "device": str(backend.device),
         "init_s": init_s, "per_epoch_s": per_epoch,
@@ -783,8 +1138,69 @@ def run_scale(n: int = 65_536, epochs: int = 4, device="cuda", on_epoch=None) ->
         "state_roots": roots, "k2_launches": k2,
         "k2_launches_per_state_root": (k2 / roots) if roots else 0.0,
         "head_root": sim.metrics[-1]["head_root"], "n_blocks": sim.metrics[-1]["n_blocks"],
+        "riders": riders,
         "sim": sim,
     }
+
+
+def _rider_summary(sim: Simulation, per_epoch: list, rider_epochs: list) -> dict:
+    """The riders' part of ``run_scale``'s summary: their seconds an epoch
+    by phase (light-client serving is the best update plus the clients'
+    updates) and their share of the epoch; each phase's calls and kernel
+    launches a call (``RiderMeter``); the sidecars' verdicts; the DAS
+    server's counters and last ``serve_samples`` summary; the best update's
+    ms and K2 launches a fresh head; each light client's ``summary()`` and
+    whether its finalized root is the serving group's finalized checkpoint
+    root."""
+    meter = sim.meter
+    split = [{"blob_build": r.get("blob_build", 0.0),
+              "sidecar_ingest": r.get("sidecar_ingest", 0.0),
+              "das_serve": r.get("das_serve", 0.0),
+              "lc_serve": r.get("lc_best_update", 0.0) + r.get("lc_update", 0.0)}
+             for r in rider_epochs]
+    out = {
+        "rider_s_per_epoch": split,
+        "rider_share": [sum(r.values()) / t if t else 0.0 for r, t in zip(split, per_epoch)],
+        "phase_calls": dict(meter.calls), "phase_seconds": dict(meter.seconds),
+        "launches_per_call": {k: meter.per_call(k) for k in meter.calls},
+    }
+    if sim.das is not None:
+        stores = [g.blob_store for g in sim.groups]
+        out["sidecars"] = {
+            "proposals": meter.calls.get("blob_build", 0),
+            "archived": sum(len(v) for v in sim.blob_archive.values()),
+            "held": [sum(len(c) for c in st.sidecars.values()) for st in stores],
+            "rejected": meter.rejected_sidecars,
+        }
+    server = sim.das_server
+    if server is not None:
+        out["das_server"] = {
+            "served_blocks": server.served_blocks, "samples_served": server.samples_served,
+            "scheme_builds": server.scheme_builds,
+            "proof_cache_hit_rate": server.proof_cache.hit_rate,
+            "update_cache_hits": server.update_cache.hits,
+            "update_cache_misses": server.update_cache.misses,
+            "served_all_ok": all(s["failed"] == 0 and s["clients_all_ok"] == s["clients"]
+                                 for s in sim.das_serves),
+            "last_serve": sim.das_serves[-1] if sim.das_serves else None,
+        }
+    if sim.light_clients:
+        group = sim.groups[sim._lc_group]
+        # every call builds an update but a cache hit
+        fresh = (meter.calls.get("lc_best_update", 0)
+                 - (server.update_cache.hits if server is not None else 0))
+        k2 = meter.launches.get("lc_best_update", {}).get("merkle_level", 0)
+        final_root = bytes(group.store.finalized_checkpoint.root)
+        out["light_clients"] = {
+            "fresh_heads": fresh,
+            "best_update_ms_per_fresh_head":
+                meter.seconds.get("lc_best_update", 0.0) * 1e3 / fresh if fresh else None,
+            "best_update_k2_per_fresh_head": k2 / fresh if fresh else None,
+            "summaries": [node.summary() for node in sim.light_clients],
+            "on_full_node_finalized_root": [node.finalized_root() == final_root
+                                            for node in sim.light_clients],
+        }
+    return out
 
 
 def main(argv=None) -> None:
@@ -799,7 +1215,13 @@ def main(argv=None) -> None:
     ap.add_argument("n", nargs="?", type=int, default=65_536)
     ap.add_argument("--epochs", type=int, default=4)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--das", choices=("merkle", "kzg"), default=None,
+                    help="blob sidecars under this cell-commitment scheme, PeerDAS geometry")
+    ap.add_argument("--das-clients", type=int, default=0, help="sampling clients (needs --das)")
+    ap.add_argument("--light-clients", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.das_clients and args.das is None:
+        ap.error("--das-clients needs --das")
     dev = resolve_device(args.device)
 
     def progress(e, sim):
@@ -807,8 +1229,10 @@ def main(argv=None) -> None:
         print(f"# epoch {e}: justified={m['justified_epoch']} "
               f"finalized={m['finalized_epoch']} blocks={m['n_blocks']}", file=sys.stderr)
 
-    with use_config(mainnet_config()):
-        out = run_scale(args.n, args.epochs, device=dev, on_epoch=progress)
+    cfg = mainnet_config().replace(**PEERDAS) if args.das else mainnet_config()
+    with use_config(cfg):
+        out = run_scale(args.n, args.epochs, device=dev, on_epoch=progress, das=args.das,
+                        das_clients=args.das_clients, light_clients=args.light_clients)
     out.pop("sim")
     if any(out["degraded"]) or any(out["incidents"]):
         # the store answered from the host spec walk: the times are not the device path's

@@ -9,9 +9,10 @@ snapshots therefore are SSZ-serialized ``BeaconState`` + anchor
 
 A whole ``sim/driver.Simulation`` checkpoint is framed SSZ plus JSON and
 names no class path, so the JAX package's checkpoints load here as they
-are, and the port's there. The DAS rider's sidecars (``_restore_das``,
-the ``blob`` queue payloads) are ROADMAP Queue 1 item 4c; the JAX
-package's dense-registry offloads (``save_dense``, ``load_dense`` and
+are, and the port's there, a DAS run's too: its queued ``blob``
+sidecars, the engine's ``describe()`` and each view's verified
+(block, blob) keys, from which ``_restore_das`` regenerates the sidecars.
+The JAX package's dense-registry offloads (``save_dense``, ``load_dense`` and
 their orbax forms) are item 7.
 """
 
@@ -180,8 +181,8 @@ def _payload_class(kind: str):
         SignedBeaconBlock,
     )
     if kind == "blob":
-        raise ValueError("blob sidecars in a checkpoint are not ported yet "
-                         "(ROADMAP Queue 1 item 4c, the DAS rider of the spec driver)")
+        from pos_evolution_tpu_torch.das.containers import BlobSidecar
+        return BlobSidecar
     return {"block": SignedBeaconBlock, "attestation": Attestation,
             "slashing": AttesterSlashing}[kind]
 
@@ -216,9 +217,15 @@ def save_simulation(sim, path: str | os.PathLike | None = None) -> bytes:
         "sharded": getattr(sim, "sharded", None),
         "metrics": sim.metrics,
         "archive_roots": [r.hex() for r in sim.block_archive],
-        # the DAS engine and each view's verified sidecars (item 4c): the
-        # keys of the JAX package's format, empty here
-        "das": None,
+        # DAS (das/): sidecar CONTENT is a seeded pure function of the
+        # chain, so only availability bookkeeping is recorded — which
+        # (block, blob) pairs each view had verified — plus the engine
+        # parameters, so ``resume(das=engine)`` can refuse a mismatched
+        # engine loudly (a wrong seed/scheme would regenerate
+        # self-consistent sidecars whose commitments never match any
+        # block's graffiti: the chain stalls silently forever).
+        "das": (sim.das.describe()
+                if getattr(sim, "das", None) is not None else None),
         # Protocol variant (variants/, DESIGN.md §16): the describe()
         # fingerprint plus the full variant state (per-view vote
         # overlays, fast/kappa confirmations, per-slot FFG checkpoints
@@ -232,7 +239,9 @@ def save_simulation(sim, path: str | os.PathLike | None = None) -> bytes:
             "seq": g._seq,
             "queue": [[m.time, m.seq, m.kind] for m in sorted(g.queue)],
             "n_pool": len(g.pool),
-            "blob_keys": [],
+            "blob_keys": [[r.hex(), i] for (r, i) in
+                          getattr(g, "blob_store", None).sidecars]
+            if getattr(g, "blob_store", None) is not None else [],
             "block_atts": {r.hex(): [a.hex() for a in atts]
                            for r, atts in g.block_atts.items()},
             # resident mirror supervision state: a degradation must
@@ -275,12 +284,14 @@ def load_simulation(data: bytes, schedule=None, telemetry=None,
     re-attach in-loop strategies and property monitors; they bind AFTER
     the restore so their handles see the checkpointed stores, not the
     skeleton's. ``device`` is the ``Simulation``'s (the thread backend's
-    when None); ``telemetry`` and ``das`` raise (items 7 and 4c)."""
+    when None); ``telemetry`` raises (item 7). ``das`` re-attaches the
+    run's blob engine (a ``BlobEngine``, or True or a scheme name for the
+    default engine on the simulation's device) to a checkpoint of a DAS
+    run; the thread's config must be the run's (``CellRows`` reads the
+    cell width from it)."""
     from pos_evolution_tpu_torch.sim.driver import Simulation, _QueuedMessage, _not_ported
     if telemetry is not None:
         raise _not_ported("telemetry=", 7)
-    if das is not None:
-        raise _not_ported("das=", "4c")
     buf = io.BytesIO(data)
     meta = json.loads(_unframe(buf).decode())
     assert meta["version"] == 1, f"unknown snapshot version {meta['version']}"
@@ -364,12 +375,40 @@ def load_simulation(data: bytes, schedule=None, telemetry=None,
         sim.adversaries = list(adversaries)
         sim.monitors = list(monitors)
         sim._bind_adversaries_and_monitors()
-    if meta.get("das"):
-        _restore_das(sim, meta, das)
+    if meta.get("das") and das is not None and das is not False:
+        from pos_evolution_tpu_torch.sim.driver import blob_engine_for
+        _restore_das(sim, meta, blob_engine_for(das, sim.cfg, sim.backend.device))
     return sim
 
 
 def _restore_das(sim, meta: dict, das) -> None:
-    """Reattach a DAS engine to a resumed run: ROADMAP Queue 1 item 4c."""
-    raise ValueError("a checkpoint of a Simulation(das=...) run is not ported yet "
-                     "(ROADMAP Queue 1 item 4c, the DAS rider of the spec driver)")
+    """Reattach a DAS engine to a resumed run: regenerate every archived
+    block's sidecars from the seed (bit-identical by construction),
+    rebuild per-group blob stores, and replay exactly the sidecars each
+    view had verified at checkpoint time. Queued ``blob`` messages were
+    serialized with the rest of the queue and deliver normally."""
+    from pos_evolution_tpu_torch.das import BlobStore
+    from pos_evolution_tpu_torch.das.containers import parse_das_graffiti
+    if das.describe() != meta["das"]:
+        raise ValueError(
+            f"resumed DAS engine {das.describe()} does not match the "
+            f"checkpointed engine {meta['das']} — regenerated sidecars "
+            f"would never satisfy the availability gate")
+    sim.das = das
+    sim.blob_archive = {}
+    for root, sb in sim.block_archive.items():
+        if parse_das_graffiti(bytes(sb.message.body.graffiti)) is not None:
+            sim.blob_archive[root] = das.regenerate(sb, root)
+    for g, gm in zip(sim.groups, meta["groups"]):
+        g.blob_store = BlobStore(das, registry=None, group=g.id)
+        g.store.blob_store = g.blob_store
+        # insert directly: these sidecars were just regenerated from the
+        # trusted seed (bit-identical by construction), so re-running the
+        # full commitment + erasure verification per (group, block, blob)
+        # would only multiply resume latency
+        for root_hex, idx in gm.get("blob_keys", []):
+            root = bytes.fromhex(root_hex)
+            for sc in sim.blob_archive.get(root, ()):
+                if int(sc.blob_index) == int(idx):
+                    g.blob_store.sidecars.setdefault(
+                        (root, int(idx)), {})[bytes(sc.commitment)] = sc

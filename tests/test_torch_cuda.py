@@ -676,7 +676,9 @@ def test_das_and_sync_paths_on_card_equal_cpu(cuda):
         grids, coms = engine.build_batch(5, root)
         bad = grids.clone()
         bad[1, 70, 9] ^= 4
-        scs = [BlobSidecar(5, 0, root, i, 3, bad[i], c) for i, c in enumerate(coms)]
+        scs = [BlobSidecar(slot=5, proposer_index=0, block_root=root, blob_index=i,
+                           n_blobs=3, cells=bad[i], commitment=c)
+               for i, c in enumerate(coms)]
         outs[str(dev)] = (grids.cpu(), coms, BlobStore(engine).on_sidecars(scs))
     cpu, card = outs["cpu"], outs[str(cuda)]
     assert torch.equal(cpu[0], card[0]) and cpu[1:] == card[1:]
@@ -1083,6 +1085,53 @@ def test_spec_driver_one_epoch_equals_cpu(cuda):
     res = card.groups[0].resident
     assert res.buckets.device.type == "cuda" and res.stats["device_heads"] > 0
     assert k2 > 0 and k2_host == 0
+
+
+def test_spec_driver_riders_one_epoch_equals_cpu(cuda):
+    """The spec driver's riders at 1,024 validators, mainnet config, for
+    one epoch on the card and on the CPU: ``das=True`` with 1,000 sampling
+    clients and one light client, then ``flush_light_clients``. Equal
+    per-slot records, blob keys, served summaries (their times aside),
+    server counters and light-client summaries and records; every served
+    block verifies; K1, K2, K6 and K7 launch on the card and not on the
+    CPU."""
+    from pos_evolution_tpu_torch.config import mainnet_config, use_config
+    from pos_evolution_tpu_torch.sim.driver import Simulation
+    names = ("agg_sig", "merkle_level", "sha256_blocks", "gf256_matmul")
+    runs = {}
+    with use_config(mainnet_config()):
+        for dev in (cuda, "cpu"):
+            before = {k: kernels.launches[k] for k in names}
+            sim = Simulation(1024, accelerated_forkchoice=True, device=dev, das=True)
+            sim.attach_das_clients(1000, seed=5)
+            node = sim.attach_light_client()
+            served = []
+            inner = sim.das_server.serve_samples
+
+            def serve(*args, inner=inner, served=served):
+                out = inner(*args)
+                served.append({k: v for k, v in out.items()
+                               if k not in ("p50_ms", "p95_ms", "verify_ms")})
+                return out
+
+            sim.das_server.serve_samples = serve
+            sim.run_epochs(1)
+            sim.flush_light_clients()
+            summary = node.summary()
+            summary.pop("timing")
+            srv = sim.das_server
+            runs[str(dev)] = (
+                sim.metrics, [sorted(g.blob_store.sidecars) for g in sim.groups], served,
+                (srv.served_blocks, srv.samples_served, srv.scheme_builds,
+                 srv.proof_cache.hits, srv.update_cache.misses),
+                summary, node.records,
+                {k: kernels.launches[k] - before[k] for k in names})
+    card, host = runs[str(cuda)], runs["cpu"]
+    assert card[:6] == host[:6]
+    assert card[2] and all(s["failed"] == 0 and s["clients_all_ok"] == 1000 for s in card[2])
+    assert card[4]["applied"] > 0 and card[4]["rejected"] == 0
+    assert all(card[6][k] > 0 for k in names), card[6]
+    assert not any(host[6].values()), host[6]
 
 
 def test_b9_card_equals_cpu(cuda):

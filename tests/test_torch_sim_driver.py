@@ -284,13 +284,11 @@ def test_port_checkpoint_resumes_in_jax():
 def test_knobs_not_ported_raise_naming_their_item():
     for kw, item in (({"telemetry": object()}, "item 7"), ({"profile": "p"}, "item 7"),
                      ({"compile_cache": "c"}, "item 7"), ({"autocheckpoint": (4, "d")}, "item 7"),
-                     ({"das": True}, "item 4c"), ({"serve": True}, "item 4c")):
+                     ({"serve": True}, "item 4d")):
         with pytest.raises(ValueError, match=item):
             tsim.Simulation(16, device="cpu", **kw)
     sim = tsim.Simulation(16, device="cpu", sharded=False)
-    for call, item in ((lambda: sim.attach_light_client(), "item 4c"),
-                       (lambda: sim.attach_das_clients(10), "item 4c"),
-                       (lambda: tsim.Simulation.resume_latest("d"), "item 7"),
+    for call, item in ((lambda: tsim.Simulation.resume_latest("d"), "item 7"),
                        (lambda: sim.attach_autocheckpoint((4, "d")), "item 7")):
         with pytest.raises(ValueError, match=item):
             call()

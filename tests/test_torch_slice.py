@@ -236,6 +236,35 @@ def test_port_runs_with_jax_blocked():
     assert proc.stdout.startswith("ran")
 
 
+def test_riders_run_with_jax_blocked():
+    """The spec driver's riders with jax and pos_evolution_tpu impossible to
+    import: the copied DAS server, light-client package and single-flight
+    import, and a DAS run on the CPU serves its sampling clients and its
+    light client for two epochs and resumes from its checkpoint."""
+    proc = _run_blocked("""
+        import pos_evolution_tpu_torch.das.server
+        import pos_evolution_tpu_torch.lightclient
+        import pos_evolution_tpu_torch.utils.singleflight
+        from pos_evolution_tpu_torch.backend import use_backend
+        from pos_evolution_tpu_torch.config import minimal_config, use_config
+        from pos_evolution_tpu_torch.sim.driver import Simulation
+        with use_config(minimal_config()), use_backend("torch", device="cpu"):
+            sim = Simulation(16, das=True)
+            sim.attach_das_clients(200, seed=3)
+            node = sim.attach_light_client()
+            sim.run_epochs(2)
+            assert sim.das_serves and all(s["failed"] == 0 for s in sim.das_serves)
+            assert sim.das_server.served_blocks > 0 and node.updates_applied > 0
+            resumed = Simulation.resume(sim.checkpoint(), das=True)
+            assert resumed.metrics == sim.metrics
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not bad, bad
+        print("ran", sim.das_server.served_blocks)
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ran")
+
+
 def test_chip_smoke_imports_without_jax_and_refuses_cpu():
     """chip_smoke.py imports nothing of JAX and, with no CUDA, exits
     non-zero before printing any result."""

@@ -1,6 +1,7 @@
-"""The port's copies of the JAX package's jax-free spec layer, and of the
+"""The port's copies of the JAX package's jax-free spec layer, of the
 spec driver's schedules, monitors, adversaries, attacks and protocol
-variants: each copied
+variants, and of its riders' DAS server, single-flight and light-client
+modules: each copied
 module's source equals its original with ``pos_evolution_tpu.`` replaced
 by ``pos_evolution_tpu_torch.`` and nothing else, and the FakeBLS
 signature prefix the copy carries is the one kernel K1's wrapper hashes."""
@@ -42,6 +43,15 @@ COPIES = [
     "variants/goldfish.py",
     "variants/rlmd.py",
     "variants/ssf.py",
+    "utils/singleflight.py",
+    "das/server.py",
+    "lightclient/__init__.py",
+    "lightclient/containers.py",
+    "lightclient/proofs.py",
+    "lightclient/verify.py",
+    "lightclient/spec.py",
+    "lightclient/server.py",
+    "lightclient/node.py",
 ]
 
 
@@ -84,3 +94,15 @@ def test_copied_modules_are_the_ports():
     from pos_evolution_tpu_torch.specs import containers
     assert containers.BeaconState.__ssz_root__.__module__ == \
         "pos_evolution_tpu_torch.specs.containers"
+
+
+def test_rider_copies_reach_the_ports_dispatch():
+    """The copied DAS server and light-client verifier call the port's
+    backend dispatch entries, and the server's scheme contract is the
+    port's."""
+    from pos_evolution_tpu_torch.das import server
+    from pos_evolution_tpu_torch.lightclient import verify
+    assert server.verify_das_samples.__module__ == "pos_evolution_tpu_torch.ops.das_verify"
+    assert server.CellCommitmentScheme.__module__ == "pos_evolution_tpu_torch.das.commitment"
+    assert verify.verify_sync_update_batch.__module__ == "pos_evolution_tpu_torch.ops.sync_verify"
+    assert server.cfg.__module__ == "pos_evolution_tpu_torch.config"
