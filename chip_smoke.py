@@ -191,7 +191,8 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     after every block, finality at epoch 2 or later; and the plain twins
     of phases 10, 17 and 24, run beside them. Phase 32's times are taken
     with those children running;
-35. drive the spec driver's path once -- ``sim/driver.run_scale``:
+35. drive the spec driver's path once, in a child process of its own
+    beside phases 32-34 (both host-bound) -- ``sim/driver.run_scale``:
     ``Simulation(65,536, accelerated_forkchoice=True, das="merkle")``
     under the mainnet config with the PeerDAS geometry (``sim/driver.
     PEERDAS``: 128 extended cells of 2,048 bytes, 9 blobs a block) for 4
@@ -231,7 +232,25 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     every sidecar accepted, every served aggregate proof verifying, K10
     and K11 launched a proposal as phase 30 counts them; and its twin,
     the card against the CPU at the minimal geometry (16 validators, 1
-    blob), run in child processes during phases 32-33.
+    blob), run in child processes during phases 32-33;
+39. run supervision (``python -m pos_evolution_tpu_torch.resilient_run``,
+    in a child process during phases 32-33): the dense run at 2^20,
+    mainnet config, 2 epochs, a checkpoint every 32 slots, SIGKILLed after
+    slot 40 and resumed by the supervisor from step 32 (its merkle digest
+    re-checked through K2), ending at slot 64 with a final checkpoint; and
+    the spec driver at BASELINE config 1 (1,024 validators, mainnet, one
+    epoch, a checkpoint every 8 slots, killed after slot 20, resumed from
+    step 16) -- each ending on the ``state_digest`` of an uninterrupted
+    twin of the same construction run in the same child process (the
+    dense twin with the flight recorder armed); the events log holding one
+    ``supervisor_interruption``, the checkpoints, ``run_resumed``,
+    ``checkpoint_final`` and ``goodput``; every checkpoint digest computed
+    by K2 on the card, one launch a tree level, each launch counted, the
+    final step's digest equal to K2's plain version on the card; a
+    checkpoint's bytes raw and compressed, the loop's blocked ms, the
+    writer's ms, its digest's K2 launches and ms, the resume's seconds
+    from the kill to the first resumed slot, goodput and the dense twin's
+    peak allocated bytes printed.
 
 Between phase groups it prints the seconds since the start (``lap``).
 
@@ -246,6 +265,7 @@ import json
 import math
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -344,6 +364,7 @@ from pos_evolution_tpu_torch.sim import (  # noqa: E402
 from pos_evolution_tpu_torch.sim.driver import PEERDAS, run_scale  # noqa: E402
 from pos_evolution_tpu_torch.config import minimal_config, use_config  # noqa: E402
 from pos_evolution_tpu_torch.variants import GoldfishVariant, SsfVariant  # noqa: E402
+from pos_evolution_tpu_torch.telemetry import FlightRecorder, Telemetry  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 flops
@@ -544,6 +565,14 @@ KZG_DRIVER_N, KZG_DRIVER_SLOTS, KZG_DRIVER_CLIENTS = 1024, 2, 16
 KZG_TWIN_N, KZG_TWIN_SLOTS = 16, 1
 KZG_PROPOSAL_LAUNCHES = {"fr_ntt": 2, "fr_ew": 2, **{f"g1_bucket_{s}": 1 for s in (
     "recode", "scan", "scatter", "fill", "totals", "reduce")}}
+# phase 39: supervised runs killed once and resumed (resilient_run): the dense run at
+# 2^20 (mainnet, 2 epochs, a checkpoint every 32 slots, killed after slot 40) and the
+# spec driver at BASELINE config 1 (1,024 validators, mainnet, 1 epoch, every 8, killed
+# after slot 20); each against its uninterrupted twin
+RESIL = {"dense": {"n": N_MAINNET, "epochs": 2, "every": 32, "crash": 40, "resumed": 32,
+                   "final": 64},
+         "spec": {"n": 1024, "epochs": 1, "every": 8, "crash": 20, "resumed": 16,
+                  "final": 33}}
 SPEC_STATE_COLUMNS = ("balances", "previous_epoch_participation",
                       "current_epoch_participation", "inactivity_scores")
 SPEC_REGISTRY_COLUMNS = ("pubkeys", "withdrawal_credentials", "effective_balance", "slashed",
@@ -2752,7 +2781,8 @@ def spec_phases(dev, card: str, deferred: list) -> dict:
             f"launches {launches}; {s['state_roots']} state roots, "
             f"{s['k2_launches_per_state_root']:.2f} K2 launches each; finalized epoch "
             f"{s['finalized_epoch']}; final root {s['final_root'][:16]}")
-        say(f"[{card}] spec chain at n={N_MAINNET}: genesis {s['genesis_s']:.3f} s "
+        say(f"[{card}] spec chain at n={N_MAINNET} (contended: beside phase 35's run and the "
+            f"twins' pool): genesis {s['genesis_s']:.3f} s "
             f"({s['genesis_k2_launches']} K2 launches); per block build_block "
             f"{spread(s['build_ms'])} ms, state_transition {spread(s['transition_ms'])} ms "
             f"(the boundary block {s['transition_ms'][31]:.1f}), attesting (K1) "
@@ -2769,7 +2799,7 @@ def spec_phases(dev, card: str, deferred: list) -> dict:
         check(rep["b8"]["sweeps"] == SPEC_REPLAY_BLOCKS,
               f"replay: B8 swept {rep['b8']['sweeps']}")
         say(f"[{card}] replay of blocks {SPEC_REPLAY_FROM + 1}-{SPEC_SLOTS} (across the epoch "
-            f"boundary) through on_block_batch, anchored at block {SPEC_REPLAY_FROM}: "
+            f"boundary) through on_block_batch, anchored at block {SPEC_REPLAY_FROM} (contended): "
             f"{rep['seconds']:.3f} s, {rep['blocks_per_s']:.3f} blocks/s; root == the chain's "
             f"final root; B8 session uploads {rep['b8']['uploads']}, patches "
             f"{rep['b8']['patches']}, reuses {rep['b8']['reuses']}; K2 {rep['k2_launches']}")
@@ -2790,7 +2820,8 @@ def spec_phases(dev, card: str, deferred: list) -> dict:
             plain_s = time.perf_counter() - t0
         check(fresh.hex() == plain.hex() == s["final_root"],
               "the final state root from scratch (K2, plain) differs from the chain's")
-        say(f"[{card}] process_epoch at n={N_MAINNET} (the first boundary again): card {epoch_ms:.3f} ms, "
+        say(f"[{card}] process_epoch at n={N_MAINNET} (the first boundary again, contended): card "
+            f"{epoch_ms:.3f} ms, "
             f"CPU backend {epoch_cpu_ms:.3f} ms; every registry and state column and the root "
             f"equal; the final root from scratch through K2 {fresh_s:.3f} s, through its plain "
             f"version {plain_s:.3f} s, both == the chain's")
@@ -3076,12 +3107,15 @@ def driver_twin_check(card: str, kind: str, got: dict, want: dict) -> None:
         f"justified {got['metrics'][-1]['justified_epoch']}{extra}")
 
 
-def driver_phases(dev, card: str, twins: dict) -> dict:
-    """Phases 35-37. ``twins`` holds phase 36's runs by (kind, device),
-    made in child processes during phases 32-33. Returns phase 35's
-    launches by kernel."""
-    # 35. the spec driver's path at 65,536 validators, mainnet config with the PeerDAS
-    # geometry, its riders attached, 4 epochs, counted
+def driver_scale_run() -> dict:
+    """Phase 35's run, in a child process of its own beside phases 32-34
+    (both paths are host-bound and leave the card mostly idle): the spec
+    driver's path at 65,536 validators, mainnet config with the PeerDAS
+    geometry, its riders attached, 4 epochs, its launch counts zeroed just
+    before and read just after; the rider checks (``driver_riders_check``)
+    and, after the run, a fresh head query and a flush under
+    ``torch.profiler``. Returns the run's record."""
+    dev = torch.device("cuda", 0)
     kernels.reset_launches()
     with use_config(mainnet_config().replace(**PEERDAS)):
         out = run_scale(DRIVER_N, DRIVER_EPOCHS, device=dev, das="merkle",
@@ -3090,7 +3124,34 @@ def driver_phases(dev, card: str, twins: dict) -> dict:
     launches = {k: v for k, v in kernels.launches.items() if v}
     sim = out.pop("sim")
     out["riders"]["serves"] = sim.das_serves
-    riders_ok = driver_riders_check(sim, out["riders"], launches)
+    out["riders_ok"] = driver_riders_check(sim, out["riders"], launches)
+    out["launches"] = launches
+    out["slots"] = sim.slot - 1
+    out["on_card"] = all(g.resident.buckets.device.type == "cuda" for g in sim.groups)
+    res, store = sim.groups[0].resident, sim.groups[0].store
+    with use_backend(sim.backend):
+        def fresh():
+            res._rev += 1
+            res._device_head(store)
+        out["head_prof"] = profiled_launches(fresh)
+        rng = np.random.default_rng(35)
+        tip = res.roots[-1]
+
+        def flush():
+            res.note_attestation(rng.integers(0, DRIVER_N, 2048), DRIVER_EPOCHS, tip)
+            res.flush()
+        out["flush_prof"] = profiled_launches(flush)
+    out["capacity"] = res.capacity
+    return out
+
+
+def driver_phases(dev, card: str, twins: dict, out: dict) -> dict:
+    """Phases 35-37. ``twins`` holds phase 36's runs by (kind, device),
+    made in child processes during phases 32-33; ``out`` phase 35's run
+    (``driver_scale_run``). Returns phase 35's launches by kernel."""
+    # 35. the spec driver's path at 65,536 validators, mainnet config with the PeerDAS
+    # geometry, its riders attached, 4 epochs, counted (run beside phases 32-34)
+    launches, riders_ok = out["launches"], out["riders_ok"]
     check(out["justified_epoch"] >= 3 and out["finalized_epoch"] >= 2,
           f"spec driver: justified {out['justified_epoch']}, finalized {out['finalized_epoch']}")
     check(out["resident_head_equals_spec_walk"] and out["resident_head_equals_host_walk"],
@@ -3102,40 +3163,28 @@ def driver_phases(dev, card: str, twins: dict) -> dict:
     st = out["resident_stats"][0]
     check(st["device_heads"] + st["memo_hits"] == out["head_queries"],
           f"spec driver: {st} against {out['head_queries']} head queries")
-    check(all(g.resident.buckets.device.type == "cuda" for g in sim.groups),
-          "spec driver: the resident store is not on the card")
+    check(out["on_card"], "spec driver: the resident store is not on the card")
     h = out["handler_timers_after_first_epoch"]
-    say(f"spec driver n={DRIVER_N}, {DRIVER_EPOCHS} mainnet epochs ({sim.slot - 1} slots, "
+    say(f"spec driver n={DRIVER_N}, {DRIVER_EPOCHS} mainnet epochs ({out['slots']} slots, "
         f"{out['n_blocks']} blocks): launches {launches}; justified {out['justified_epoch']}, "
         f"finalized {out['finalized_epoch']}; resident head == get_head_host == the spec walk; "
         f"no resident store degraded; {out['state_roots']} state roots, "
         f"{out['k2_launches_per_state_root']:.2f} K2 launches each; head queries "
         f"{out['head_queries']} = {st['device_heads']} on the card + {st['memo_hits']} memo; "
         f"{st['flushes']} flushes, {st['rebuilds']} rebuilds; {riders_ok}")
-    say(f"[{card}] spec driver at n={DRIVER_N}: set-up {out['init_s']:.3f} s; per epoch "
+    say(f"[{card}] spec driver at n={DRIVER_N} (contended: a child process beside phases "
+        f"32-34 and the twins' pool; the driver's entry point alone gives the uncontended "
+        f"numbers): set-up {out['init_s']:.3f} s; per epoch "
         + ", ".join(f"{x:.3f}" for x in out["per_epoch_s"])
         + f" s (mean {sum(out['per_epoch_s']) / DRIVER_EPOCHS:.3f}); after the first epoch "
         + "; ".join(f"{k} p50 {v['p50_ms']:.3f} ms p95 {v['p95_ms']:.3f} ms ({v['count']}, "
                     f"{v['total_s']:.3f} s)" for k, v in sorted(h.items())))
     driver_riders_report(card, out)
-    res, store = sim.groups[0].resident, sim.groups[0].store
-    with use_backend(sim.backend):
-        def fresh():
-            res._rev += 1
-            res._device_head(store)
-        head_prof = profiled_launches(fresh)
-        rng = np.random.default_rng(35)
-        tip = res.roots[-1]
-
-        def flush():
-            res.note_attestation(rng.integers(0, DRIVER_N, 2048), DRIVER_EPOCHS, tip)
-            res.flush()
-        flush_prof = profiled_launches(flush)
-    say(f"[{card}] resident store at n={DRIVER_N}, capacity {res.capacity}: a fresh head "
+    head_prof, flush_prof = out["head_prof"], out["flush_prof"]
+    say(f"[{card}] resident store at n={DRIVER_N}, capacity {out['capacity']}: a fresh head "
         f"query {head_prof['wall_ms']:.3f} ms, {head_prof['launches']:.0f} launches, device "
         f"busy {head_prof['busy_ms']:.3f} ms; a flush of 2,048 votes {flush_prof['wall_ms']:.3f} "
         f"ms, {flush_prof['launches']:.0f} launches, busy {flush_prof['busy_ms']:.3f} ms")
-    del sim, res, store
     lap("phase 35")
 
     # 36. the twins: the card against the CPU, and a checkpoint resumed (child processes)
@@ -3292,6 +3341,161 @@ def kzg_driver_phase(card: str, twins: dict) -> dict:
         f"== CPU ({want['s']:.3f} s) in every per-slot record, blob key and served summary "
         f"({len(tw)} aggregate proofs verified)")
     return launches
+
+
+def resilient_kind(kind: str) -> dict:
+    """One of phase 39's supervised runs, in a child process during phases
+    32-33 (``python -m
+    pos_evolution_tpu_torch.resilient_run`` on the card, its store under
+    ``build/``), then its uninterrupted twin in this process: the run's
+    result, emission and events; the twin's digest, its seconds and K2
+    launches of ``state_digest``, and (dense) its flight recorder; the final
+    step's manifest hex against K2 and K2's plain version on the card."""
+    c = RESIL[kind]
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "resilient_run", kind)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    store, events, emitted = (os.path.join(root, x) for x in ("store", "events.jsonl",
+                                                               "emission.json"))
+    argv = [sys.executable, "-m", "pos_evolution_tpu_torch.resilient_run",
+            "--validators", str(c["n"]), "--config", "mainnet", "--epochs", str(c["epochs"]),
+            "--every", str(c["every"]), "--crash-at-slot", str(c["crash"]),
+            "--ckpt-dir", store, "--events", events, "--json", emitted]
+    if kind == "dense":
+        argv.insert(3, "--dense")
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"resilient_run {kind}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    with open(os.path.join(store, "result.json")) as f:
+        result = json.load(f)
+    with open(emitted) as f:
+        emission = json.load(f)
+    with open(events) as f:
+        evs = [json.loads(line) for line in f]
+    final = os.path.join(store, f"step_{c['final']:08d}")
+    with open(os.path.join(final, "manifest.json")) as f:
+        manifest = json.load(f)
+    with open(os.path.join(final, "payload.bin"), "rb") as f:
+        payload = f.read()
+    with kernels.thread_launches() as counted:
+        k2_hex = merkle_device.digest_bytes(payload, "cuda").hex()
+    plain_hex = merkle_device.digest_bytes(payload, "cuda", plain=True).hex()
+    out = {"result": result, "emission": emission, "events": evs, "wall_s": wall,
+           "final": {"manifest": manifest["files"]["payload.bin"], "k2_hex": k2_hex,
+                     "plain_hex": plain_hex, "launches": counted, "bytes": len(payload)}}
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    if kind == "dense":
+        tel = Telemetry()
+        fr = FlightRecorder(tel, sample_every=8)
+        sim = DenseSimulation(c["n"], mainnet_config(), device=dev, verify_aggregates=False,
+                              check_walk_every=8, flight_recorder=fr)
+        t1 = time.perf_counter()
+        while sim.slot < c["epochs"] * sim.S:
+            sim.run_slot()
+        torch.cuda.synchronize()
+        out["twin_loop_s"] = time.perf_counter() - t1
+        out["twin_epoch_s"] = out["twin_loop_s"] / c["epochs"]
+        out["flight"] = fr.summary()["memory"]
+    else:
+        with use_config(mainnet_config()):
+            sim = Simulation(c["n"], device=dev)
+            sim.run_until_slot(c["epochs"] * 32)
+    torch.cuda.synchronize()
+    out["twin_s"] = time.perf_counter() - t0
+    k2 = kernels.launches["merkle_level"]
+    out["twin_digest"] = state_digest(sim)
+    out["twin_digest_k2"] = kernels.launches["merkle_level"] - k2
+    return out
+
+
+def k2_levels(nbytes: int) -> int:
+    """K2 launches of a merkle payload digest: one a tree level over the
+    payload's 32-byte chunks."""
+    return max(math.ceil(math.log2(max(-(-nbytes // 32), 1))), 0)
+
+
+def resilient_phase(card: str, runs: dict) -> None:
+    """Phase 39: each supervised run ends on its twin's digest, with the
+    events of one kill and one resume; every checkpoint digest is K2's, one
+    launch a level, counted; the per-checkpoint numbers printed."""
+    for kind, r in runs.items():
+        c, res, em, evs = RESIL[kind], r["result"], r["emission"], r["events"]
+        check(res["state_digest"] == r["twin_digest"],
+              f"resilient {kind}: the killed and resumed run's digest differs from its twin's")
+        check(res["slot"] == c["final"] and res["digest"] == "merkle" and res["device"] == "cuda",
+              f"resilient {kind}: ended at slot {res['slot']}, digest {res['digest']}")
+        types = [e["type"] for e in evs]
+        saved = [e["step"] for e in evs if e["type"] == "checkpoint_saved"]
+        resumed = [e["step"] for e in evs if e["type"] == "run_resumed"]
+        finals = [e["slot"] for e in evs if e["type"] == "checkpoint_final"]
+        check(types.count("supervisor_interruption") == 1 and em["attempts"] == 2
+              and resumed == [c["resumed"]] and c["resumed"] in saved
+              and finals == [c["final"]] and types[-1] == "goodput",
+              f"resilient {kind}: events {sorted(set(types))}, saved {saved}, "
+              f"resumed {resumed}, final {finals}")
+        writes, ticks, resume = res["checkpoint_writes"], res["checkpoint_ticks"], res["resume"]
+        for w in [*writes, *resume["verify"]]:
+            check(w["digest"] == "merkle"
+                  and w["digest_launches"] == {"merkle_level": k2_levels(w["bytes"])},
+                  f"resilient {kind}: step {w['step']}'s digest launched "
+                  f"{w['digest_launches']} for {w['bytes']} bytes")
+        fin = r["final"]
+        check(fin["manifest"]["merkle"] == fin["k2_hex"] == fin["plain_hex"]
+              and fin["launches"] == {"merkle_level": k2_levels(fin["bytes"])},
+              f"resilient {kind}: the final step's digest: manifest, K2 and plain differ")
+        digest_k2 = sum(w["digest_launches"]["merkle_level"] for w in writes)
+        k2_all = res["launches"].get("merkle_level", 0)
+        if kind == "dense":
+            # the resumed attempt launches K2 for the digests alone (writes, the
+            # resume's re-check, the closing state_digest), K6 for the midstates
+            check(k2_all == digest_k2 + resume["k2_launches"] + r["twin_digest_k2"]
+                  and res["launches"].get("sha256_blocks", 0) >= 1,
+                  f"resilient dense: launches {res['launches']}, digests {digest_k2}, "
+                  f"re-check {resume['k2_launches']}, state_digest {r['twin_digest_k2']}")
+        else:
+            check(k2_all > digest_k2 + resume["k2_launches"] > 0,
+                  f"resilient spec: K2 {k2_all} for digests {digest_k2}")
+        first = [e for e in evs if e["type"] == "checkpoint_saved" and e["step"] == c["resumed"]]
+        # the writes in the order they were made: one a tick, then finish()'s
+        # final save, which waits (it may re-save the step a tick just wrote)
+        check(len(writes) == len(ticks) + 1
+              and [w["step"] for w in writes[:-1]] == [t["step"] for t in ticks]
+              and writes[-1]["step"] == c["final"],
+              f"resilient {kind}: writes {[w['step'] for w in writes]} against ticks "
+              f"{[t['step'] for t in ticks]} and the final step {c['final']}")
+        rows = [f"step {w['step']}{'' if t else ' final (waits)'}: raw "
+                f"{(t or res['final_capture']).get('raw_bytes') or 'n/a'} B, compressed "
+                f"{w['bytes']} B, loop blocked {t['blocked_ms'] if t else 'n/a'} ms, writer "
+                f"{w['write_ms']} ms, digest {w['digest_ms']} ms / "
+                f"{w['digest_launches']['merkle_level']} K2"
+                for w, t in zip(writes, [*ticks, None])]
+        ckpt = res["checkpoint"]
+        say(f"resilient {kind} n={c['n']}: killed after slot {c['crash']}, resumed from step "
+            f"{c['resumed']} (attempts {em['attempts']}), ended at slot {res['slot']} with the "
+            f"twin's digest {res['state_digest'][:16]}; launches of the resumed attempt "
+            f"{res['launches']}; checkpoint digests K2 one a level, counted; the final step's "
+            f"hex == K2's plain version on the card")
+        say(f"[{card}] resilient {kind}: step {c['resumed']} (first attempt) loop blocked "
+            f"{first[0]['blocked_ms'] if first else 'n/a'} ms; " + "; ".join(rows)
+            + f"; resume: load {resume['load_s']} s (its K2 re-check "
+            f"{resume['verify'][0]['digest_ms']} ms, {resume['k2_launches']} K2), kill to the "
+            f"first resumed slot {resume.get('kill_to_first_slot_s')} s; goodput "
+            f"{em['goodput_pct']}% ({em['replayed_slots']} slots replayed); loop blocked "
+            f"{ckpt['loop_blocked_s']} s, writer {ckpt['background_s']} s of the resumed "
+            f"attempt's {res['run_wall_s']} s ({em['ckpt_overhead_pct']}%); supervised wall "
+            f"{r['wall_s']:.3f} s, the twin {r['twin_s']:.3f} s")
+        if kind == "dense":
+            f = r["flight"]
+            say(f"[{card}] resilient dense twin: {r['twin_epoch_s']:.3f} s per epoch; flight "
+                f"recorder peak allocated {f['allocator_peak_bytes']} B (samples "
+                f"{f['samples']}, source {f['source']}); loop blocked a checkpoint "
+                f"{max((t['blocked_ms'] for t in ticks), default=0)} ms against an epoch's "
+                f"{r['twin_epoch_s'] * 1e3:.1f} ms")
 
 
 def profiled_launches(fn, reps: int = 5) -> dict:
@@ -3725,15 +3929,27 @@ def main() -> int:
                     for where in ("cpu", "cuda")]
     deferred.insert(2, (kzg_card_run, (),
                         lambda res: driver_twins.__setitem__(("kzg", "run"), res)))
-    t_spec = time.perf_counter()
-    spec_launches = spec_phases(dev, card, deferred)
-    say(f"spec phases 32-34: {time.perf_counter() - t_spec:.3f} s")
-    lap("phases 32-34")
-    t_driver = time.perf_counter()
-    driver_launches = driver_phases(dev, card, driver_twins)
+    # phase 39's runs, one child process each, first in the queue (the longest)
+    resilient = {}
+    deferred[:0] = [(resilient_kind, (kind,),
+                     lambda res, key=kind: resilient.__setitem__(key, res)) for kind in RESIL]
+    # phase 35's run, in a process of its own beside phases 32-34
+    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=torch.set_num_threads, initargs=(2,)) as solo:
+        scale = solo.submit(driver_scale_run)
+        t_spec = time.perf_counter()
+        spec_launches = spec_phases(dev, card, deferred)
+        say(f"spec phases 32-34: {time.perf_counter() - t_spec:.3f} s")
+        lap("phases 32-34")
+        t_driver = time.perf_counter()
+        scale_run = scale.result()
+    say(f"phase 35's run: waited {time.perf_counter() - t_driver:.3f} s after phase 34")
+    driver_launches = driver_phases(dev, card, driver_twins, scale_run)
     say(f"spec driver phases 35-37: {time.perf_counter() - t_driver:.3f} s")
     kzg_driver_launches = kzg_driver_phase(card, driver_twins)
     lap("phase 38")
+    resilient_phase(card, resilient)
+    lap("phase 39")
 
     big = k2[K2_LARGEST]
     say(card)

@@ -9,7 +9,10 @@ shared headers and the flags, so an edited source is always rebuilt.
 ``build_all`` starts one ``nvcc`` per source, all at once.
 
 ``launches`` counts, per kernel, the launches its wrapper made; a wrapper
-adds one where it launches its kernel and nowhere else. Each entry point is
+adds one where it launches its kernel and nowhere else, under a lock, so
+the count stays exact while a checkpoint writer thread launches K2 beside
+the run's loop. ``build_listeners`` are called with each source's build
+seconds (``telemetry/torchrt.py`` charges them to the active span). Each entry point is
 bound once (``entry``); ``launch_on`` is the field kernels' lean launch: the
 raw current stream, and no device switch when the tensor is on the current
 device.
@@ -23,8 +26,10 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -95,14 +100,31 @@ KERNELS = {
 }
 
 launches = {name: 0 for name in KERNELS}
+_LAUNCH_LOCK = threading.Lock()
+_THREAD = threading.local()            # .counts: this thread's launches, while counted
 build_seconds: dict[str, float] = {}   # source -> its last nvcc's wall seconds
+build_listeners: list = []             # fn(source, seconds), after each build
 _libs: dict[str, ctypes.CDLL] = {}     # source file -> its loaded library
 _entries: dict = {}          # kernel name -> its bound C entry point
 
 
+@contextmanager
+def thread_launches():
+    """Count the launches this thread makes inside the block, apart from
+    every other thread's: yields the dict it fills, by kernel name."""
+    prev = getattr(_THREAD, "counts", None)
+    counts: dict[str, int] = {}
+    _THREAD.counts = counts
+    try:
+        yield counts
+    finally:
+        _THREAD.counts = prev
+
+
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _LAUNCH_LOCK:
+        for name in launches:
+            launches[name] = 0
 
 
 def _nvcc() -> str:
@@ -169,6 +191,11 @@ def build_all(names=None) -> dict[str, str]:
             failed.append(f"{source}: nvcc exited {proc.returncode}\n{out}")
         else:
             os.replace(tmp, target)   # atomic: a reader sees a whole library
+            for fn in build_listeners:
+                try:
+                    fn(source, build_seconds[source])
+                except Exception:
+                    pass  # a listener is telemetry: it never fails a build
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return {name: by_source[KERNELS[name][0]] for name in names}
@@ -212,7 +239,11 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         msg = getattr(library(name), f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
-    launches[name] += 1
+    with _LAUNCH_LOCK:
+        launches[name] += 1
+    counts = getattr(_THREAD, "counts", None)
+    if counts is not None:
+        counts[name] = counts.get(name, 0) + 1
 
 
 def launch_on(device: torch.device, name: str, *args) -> None:

@@ -23,9 +23,11 @@ Any device error, and any divergence the periodic self-check finds,
 drops the instance to the host spec walk for good (``degraded``, with
 the reason in ``incidents``), as in the JAX package. ``stats`` counts
 head queries (fresh device queries and memo hits), flushes and rebuilds
-for the driver's report. The
-JAX package's sharded mode (its ``_active_mesh``) is ROADMAP Queue 1
-item 3, and its dispatch and transfer records item 7.
+for the driver's report; a degradation is emitted on the global
+telemetry sink, and every flush and fresh head query is counted as a
+dispatch (the head's index read-back as a transfer) through
+``telemetry/torchrt.py``. The JAX package's sharded mode (its
+``_active_mesh``) is ROADMAP Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from pos_evolution_tpu_torch.ops.forkchoice import (
     rebuild_buckets,
     remove_latest_messages,
 )
+from pos_evolution_tpu_torch.telemetry import emit_global, torchrt
 
 logger = logging.getLogger("pos_evolution_tpu_torch.resident")
 
@@ -88,6 +91,8 @@ class ResidentForkChoice:
         self.degraded = True
         self.incidents.append(reason)
         logger.warning("resident fork choice degraded to the host spec path: %s", reason)
+        emit_global("degradation", component="resident_forkchoice", reason=reason[:400],
+                    fallback="host_spec_walk", head_queries=self._head_queries)
 
     # -- full (re)build --------------------------------------------------------
 
@@ -220,6 +225,7 @@ class ResidentForkChoice:
         blocks = np.concatenate(
             [np.full(p[0].shape[0], p[2], np.int32) for p in self._pending])
         self._pending.clear()
+        torchrt.record_dispatch(site="resident_flush")
         k = next_pow2(val_idx.shape[0])
         pad = k - val_idx.shape[0]
         # padded entries: new_block = -1 never lands; epoch 0 and a later
@@ -313,10 +319,12 @@ class ResidentForkChoice:
                 boost_idx = bi
                 boost_amount = get_proposer_boost(store)
         justified_idx = self.index_of[bytes(store.justified_checkpoint.root)]
+        torchrt.record_dispatch(site="resident_head")
         head_idx, _ = head_from_buckets(
             self.parent, self.real, self.rank, self.leaf_viable, justified_idx,
             self.buckets, boost_idx, boost_amount, self.capacity)
         # the int() readback is the query's one device-to-host copy
+        torchrt.record_transfer(4, direction="d2h", site="resident_head")
         return self.roots[int(head_idx)]
 
     def arrays(self) -> dict:

@@ -15,17 +15,25 @@ almost all of the slot's wall time:
   on, so the sampled budget charges device time to the phase that
   launched it. CPU tensors need no fence.
 
-``NULL_TIMER`` is the disabled twin with the same interface. The JAX
-package's compile-ledger spans, its metric registry and event bus, and
-the off-loop charge of background checkpoint writes are not ported
-here.
+Each phase is published to the span context of ``profiling/ledger.py``
+while it is open, so kernel builds and transfer bytes inside it name
+their phase. With a registry the sampled slots feed the
+``dense_phase_ms`` histogram, with a bus one ``dense_phase`` event each.
+Work done off the slot loop (the checkpoint writer thread's
+serialization) is charged apart by ``charge_async``, never into the
+slot partition.
+
+``NULL_TIMER`` is the disabled twin with the same interface.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 import torch
+
+from pos_evolution_tpu_torch.profiling import ledger
 
 __all__ = ["DENSE_PHASES", "NULL_TIMER", "PhaseTimer"]
 
@@ -42,6 +50,8 @@ DENSE_PHASES = (
     "aggregate_verify",   # _verify_slot committee aggregates (K1)
     "monitors",           # dense monitor sweep over the tallies
     "host_audit",         # head_host_walk parity check
+    "checkpoint_capture",    # supervision tick: device -> host gather
+    "checkpoint_serialize",  # supervision tick: npz on the writer thread
     "record",             # block tree and metrics bookkeeping
 )
 
@@ -49,19 +59,21 @@ DENSE_PHASES = (
 class _Phase:
     """One timed section; re-entered phases accumulate."""
 
-    __slots__ = ("name", "timer")
+    __slots__ = ("_prev_phase", "name", "timer")
 
     def __init__(self, timer: PhaseTimer, name: str):
         self.timer = timer
         self.name = name
 
     def __enter__(self) -> _Phase:
+        self._prev_phase = ledger.push_phase(self.name)
         self.timer._stack.append((self.name, time.perf_counter()))
         return self
 
     def __exit__(self, *exc) -> None:
         name, t0 = self.timer._stack.pop()
         self.timer._charge(name, time.perf_counter() - t0)
+        ledger.pop_phase(self._prev_phase)
 
 
 class _NullPhase:
@@ -80,7 +92,7 @@ _NULL_PHASE = _NullPhase()
 class PhaseTimer:
     """Accumulating per-phase wall timer with sampled device fencing.
 
-    >>> pt = PhaseTimer(sample_every=16)
+    >>> pt = PhaseTimer(sample_every=16, registry=reg, bus=bus)
     >>> pt.begin_slot(s)
     >>> with pt.phase("vote_pass"):
     ...     out = kernel(...)
@@ -91,8 +103,10 @@ class PhaseTimer:
 
     enabled = True
 
-    def __init__(self, sample_every: int = 16):
+    def __init__(self, sample_every: int = 16, registry=None, bus=None):
         self.sample_every = max(int(sample_every), 1)
+        self.registry = registry
+        self.bus = bus
         self.sampled = False
         self._stack: list[tuple[str, float]] = []
         self._slot_t0 = 0.0
@@ -104,6 +118,12 @@ class PhaseTimer:
         self.sampled_slots = 0
         self.wall_s = 0.0
         self.sampled_wall_s = 0.0
+        # off-loop work overlaps the slot wall, so it is kept apart
+        self._async_lock = threading.Lock()
+        self.async_totals: dict[str, list] = {}
+        self._hist = (registry.histogram(
+            "dense_phase_ms", "per-phase slot time at sampled (fenced) slots, ms")
+            if registry is not None else None)
 
     # -- slot lifecycle --------------------------------------------------------
 
@@ -117,6 +137,14 @@ class PhaseTimer:
 
     def _charge(self, name: str, dt: float) -> None:
         self._slot_acc[name] = self._slot_acc.get(name, 0.0) + dt
+
+    def charge_async(self, name: str, dt: float) -> None:
+        """Charge work that ran off the slot loop (another thread);
+        thread-safe, kept out of the slot partition."""
+        with self._async_lock:
+            row = self.async_totals.setdefault(name, [0.0, 0])
+            row[0] += dt
+            row[1] += 1
 
     def fence(self, *tensors) -> None:
         """At sampled slots, wait for the device work that the open
@@ -145,6 +173,17 @@ class PhaseTimer:
             row = self.sampled_totals.setdefault(name, [0.0, 0])
             row[0] += dt
             row[1] += 1
+            if self._hist is not None:
+                self._hist.observe(dt, phase=name)
+        if self.bus is not None:
+            try:
+                self.bus.emit(
+                    "dense_phase", slot=slot, wall_ms=round(wall * 1e3, 4),
+                    phases={n: round(dt * 1e3, 4) for n, dt in sorted(self._slot_acc.items())},
+                    accounted_pct=(round(100.0 * sum(self._slot_acc.values()) / wall, 2)
+                                   if wall > 0 else None))
+            except Exception:
+                pass  # a closed bus must not kill the slot it observed
 
     # -- results ---------------------------------------------------------------
 
@@ -157,6 +196,9 @@ class PhaseTimer:
             }
 
         accounted = sum(sec for sec, _ in self.sampled_totals.values())
+        with self._async_lock:
+            async_phases = {name: {"total_ms": round(sec * 1e3, 3), "count": n}
+                            for name, (sec, n) in sorted(self.async_totals.items())}
         return {
             "sample_every": self.sample_every,
             "slots": self.slots,
@@ -167,6 +209,7 @@ class PhaseTimer:
             "sampled_phases": table(self.sampled_totals, self.sampled_wall_s),
             "accounted_pct": (round(100.0 * accounted / self.sampled_wall_s, 2)
                               if self.sampled_wall_s > 0 else None),
+            "async_phases": async_phases,
         }
 
 
@@ -183,6 +226,9 @@ class _NullTimer:
         return _NULL_PHASE
 
     def fence(self, *tensors) -> None:
+        pass
+
+    def charge_async(self, name: str, dt: float) -> None:
         pass
 
     def end_slot(self, slot: int) -> None:

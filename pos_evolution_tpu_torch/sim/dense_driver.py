@@ -40,9 +40,18 @@ other. ``plain=True`` sends K1 and the digest's K2 to their plain
 PyTorch versions on any device: the reference the kernels are held
 against.
 
-Not ported here, each raising ``ValueError`` when asked for: a device
-mesh, telemetry, the flight recorder, autocheckpoint and
-``resume_latest``.
+``telemetry=`` (a ``telemetry.Telemetry``) gets the JAX driver's events
+(``run_start``, ``slot``, ``dense_fault``, ``monitor``, ...) and feeds the
+phase profiler's registry histogram and bus; ``flight_recorder=`` (a
+``telemetry.FlightRecorder``) is armed at the first ``run_slot`` and
+samples device memory at slot, epoch and checkpoint boundaries;
+``autocheckpoint=`` (``resilience.AutoCheckpoint``, or ``(every_n_slots,
+dir)``) arms run supervision: every N slots the columns are gathered to
+the host on the loop and compressed and digested on the checkpoint
+manager's writer thread (the digest through K2 on the card).
+``resume_latest`` resumes from the newest valid step of such a store. A
+device mesh is not ported (it raises ``ValueError``, ROADMAP Queue 1
+item 3).
 
 Run: ``python -m pos_evolution_tpu_torch.sim.dense_driver --n 1048576
 --epochs 4 [--device cuda]``; with the PeerDAS geometry and both riders:
@@ -59,6 +68,7 @@ import hashlib
 import io
 import json
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -121,6 +131,25 @@ def _not_ported(what: str, item: str) -> ValueError:
     return ValueError(f"DenseSimulation: {what} is not ported yet (ROADMAP Queue 1 {item})")
 
 
+def _write_npz(out, cols: dict) -> None:
+    """``np.savez_compressed``'s format, a zip of deflated ``.npy`` members
+    that ``np.load`` reads as any npz, written at deflate level 1 with
+    fixed member times: the same columns give the same bytes, and 2^20
+    validators' 83 MB compress ~4x faster than at the default level 6
+    (the checkpoint writer's time, which bounds how much a kill can lose)."""
+    with zipfile.ZipFile(out, mode="w", compression=zipfile.ZIP_DEFLATED,
+                         allowZip64=True) as z:
+        for name, arr in cols.items():
+            member = io.BytesIO()
+            np.lib.format.write_array(member, np.asanyarray(arr), allow_pickle=False)
+            z.writestr(zipfile.ZipInfo(name + ".npy", date_time=(1980, 1, 1, 0, 0, 0)),
+                       member.getvalue(), compress_type=zipfile.ZIP_DEFLATED, compresslevel=1)
+
+
+def _nbytes(cols: dict) -> int:
+    return sum(int(a.nbytes) for a in cols.values() if hasattr(a, "nbytes"))
+
+
 class _View:
     """One view group's mutable state: its message table, flag columns
     (inside the registry), FFG scalars and block visibility."""
@@ -153,9 +182,6 @@ class DenseSimulation:
                  autocheckpoint=None, riders=()):
         if mesh is not None:
             raise _not_ported("a device mesh", "item 3, the multi-GPU mode")
-        if telemetry is not None or flight_recorder is not None or autocheckpoint is not None:
-            raise _not_ported("telemetry, the flight recorder or autocheckpoint",
-                              "item 7, the tooling")
         self.device = resolve_device(device)
         self.plain = bool(plain)
         self.cfg = cfg or mainnet_config()
@@ -175,6 +201,7 @@ class DenseSimulation:
             raise ValueError("multi-view runs need a partitioned DenseFaultPlan")
         self.adversaries = list(adversaries)
         self.monitors = list(monitors)
+        self.telemetry = telemetry
         self.variant = dense_variant_from_config(variant)
         self.riders = [r for r in riders if r is not None]
         # per-view proposer-boost candidate: the newest timely (visible)
@@ -182,8 +209,15 @@ class DenseSimulation:
         self._boost: list[int | None] = [None] * self.n_groups
         # ``phase_profile=N`` fences every N-th slot; None/0 threads the
         # disabled twin so the loop body stays branch-free either way
-        self.phases = PhaseTimer(sample_every=int(phase_profile)) if phase_profile \
-            else NULL_TIMER
+        self.phases = (PhaseTimer(sample_every=int(phase_profile),
+                                  registry=telemetry.registry if telemetry else None,
+                                  bus=telemetry.bus if telemetry else None)
+                       if phase_profile else NULL_TIMER)
+        # the flight recorder is armed at the first ``run_slot``, not here,
+        # so construction's work is charged to no phase
+        self.flight = flight_recorder
+        self._flight_probe = False  # True during a probed slot's phases
+        self.last_capture: dict = {}  # the newest checkpoint capture's record
         self.monitor_violations: list[dict] = []
         # honest duty split: view group per validator
         self.group_of = (np.arange(self.n, dtype=np.int64) % self.n_groups).astype(np.int8)
@@ -241,6 +275,21 @@ class DenseSimulation:
             adv.bind(self)
         for mon in self.monitors:
             mon.bind(self)
+        self._emit("run_start", n_validators=self.n, n_groups=self.n_groups, dense=True,
+                   mesh=None, variant=self.variant.name)
+        if self.variant.name != "gasper" or self.riders:
+            self._emit("variant_attach", variant=self.variant.describe(),
+                       riders=[r.describe() for r in self.riders])
+        if self.adversaries or self.monitors:
+            self._emit("monitor_attach",
+                       monitors=[m.describe() for m in self.monitors],
+                       adversaries=[a.describe() for a in self.adversaries],
+                       faults=self.fault_plan.describe() if self.fault_plan else None)
+        # run supervision: gather to host on the loop, compress and digest
+        # on the checkpoint manager's writer thread
+        self.supervision = None
+        if autocheckpoint is not None:
+            self.attach_autocheckpoint(autocheckpoint)
 
     # -- view 0 is the run when n_groups == 1 ---------------------------------
 
@@ -262,6 +311,10 @@ class DenseSimulation:
                          lambda s, v: setattr(s.views[0], "finalized", v))
     epoch_start_idx = property(lambda s: s.views[0].epoch_start_idx,
                                lambda s, v: setattr(s.views[0], "epoch_start_idx", v))
+
+    def _emit(self, type_: str, **fields) -> None:
+        if self.telemetry is not None:
+            self.telemetry.bus.emit(type_, **fields)
 
     def _col(self, a: np.ndarray) -> torch.Tensor:
         """A host array to the run's device, always as a copy: a tensor
@@ -406,6 +459,8 @@ class DenseSimulation:
             if win is not None:
                 msg = expiry_kernel(msg, view.msg_slot, win[0], win[1])
             buckets = rebuild_buckets(msg, view.registry.effective_balance, self.capacity)
+            if self._flight_probe:
+                self.flight.probe_skew("vote_pass", buckets, slot=self.slot + 1)
             self.phases.fence(buckets)
         # the int() read waits for the device, so this phase is fenced on
         # every slot, sampled or not
@@ -493,7 +548,9 @@ class DenseSimulation:
         # a delayed or banked vote keeps its origination slot
         vslot = slot if batch.slot is None else int(batch.slot)
         if not self.variant.admit(vslot, slot):
-            return np.zeros(self.n, dtype=bool)   # too old to merge (RLMD)
+            # too old to merge into the view at all (RLMD)
+            self._emit("dense_fault", slot=slot, view=g, expired=int(mask.sum()))
+            return np.zeros(self.n, dtype=bool)
         if batch.faultable:
             dropped, delayed, crashed = self._fault_masks(slot, g)
             land = mask & ~crashed & ~dropped & ~delayed
@@ -502,6 +559,9 @@ class DenseSimulation:
                 self.views[g].pending.append(
                     VoteBatch(late, batch.block, batch.epoch, views=(g,), flag=batch.flag,
                               faultable=False, slot=vslot))
+            n_d, n_l = int((mask & dropped).sum()), int(late.sum())
+            if n_d or n_l:
+                self._emit("dense_fault", slot=slot, view=g, dropped=n_d, delayed=n_l)
         else:
             land = mask
         if not land.any():
@@ -562,6 +622,11 @@ class DenseSimulation:
         """Epoch processing for one view when entering ``entering_epoch``
         (``current_epoch`` = the epoch just completed)."""
         cur_e = entering_epoch - 1
+        if self.flight is not None:
+            # the registry bytes a JAX run would donate to its epoch step
+            from pos_evolution_tpu_torch.telemetry import torchrt
+            torchrt.record_donation(sum(int(a.nbytes) for a in view.registry),
+                                    site="epoch_step")
         out = process_epoch_dense(view.registry, cur_e, view.finalized[0], view.bits,
                                   view.prev_just[0], view.cur_just[0], 0, self.cfg)
         view.registry = out.registry
@@ -608,12 +673,20 @@ class DenseSimulation:
         pt = self.phases
         s = self.slot + 1
         epoch = s // self.S
+        fr = self.flight
+        if fr is not None and not fr.installed:
+            fr.install()   # armed at the first slot: see __init__
+        self._flight_probe = fr is not None and fr.should_probe(s)
         pt.begin_slot(s)
         if s % self.S == 0 and s > 0:
             with pt.phase("epoch_sweep"):
                 for view in self.views:
                     self._epoch_boundary(view, epoch)
+                if self._flight_probe:
+                    fr.probe_skew("epoch_sweep", self.views[0].registry.balance, slot=s)
                 pt.fence(*(v.registry.balance for v in self.views))
+            if fr is not None:
+                fr.on_epoch(slot=s)
         if self._epoch_ready < epoch:
             # ends on a host read of the permutation: self-fencing
             with pt.phase("shuffle"):
@@ -739,6 +812,7 @@ class DenseSimulation:
                 for v in mon.on_slot_end(self, s):
                     v.setdefault("slot", s)
                     self.monitor_violations.append(v)
+                    self._emit("monitor", **v)
 
         if self.check_walk_every and s % self.check_walk_every == 0:
             # device head vs the independent host walk (not the proposed
@@ -760,6 +834,16 @@ class DenseSimulation:
                      "finalized_epoch": self.views[g].finalized[0]}
                     for g in range(self.n_groups)]
             self.metrics.append(m)
+            self._emit("slot", slot=s, head_slot=s,
+                       justified_epoch=self.views[0].cur_just[0],
+                       finalized_epoch=self.views[0].finalized[0])
+        if self.supervision is not None:
+            with pt.phase("checkpoint_capture"):
+                self.supervision.tick(self, s, self._checkpoint_async_capture)
+        if fr is not None and self._flight_probe:
+            with pt.phase("record"):
+                fr.on_slot(s)  # memory watermark at the slot boundary
+        self._flight_probe = False
         pt.end_slot(s)
 
     def run_epochs(self, n_epochs: int) -> None:
@@ -807,6 +891,8 @@ class DenseSimulation:
             out["violation_kinds"] = sorted({v["kind"] for v in self.monitor_violations})
         if self.phases.enabled:
             out["dense_phases"] = self.phases.summary()
+        if self.flight is not None:
+            out["device"] = self.flight.summary()
         return out
 
     # -- checkpoint / resume ---------------------------------------------------
@@ -818,16 +904,10 @@ class DenseSimulation:
         and every adversary's and monitor's mutable state ride along, so a
         resume mid-attack replays the same episode. ``path`` also writes
         the bytes to a file."""
-        meta, cols = self._checkpoint_capture()
-        out = io.BytesIO()
-        head = json.dumps(meta).encode()
-        out.write(np.uint64(len(head)).tobytes())
-        out.write(head)
-        np.savez_compressed(out, **cols)
-        data = out.getvalue()
+        data = self._checkpoint_serialize(*self._checkpoint_capture())
         if path is not None:
-            with open(path, "wb") as f:
-                f.write(data)
+            from pos_evolution_tpu_torch.utils.snapshot import atomic_write_bytes
+            atomic_write_bytes(path, data)
         return data
 
     def _checkpoint_capture(self):
@@ -904,11 +984,47 @@ class DenseSimulation:
         }
         if self._perm_host is not None:
             cols["perm"] = self._perm_host.copy()
+        # the whole capture is one read-back, charged to its own site; the
+        # memory watermark is taken while the device state and its host
+        # copy are both live, the run's high-water point
+        from pos_evolution_tpu_torch.telemetry import torchrt
+        torchrt.record_transfer(_nbytes(cols), direction="d2h", site="checkpoint_capture")
+        if self.flight is not None:
+            self.flight.sample_memory(site="checkpoint", slot=self.slot)
         return meta, cols
+
+    @staticmethod
+    def _checkpoint_serialize(meta: dict, cols: dict) -> bytes:
+        """The expensive half (json and npz compression): a pure function
+        of the captured host copies, safe on a background thread."""
+        out = io.BytesIO()
+        head = json.dumps(meta).encode()
+        out.write(np.uint64(len(head)).tobytes())
+        out.write(head)
+        _write_npz(out, cols)
+        return out.getvalue()
+
+    def _checkpoint_async_capture(self):
+        """``RunSupervision``'s capture: gather now, on the loop (the host
+        copies are frozen: every column is copied), and hand the writer
+        thread a job that serializes them. ``last_capture`` records the
+        raw column bytes and the gather's ms."""
+        t0 = time.perf_counter()
+        meta, cols = self._checkpoint_capture()
+        self.last_capture = {"raw_bytes": _nbytes(cols),
+                             "capture_ms": round((time.perf_counter() - t0) * 1e3, 3)}
+
+        def job():
+            t1 = time.perf_counter()
+            data = self._checkpoint_serialize(meta, cols)
+            self.phases.charge_async("checkpoint_serialize", time.perf_counter() - t1)
+            return data
+        return job
 
     @classmethod
     def resume(cls, data: bytes, *, device="cuda", plain: bool = False,
-               expect_variant: str | None = None, phase_profile=None) -> DenseSimulation:
+               expect_variant: str | None = None, phase_profile=None, telemetry=None,
+               flight_recorder=None) -> DenseSimulation:
         """Rebuild a run from ``checkpoint`` bytes (written by this package
         or by the JAX package, format versions 1-3) on ``device``."""
         buf = io.BytesIO(data)
@@ -942,6 +1058,7 @@ class DenseSimulation:
                   check_walk_every=meta["check_walk_every"],
                   n_groups=meta.get("n_groups", 1), fault_plan=fault_plan,
                   adversaries=adversaries, monitors=monitors, phase_profile=phase_profile,
+                  telemetry=telemetry, flight_recorder=flight_recorder,
                   variant=dense_variant_from_config(meta.get("variant")), riders=riders)
         views_meta = ([{
             "bits": meta["bits"], "prev_just": meta["prev_just"],
@@ -1015,11 +1132,49 @@ class DenseSimulation:
             sim._assigned_host = sim._perm_host * sim.S // sim.n
         return sim
 
-    # -- run supervision: not ported -------------------------------------------
+    # -- run supervision ----------------------------------------------------------
+
+    def attach_autocheckpoint(self, spec) -> None:
+        """Arm (or re-arm, after a resume) run supervision; its merkle
+        digests hash on this run's device."""
+        from pos_evolution_tpu_torch.backend.torch_backend import TorchBackend
+        from pos_evolution_tpu_torch.resilience import RunSupervision
+        self.supervision = RunSupervision(spec, kind="dense", cfg_obj=self.cfg,
+                                          backend=TorchBackend(self.device))
+
+    def finish_autocheckpoint(self) -> dict | None:
+        """Final checkpoint at the current slot and a writer drain; returns
+        the manager's overhead stats (None when unsupervised)."""
+        if self.supervision is None:
+            return None
+        return self.supervision.finish(self.slot, self._checkpoint_async_capture)
 
     @classmethod
-    def resume_latest(cls, dir, **kw) -> DenseSimulation:
-        raise _not_ported("resume_latest", "item 7, the tooling")
+    def resume_latest(cls, dir, *, device="cuda", autocheckpoint=None,
+                      expect_variant: str | None = None) -> DenseSimulation:
+        """Resume from the newest valid checkpoint under ``dir`` on
+        ``device``, quarantining and rolling past corrupt steps (a merkle
+        step is re-checked through K2 on the card). Raises
+        ``FileNotFoundError`` when nothing valid exists."""
+        import os
+
+        from pos_evolution_tpu_torch.backend.torch_backend import TorchBackend
+        from pos_evolution_tpu_torch.resilience import CheckpointManager
+        from pos_evolution_tpu_torch.telemetry import emit_global
+        dev = resolve_device(device)
+        # no fingerprint pin: the dense checkpoint carries its own Config
+        manager = CheckpointManager(dir, backend=TorchBackend(dev))
+        found = manager.latest_valid()
+        if found is None:
+            raise FileNotFoundError(f"no valid checkpoint under {dir!r} to resume from")
+        step, payloads = found
+        sim = cls.resume(payloads["payload.bin"], device=dev, expect_variant=expect_variant)
+        # the step resumed and its validation's digest records
+        sim.resumed_from = {"step": step, "verify": list(manager.verify_log)}
+        if autocheckpoint is not None:
+            sim.attach_autocheckpoint(autocheckpoint)
+        emit_global("run_resumed", step=step, slot=sim.slot, dir=os.fspath(dir))
+        return sim
 
 
 def main(argv=None) -> None:

@@ -20,12 +20,25 @@ another, raising without it). Every public entry (``run_slot``,
 ``run_until_slot``, ``run_epochs``, ``checkpoint``, ``resume``) runs
 under it, so the spec layer's device calls (the epoch and block sweeps,
 every state root through kernel K2 on a CUDA device) and the resident
-fork-choice store (``ops/resident.py``) run there. The knobs of the JAX
-package's driver that are not ported raise ``ValueError`` naming their
-ROADMAP item: ``telemetry=``, ``profile=``, ``compile_cache=``,
-``autocheckpoint=`` and ``resume_latest`` (item 7, the tooling);
-``serve=`` (item 4d, the serving tier); a ``sharded=`` other than None or
-False goes to the backend, which raises (item 3).
+fork-choice store (``ops/resident.py``) run there.
+
+``telemetry=`` (a ``telemetry.Telemetry``) gets the JAX driver's events:
+the message lifecycle spans (``propose``, ``attest``, ``gossip``,
+``deliver``), ``handler``, ``slot``, ``crash`` and ``rejoin``,
+``monitor``, ``variant``, ``merkleization`` (this package's own counters),
+and the riders' ``das_attach``, ``das_serve`` and ``light_client_lag``;
+its registry gets the handler, DAS-server and ``BlobStore`` counters;
+its ``debug`` flag arms ``StoreInvariantChecker`` around every handler
+call. ``autocheckpoint=`` (or ``attach_autocheckpoint``) arms run
+supervision (``resilience.RunSupervision``: heartbeats, integrity
+audits, checkpoints every N slots, serialized on the loop, digested and
+written on the manager's writer thread, through K2 on the card);
+``resume_latest`` resumes from the newest valid step. The knobs of the
+JAX package's driver that are not ported raise ``ValueError`` naming
+their ROADMAP item: ``profile=`` and ``compile_cache=`` (item 7b, the
+profiling tooling); ``serve=`` (item 4d, the serving tier); a
+``sharded=`` other than None or False goes to the backend, which raises
+(item 3).
 
 The riders are the JAX package's. ``das=`` (True, a scheme name, or a
 ``das/engine.BlobEngine``; ``blob_engine_for``) makes proposals carry
@@ -78,7 +91,7 @@ from pos_evolution_tpu_torch.specs.validator import (
 from pos_evolution_tpu_torch.ssz import cached_root, hash_tree_root
 
 _ITEMS = {"3": "the multi-GPU mode", "4d": "the serving tier of the spec driver",
-          "7": "the tooling"}
+          "7b": "the profiling tooling"}
 
 #: The PeerDAS blob geometry, applied over ``mainnet_config()`` (whose 8
 #: samples a client it keeps): EIP-7594's 128 extended cells of 2,048 bytes
@@ -163,6 +176,24 @@ class _QueuedMessage:
     seq: int
     kind: str = field(compare=False)     # "block" | "attestation" | "slashing" | "blob"
     payload: object = field(compare=False)
+    # telemetry lineage: the gossip-edge span this copy belongs to (None
+    # when telemetry is off or after resume: spans are not sim state)
+    span: str | None = field(compare=False, default=None)
+
+
+def _span_id(kind: str, slot: int, src: int, msg_id: int) -> str:
+    """Deterministic message-span identity: the same run always names the
+    same spans. Honest proposals use msg_id 0; an adversarial double
+    proposal needs the msg_id suffix to keep the two blocks' spans apart."""
+    if kind == "block":
+        return f"blk-{slot}-{src}" if msg_id == 0 else f"blk-{slot}-{src}-{msg_id}"
+    if kind == "attestation":
+        return f"att-{slot}-g{src}-c{msg_id}"
+    return f"{kind}-{slot}-{src}-{msg_id}"
+
+
+_HANDLER_OF = {"block": "on_block", "attestation": "on_attestation",
+               "slashing": "on_attester_slashing", "blob": "on_blob_sidecar"}
 
 
 class ViewGroup:
@@ -170,10 +201,18 @@ class ViewGroup:
     + an attestation pool for proposals made from this view."""
 
     def __init__(self, group_id: int, store: fc.Store, members: np.ndarray,
-                 resident=None):
+                 resident=None, telemetry=None):
         self.id = group_id
         self.store = store
         self.members = members
+        # Telemetry: every delivery emits a lifecycle event; with its debug
+        # flag every handler call runs under the StoreInvariantChecker (a
+        # failed handler must not mutate the store).
+        self.telemetry = telemetry
+        self.invariants = None
+        if telemetry is not None and telemetry.debug:
+            from pos_evolution_tpu_torch.utils.metrics import StoreInvariantChecker
+            self.invariants = StoreInvariantChecker(store)
         # Crash-fault state (sim/faults.py CrashWindow): a crashed group
         # processes nothing and receives nothing until it rejoins via
         # weak-subjectivity checkpoint sync. Always recomputable from the
@@ -202,9 +241,27 @@ class ViewGroup:
         # ``store.variant_view`` so the handlers feed it.
         self.variant_view = None
 
-    def enqueue(self, time: float, kind: str, payload) -> None:
-        heapq.heappush(self.queue, _QueuedMessage(time, self._seq, kind, payload))
+    def enqueue(self, time: float, kind: str, payload, span: str | None = None) -> None:
+        heapq.heappush(self.queue, _QueuedMessage(time, self._seq, kind, payload, span))
         self._seq += 1
+
+    def _call_handler(self, handler, *args, **kwargs):
+        """One fork-choice handler call, through the debug-gated
+        ``StoreInvariantChecker``; a violation (a failed handler that
+        mutated the store) is emitted before the assertion reaches the
+        caller's drop policy."""
+        if self.invariants is None:
+            return handler(self.store, *args, **kwargs)
+        n0 = len(self.invariants.violations)
+        try:
+            return self.invariants.call(handler, *args, **kwargs)
+        except AssertionError:
+            if len(self.invariants.violations) > n0:
+                self.telemetry.bus.emit(
+                    "invariant_violation", group=self.id,
+                    handler=getattr(handler, "__name__", str(handler)),
+                    detail=self.invariants.violations[-1])
+            raise
 
     def _mirror_attestation(self, att, indices) -> None:
         if self.resident is not None and indices is not None:
@@ -223,7 +280,7 @@ class ViewGroup:
             # state transition AND append a duplicate row to the resident
             # mirror, splitting its vote weights
             return
-        fc.on_block(self.store, signed_block)
+        self._call_handler(fc.on_block, signed_block)
         self._absorb_block(signed_block, block_root)
 
     def _process_block_chain(self, signed_blocks) -> None:
@@ -237,7 +294,7 @@ class ViewGroup:
         if not pending:
             return
         try:
-            fc.on_block_batch(self.store, pending)
+            self._call_handler(fc.on_block_batch, pending)
         finally:
             for sb in pending:
                 block_root = cached_root(sb.message)
@@ -254,16 +311,25 @@ class ViewGroup:
         for att in signed_block.message.body.attestations:
             carried.append(cached_root(att))
             try:
-                idx = fc.on_attestation(self.store, att, is_from_block=True)
+                idx = self._call_handler(fc.on_attestation, att, is_from_block=True)
                 self._mirror_attestation(att, idx)
             except AssertionError:
-                pass  # a carried attestation's reject drops that vote only
+                # a carried attestation's reject drops that vote only; it
+                # is counted, not an event each
+                if self.telemetry is not None:
+                    self.telemetry.registry.counter(
+                        "carried_attestation_rejects_total",
+                        "on_attestation(is_from_block=True) asserts",
+                    ).inc(group=self.id)
         self.block_atts[block_root] = carried
 
     def deliver_due(self, now: float, timer, resolver=None) -> None:
         track = timer.track
+        bus = self.telemetry.bus if self.telemetry is not None else None
         while self.queue and self.queue[0].time <= now:
             msg = heapq.heappop(self.queue)
+            t0 = _time.perf_counter()
+            status, reason = "accept", None
             try:
                 if msg.kind == "block":
                     # block-carried attestations are part of on_block cost
@@ -273,12 +339,12 @@ class ViewGroup:
                         self._process_block(msg.payload)
                 elif msg.kind == "attestation":
                     with track("on_attestation"):
-                        idx = fc.on_attestation(self.store, msg.payload)
+                        idx = self._call_handler(fc.on_attestation, msg.payload)
                         self._mirror_attestation(msg.payload, idx)
                     self.pool[cached_root(msg.payload)] = msg.payload
                 elif msg.kind == "slashing":
                     with track("on_attester_slashing"):
-                        evil = fc.on_attester_slashing(self.store, msg.payload)
+                        evil = self._call_handler(fc.on_attester_slashing, msg.payload)
                         if self.resident is not None:
                             self.resident.note_slashing(evil)
                 elif msg.kind == "blob":
@@ -288,14 +354,27 @@ class ViewGroup:
                     with track("on_blob_sidecar"), _metered(self.meter, "sidecar_ingest"):
                         accepted = (self.blob_store is not None
                                     and self.blob_store.on_sidecar(msg.payload))
-                    if not accepted and self.meter is not None:
-                        self.meter.rejected_sidecars += 1
-            except AssertionError:
+                    if not accepted:
+                        status, reason = "reject", "sidecar failed verification"
+                        if self.meter is not None:
+                            self.meter.rejected_sidecars += 1
+            except AssertionError as e:
                 # Invalid-at-this-time messages are dropped (the reference
                 # permits re-queueing; the driver keeps the simple policy).
                 # Pre-anchor walks in a checkpoint-synced view land here too
                 # via the handlers' own asserts.
-                pass
+                status, reason = "reject", (str(e) or "assertion failed")[:200]
+            if bus is not None:
+                handler = _HANDLER_OF[msg.kind]
+                extra = {"reason": reason} if reason is not None else {}
+                bus.emit(
+                    "deliver", span=(f"{msg.span}/d{self.id}" if msg.span else None),
+                    parent=msg.span, group=self.id, kind=msg.kind, handler=handler,
+                    t=msg.time, status=status,
+                    duration_ms=round((_time.perf_counter() - t0) * 1e3, 4), **extra)
+                self.telemetry.registry.counter(
+                    "handler_calls_total", "fork-choice handler invocations from delivery",
+                ).inc(handler=handler, status=status)
 
 
 def _metered(meter, phase: str):
@@ -312,19 +391,25 @@ class Simulation:
                  das=None, prewarm: bool = False, compile_cache=None,
                  variant=None, sharded=None, autocheckpoint=None,
                  serve=None, device=None):
-        for knob, value, item in (("telemetry=", telemetry, 7), ("profile=", profile, 7),
-                                  ("compile_cache=", compile_cache, 7),
-                                  ("autocheckpoint=", autocheckpoint, 7),
+        for knob, value, item in (("profile=", profile, "7b"),
+                                  ("compile_cache=", compile_cache, "7b"),
                                   ("serve=", serve, "4d")):
             if value is not None and value is not False:
                 raise _not_ported(knob, item)
         self.backend = _backend_for(device)
         with use_backend(self.backend):
             self._init(n_validators, schedule, genesis_time, accelerated_forkchoice,
-                       adversaries, monitors, prewarm, variant, sharded, das)
+                       adversaries, monitors, prewarm, variant, sharded, das, telemetry)
+        # Run supervision: ``autocheckpoint=(every_n_slots, dir)`` (or an
+        # AutoCheckpoint) arms per-slot heartbeats, integrity audits and
+        # atomic checksummed checkpoints. Like telemetry, not simulation
+        # state: a restarted process re-arms via ``resume_latest``.
+        self.supervision = None
+        if autocheckpoint is not None:
+            self.attach_autocheckpoint(autocheckpoint)
 
     def _init(self, n_validators, schedule, genesis_time, accelerated_forkchoice,
-              adversaries, monitors, prewarm, variant, sharded, das) -> None:
+              adversaries, monitors, prewarm, variant, sharded, das, telemetry) -> None:
         self.cfg = cfg()
         self.schedule = schedule or honest_schedule(n_validators)
         self.n_validators = n_validators
@@ -334,10 +419,14 @@ class Simulation:
         self.sharded = None
         if sharded is not None and sharded is not False:
             self.backend.enable_sharded(sharded)
-        # Not simulation state here: the JAX package's event bus (item 7).
-        self.telemetry = None
+        # Telemetry: opt-in event bus and metrics registry, not simulation
+        # state (a checkpoint excludes it; pass it again to ``resume``).
+        # The Simulation owns the sink of the fault plan it runs: this
+        # run's bus, or none, so a reused schedule never leaks fault
+        # events onto an earlier run's bus.
+        self.telemetry = telemetry
         if self.schedule.faults is not None:
-            self.schedule.faults.sink = None
+            self.schedule.faults.sink = telemetry.bus if telemetry is not None else None
         state, anchor = make_genesis(n_validators, genesis_time)
         self.genesis_state = state
         self.anchor_root = hash_tree_root(anchor)
@@ -392,14 +481,17 @@ class Simulation:
             if accelerated_forkchoice:
                 from pos_evolution_tpu_torch.ops.resident import ResidentForkChoice
                 resident = ResidentForkChoice(store)
-            group = ViewGroup(g, store, self.schedule.members(g), resident)
+            group = ViewGroup(g, store, self.schedule.members(g), resident,
+                              telemetry=telemetry)
             if self.variant.needs_view:
                 view = self.variant.make_view(g)
                 group.variant_view = view
                 store.variant_view = view
             if self.das is not None:
                 from pos_evolution_tpu_torch.das import BlobStore
-                group.blob_store = BlobStore(self.das, registry=None, group=g)
+                group.blob_store = BlobStore(
+                    self.das, registry=telemetry.registry if telemetry is not None else None,
+                    group=g)
                 store.blob_store = group.blob_store
                 group.meter = self.meter
             return group
@@ -432,13 +524,27 @@ class Simulation:
         self.adversaries = list(adversaries)
         self.monitors = list(monitors)
         self.monitor_violations: list[dict] = []
+        if telemetry is not None:
+            telemetry.bus.emit(
+                "run_start", n_validators=n_validators, n_groups=self.schedule.n_groups,
+                genesis_time=genesis_time, accelerated_forkchoice=accelerated_forkchoice,
+                sharded=self.sharded, debug=telemetry.debug)
         self._bind_adversaries_and_monitors()
 
     def _get_head(self, group: ViewGroup) -> bytes:
+        t0 = _time.perf_counter()
         with self.timer.track("get_head"):
             # GasperVariant answers from the resident mirror / spec walk;
             # successor variants run their expiry-windowed rules
-            return self.variant.head(self, group)
+            head = self.variant.head(self, group)
+        if self.telemetry is not None:
+            self.telemetry.bus.emit(
+                "handler", handler="get_head", group=group.id,
+                duration_ms=round((_time.perf_counter() - t0) * 1e3, 4))
+            self.telemetry.registry.counter(
+                "handler_calls_total", "fork-choice handler invocations from delivery",
+            ).inc(handler="get_head", status="accept")
+        return head
 
     def trace_summary(self) -> dict:
         """Per-handler timing percentiles for this run."""
@@ -455,6 +561,10 @@ class Simulation:
             strat.bind(self)
         for mon in self.monitors:
             mon.bind(self)
+        if self.monitors and self.telemetry is not None:
+            self.telemetry.bus.emit(
+                "monitor_attach", monitors=[m.describe() for m in self.monitors],
+                adversaries=[s.describe() for s in self.adversaries])
 
     def _adversary_phase(self, phase: str, slot: int, now: float) -> None:
         """Run one hook round: every strategy acts, then anything it
@@ -477,7 +587,10 @@ class Simulation:
     def _run_monitors(self, slot: int) -> None:
         for mon in self.monitors:
             for violation in mon.on_slot_end(self, slot):
-                self.monitor_violations.append({"slot": slot, **violation})
+                record = {"slot": slot, **violation}
+                self.monitor_violations.append(record)
+                if self.telemetry is not None:
+                    self.telemetry.bus.emit("monitor", **record)
 
     # -- time helpers --
     def slot_start(self, slot: int) -> int:
@@ -529,10 +642,16 @@ class Simulation:
         root = cached_root(block)
         if group.blob_store.is_available(root, block):
             return
+        backfilled = 0
         for sc in self.blob_archive.get(root, ()):
             with self.meter.phase("sidecar_ingest"):
                 accepted = group.blob_store.on_sidecar(sc)
             self.meter.rejected_sidecars += not accepted
+            backfilled += 1
+        if backfilled and self.telemetry is not None:
+            self.telemetry.registry.counter(
+                "das_blob_backfills_total", "sidecars pulled by req/resp at import time",
+            ).inc(backfilled, group=group.id)
 
     # -- fault layer (sim/faults.py) -------------------------------------------
 
@@ -544,12 +663,20 @@ class Simulation:
         if delay is None or dst.crashed:
             return
         t = base_time + delay
+        span = None
+        if self.telemetry is not None:
+            # one gossip-edge span per (message, recipient group); a drop
+            # leaves this span childless
+            root_span = _span_id(kind, slot, src, msg_id)
+            span = f"{root_span}/g{dst.id}"
+            self.telemetry.bus.emit("gossip", span=span, parent=root_span, kind=kind,
+                                    slot=slot, src=src, msg_id=msg_id, dst=dst.id, t=t)
         plan = self.schedule.faults
         if plan is None:
-            dst.enqueue(t, kind, payload)
+            dst.enqueue(t, kind, payload, span=span)
             return
         for extra in plan.delivery_offsets(kind, slot, src, msg_id, dst.id, t):
-            dst.enqueue(t + extra, kind, payload)
+            dst.enqueue(t + extra, kind, payload, span=span)
 
     def _apply_fault_transitions(self, slot: int) -> None:
         """Crash / rejoin view groups at slot boundaries per the plan's
@@ -564,11 +691,21 @@ class Simulation:
                 g.crashed = True
                 # the process died: in-flight messages and the op pool go
                 # with it
+                n_inflight = len(g.queue)
                 g.queue.clear()
                 g.pool.clear()
                 g.block_atts.clear()
+                if self.telemetry is not None:
+                    self.telemetry.bus.emit("crash", group=g.id, slot=slot,
+                                            lost_in_flight=n_inflight)
             elif g.crashed and not down:
                 self._rejoin_group(g, slot)
+                if self.telemetry is not None:
+                    store = g.store
+                    self.telemetry.bus.emit(
+                        "rejoin", group=g.id, slot=slot,
+                        sync_checkpoint_epoch=int(store.justified_checkpoint.epoch),
+                        sync_checkpoint_root=bytes(store.justified_checkpoint.root).hex()[:16])
 
     def _rejoin_group(self, group: ViewGroup, slot: int) -> None:
         """Checkpoint sync: the restarted group boots from a live peer's
@@ -607,6 +744,10 @@ class Simulation:
         group.pool.clear()
         group.block_atts = {}
         group.crashed = False
+        if group.invariants is not None:
+            # the checker fingerprints one store: re-anchor it on the synced one
+            from pos_evolution_tpu_torch.utils.metrics import StoreInvariantChecker
+            group.invariants = StoreInvariantChecker(store)
         if group.resident is not None:
             from pos_evolution_tpu_torch.ops.resident import ResidentForkChoice
             group.resident = ResidentForkChoice(store)
@@ -668,6 +809,13 @@ class Simulation:
                 self.blob_archive[block_root] = self.das.sidecars_for(
                     sb, block_root, das_grids, das_commitments)
             self._observe("block", sb)
+            if self.telemetry is not None:
+                # lifecycle root span: propose -> per-group gossip edges ->
+                # per-group deliveries hang off this id
+                self.telemetry.bus.emit(
+                    "propose", span=_span_id("block", slot, int(proposer), 0), slot=slot,
+                    proposer=int(proposer), group=group.id, block_root=block_root.hex()[:16],
+                    n_attestations=len(atts))
             for dst in self.groups:
                 delay = self.schedule.block_delay(int(proposer), slot, dst.id)
                 # sidecars ride the block's gossip timing but their own
@@ -780,6 +928,10 @@ class Simulation:
                 except ValueError:
                     continue  # no awake member in this committee
                 self._observe("attestation", att)
+                if self.telemetry is not None:
+                    self.telemetry.bus.emit(
+                        "attest", span=_span_id("attestation", slot, group.id, index),
+                        slot=slot, group=group.id, committee=index, head=head.hex()[:16])
                 for dst in self.groups:
                     delay = self.schedule.attestation_delay(group.id, slot, dst.id)
                     self._send(dst, t_next, delay, "attestation", att, slot,
@@ -809,12 +961,19 @@ class Simulation:
             self._attest(slot)
             self._tick_all(t0 + 2 * self.delta)
             self._adversary_phase("after_attest", slot, t0 + 2 * self.delta)
-        self.variant.on_slot_end(self, slot)
+        variant_record = self.variant.on_slot_end(self, slot)
+        if variant_record is not None and self.telemetry is not None:
+            self.telemetry.bus.emit("variant", **variant_record)
         self._record_metrics(slot)
         self._run_monitors(slot)
         self._serve_light_clients(slot)
         self._serve_das(slot)
         self.slot += 1
+        if self.supervision is not None:
+            # heartbeat -> integrity audit -> checkpoint, in that order.
+            # The capture serializes on this thread (the stores are live
+            # objects); the writer thread digests and writes.
+            self.supervision.tick(self, self.slot, self.checkpoint)
 
     def run_until_slot(self, slot: int) -> None:
         with use_backend(self.backend):
@@ -835,6 +994,39 @@ class Simulation:
         rec = slot_record(group.store, slot, head=head)
         rec["head"] = rec["head_root"][:8]
         self.metrics.append(rec)
+        if self.telemetry is not None:
+            self.telemetry.bus.emit("slot", **rec)
+            self.telemetry.registry.gauge(
+                "finalized_epoch", "group-0 finalized epoch").set(rec["finalized_epoch"])
+            self.telemetry.registry.gauge(
+                "justified_epoch", "group-0 justified epoch").set(rec["justified_epoch"])
+            self._record_merkleization(slot)
+
+    def _record_merkleization(self, slot: int) -> None:
+        """Per-slot deltas of this package's merkleization counters
+        (``ssz/incremental.stats()``, ``ops/transition.session_stats()``,
+        ``ops/merkle_device.stats()``): process-cumulative, so the driver
+        keeps a mark and feeds this simulation's deltas to the registry,
+        and one ``merkleization`` event a slot that saw activity."""
+        from pos_evolution_tpu_torch.ops import merkle_device
+        from pos_evolution_tpu_torch.ops.transition import session_stats
+        from pos_evolution_tpu_torch.ssz import incremental
+        cur = {f"ssz.{k}": v for k, v in incremental.stats().items()}
+        cur.update({f"fused.{k}": v for k, v in session_stats().items()
+                    if isinstance(v, (int, float))})
+        cur.update({f"merkle.{k}": v for k, v in merkle_device.stats().items()})
+        mark = getattr(self, "_merkle_mark", None)
+        self._merkle_mark = cur
+        if mark is None:
+            return
+        delta = {k: v - mark.get(k, 0) for k, v in cur.items() if v - mark.get(k, 0)}
+        reg = self.telemetry.registry
+        for k, v in delta.items():
+            reg.counter(k, "incremental merkleization / block sweep "
+                           "(per-sim delta of the process counters)").inc(v)
+        if delta:
+            self.telemetry.bus.emit("merkleization", slot=slot, **{
+                k.replace(".", "_"): v for k, v in delta.items()})
 
     # -- light clients (lightclient/) ------------------------------------------
 
@@ -900,7 +1092,9 @@ class Simulation:
                 if delivered:
                     with self.meter.phase("lc_update"):
                         node.on_update(update, current_slot=slot)
-            node.advance(slot, full_head_slot, full_finalized_epoch)
+            record = node.advance(slot, full_head_slot, full_finalized_epoch)
+            if self.telemetry is not None:
+                self.telemetry.bus.emit("light_client_lag", node=node.id, **record)
 
     def flush_light_clients(self) -> None:
         """Serve one off-chain finality update for the serving group's
@@ -937,7 +1131,10 @@ class Simulation:
         for node in self.light_clients:
             with self.meter.phase("lc_update"):
                 node.on_update(update, current_slot=signature_slot)
-            node.advance(signature_slot, full_head_slot, full_finalized_epoch)
+            record = node.advance(signature_slot, full_head_slot, full_finalized_epoch)
+            if self.telemetry is not None:
+                self.telemetry.bus.emit("light_client_lag", node=node.id, offchain=True,
+                                        **record)
 
     # -- DAS sampling clients (das/) --------------------------------------------
 
@@ -961,12 +1158,18 @@ class Simulation:
         from pos_evolution_tpu_torch.das import DasServer, SamplingClientPopulation
         self._das_group = group
         self._das_window = max(int(window), 1)
-        self.das_server = DasServer(self.das.scheme, registry=None,
+        registry = self.telemetry.registry if self.telemetry is not None else None
+        self.das_server = DasServer(self.das.scheme, registry=registry,
                                     proof_cache=proof_cache,
                                     update_cache=update_cache)
         self.das_population = SamplingClientPopulation(
             self.cfg, n_clients, samples_per_client, seed=seed,
             device=self.backend.device)
+        if registry is not None:
+            registry.gauge("das_clients", "attached DAS sampling clients").set(n_clients)
+        if self.telemetry is not None:
+            self.telemetry.bus.emit("das_attach", **self.das_population.describe(),
+                                    engine=self.das.describe())
         return self.das_population
 
     def _das_targets(self, group) -> list[tuple[bytes, object]]:
@@ -987,7 +1190,8 @@ class Simulation:
     def _serve_das(self, slot: int) -> None:
         """End-of-slot sampling round: the serving group's head block's
         sidecars are sampled by the whole population through the
-        coalescing server; each summary is appended to ``das_serves``."""
+        coalescing server; each summary is appended to ``das_serves`` and
+        emitted as a ``das_serve`` event."""
         if self.das_population is None:
             return
         from pos_evolution_tpu_torch.das.containers import parse_das_graffiti
@@ -996,7 +1200,7 @@ class Simulation:
             return
         # the head freshly, its recent ancestors again (their cells
         # answer from the proof-path LRU warmed by the previous slots)
-        for _age, (root, block) in enumerate(self._das_targets(group)):
+        for age, (root, block) in enumerate(self._das_targets(group)):
             n_blobs = parse_das_graffiti(bytes(block.body.graffiti))[0]
             sidecars = (group.blob_store.sidecars_for_block(root)
                         if group.blob_store is not None else [])
@@ -1005,8 +1209,11 @@ class Simulation:
             if len(sidecars) < n_blobs:
                 continue  # serving node itself lacks the data
             with self.meter.phase("das_serve"):
-                self.das_serves.append(self.das_server.serve_samples(
-                    root, sidecars, self.das_population))
+                summary = self.das_server.serve_samples(root, sidecars, self.das_population)
+            self.das_serves.append(summary)
+            if self.telemetry is not None:
+                self.telemetry.bus.emit("das_serve", slot=slot, age=age,
+                                        block_root=root.hex()[:16], **summary)
 
     # -- whole-simulation checkpoint / resume ----------------------------------
     def checkpoint(self) -> bytes:
@@ -1031,7 +1238,8 @@ class Simulation:
         and monitor instances; ``variant`` re-attaches a ProtocolVariant
         (None rebuilds one from the checkpoint's fingerprint); ``das``
         re-attaches the run's blob engine (its ``describe()`` must match
-        the checkpoint's). ``telemetry`` raises (item 7)."""
+        the checkpoint's); ``telemetry`` re-attaches an event bus and
+        registry (the resumed run records only post-resume events)."""
         from pos_evolution_tpu_torch.utils.snapshot import load_simulation
         backend = _backend_for(device)
         with use_backend(backend):
@@ -1040,14 +1248,57 @@ class Simulation:
                                    das=das, variant=variant, sharded=sharded,
                                    device=backend)
 
-    # -- run supervision (item 7) ----------------------------------------------
+    # -- run supervision -----------------------------------------------------------
 
     def attach_autocheckpoint(self, spec) -> None:
-        raise _not_ported("autocheckpoint", 7)
+        """Arm (or re-arm, after a resume) run supervision: an
+        ``(every_n_slots, dir)`` tuple, a dict, or a
+        ``resilience.AutoCheckpoint``. Merkle digests hash on this run's
+        backend device."""
+        from pos_evolution_tpu_torch.resilience import RunSupervision
+        self.supervision = RunSupervision(spec, kind="sim", telemetry=self.telemetry,
+                                          cfg_obj=self.cfg, backend=self.backend)
+
+    def finish_autocheckpoint(self) -> dict | None:
+        """Take a final checkpoint at the current slot and drain the async
+        writer; returns the manager's overhead stats (None when
+        unsupervised). Call once at the end of a supervised run."""
+        if self.supervision is None:
+            return None
+        return self.supervision.finish(self.slot, self.checkpoint)
 
     @classmethod
-    def resume_latest(cls, dir, *args, **kwargs) -> "Simulation":
-        raise _not_ported("resume_latest", 7)
+    def resume_latest(cls, dir, schedule: Schedule | None = None, telemetry=None,
+                      adversaries=(), monitors=(), das=None, variant=None, sharded=None,
+                      autocheckpoint=None, device=None) -> "Simulation":
+        """Resume from the newest valid checkpoint under ``dir``
+        (``resilience.CheckpointManager`` layout) on ``device`` (the thread
+        backend's when None): checksums (a merkle step re-checked through
+        K2 on the card), the manifest and the active config's fingerprint
+        are verified, corrupt steps are quarantined and rolled past, and a
+        fingerprint of another config refuses. ``autocheckpoint`` re-arms
+        supervision on the resumed run. Raises ``FileNotFoundError`` when
+        no valid checkpoint exists."""
+        import os
+
+        from pos_evolution_tpu_torch.resilience import CheckpointManager
+        from pos_evolution_tpu_torch.resilience.runner import run_fingerprint
+        backend = _backend_for(device)
+        manager = CheckpointManager(dir, fingerprint=run_fingerprint("sim"), backend=backend)
+        found = manager.latest_valid()
+        if found is None:
+            raise FileNotFoundError(f"no valid checkpoint under {dir!r} to resume from")
+        step, payloads = found
+        sim = cls.resume(payloads["payload.bin"], schedule=schedule, telemetry=telemetry,
+                         adversaries=adversaries, monitors=monitors, das=das,
+                         variant=variant, sharded=sharded, device=backend)
+        # the step resumed and its validation's digest records
+        sim.resumed_from = {"step": step, "verify": list(manager.verify_log)}
+        if autocheckpoint is not None:
+            sim.attach_autocheckpoint(autocheckpoint)
+        if telemetry is not None:
+            telemetry.bus.emit("run_resumed", step=step, slot=sim.slot, dir=os.fspath(dir))
+        return sim
 
     # -- accessors --
     def store(self, group: int = 0) -> fc.Store:

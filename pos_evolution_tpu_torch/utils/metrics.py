@@ -1,6 +1,6 @@
 """Observability: per-handler tracing + structured per-slot metrics
 (port of ``pos_evolution_tpu/utils/metrics.py``; its ``jax.profiler``
-regions ``device_trace`` and ``trace_region`` are ROADMAP Queue 1 item 7).
+regions ``device_trace`` and ``trace_region`` are ROADMAP Queue 1 item 7b).
 
 - ``HandlerTimer``: wall-clock tracing of ``on_block`` / ``on_attestation``
   / ``get_head`` with percentile summaries — the north-star fork-choice p50

@@ -13,7 +13,7 @@ are, and the port's there, a DAS run's too: its queued ``blob``
 sidecars, the engine's ``describe()`` and each view's verified
 (block, blob) keys, from which ``_restore_das`` regenerates the sidecars.
 The JAX package's dense-registry offloads (``save_dense``, ``load_dense`` and
-their orbax forms) are item 7.
+their orbax forms) are item 7b.
 """
 
 from __future__ import annotations
@@ -284,14 +284,12 @@ def load_simulation(data: bytes, schedule=None, telemetry=None,
     re-attach in-loop strategies and property monitors; they bind AFTER
     the restore so their handles see the checkpointed stores, not the
     skeleton's. ``device`` is the ``Simulation``'s (the thread backend's
-    when None); ``telemetry`` raises (item 7). ``das`` re-attaches the
+    when None). ``das`` re-attaches the
     run's blob engine (a ``BlobEngine``, or True or a scheme name for the
     default engine on the simulation's device) to a checkpoint of a DAS
     run; the thread's config must be the run's (``CellRows`` reads the
     cell width from it)."""
-    from pos_evolution_tpu_torch.sim.driver import Simulation, _QueuedMessage, _not_ported
-    if telemetry is not None:
-        raise _not_ported("telemetry=", 7)
+    from pos_evolution_tpu_torch.sim.driver import Simulation, _QueuedMessage
     buf = io.BytesIO(data)
     meta = json.loads(_unframe(buf).decode())
     assert meta["version"] == 1, f"unknown snapshot version {meta['version']}"
@@ -371,6 +369,24 @@ def load_simulation(data: bytes, schedule=None, telemetry=None,
             g.variant_view = view
             g.store.variant_view = view
         variant.restore_blob(sim, meta.get("variant_state", {}))
+    if telemetry is not None:
+        # attach to the fully restored run: groups get the bus, the debug
+        # checker anchors on the restored stores, the fault sink is
+        # claimed for this run, and run_start describes the checkpointed
+        # state (not the skeleton)
+        sim.telemetry = telemetry
+        for g in sim.groups:
+            g.telemetry = telemetry
+            if telemetry.debug:
+                from pos_evolution_tpu_torch.utils.metrics import StoreInvariantChecker
+                g.invariants = StoreInvariantChecker(g.store)
+        if sim.schedule.faults is not None:
+            sim.schedule.faults.sink = telemetry.bus
+        telemetry.bus.emit(
+            "run_start", n_validators=sim.n_validators,
+            n_groups=sim.schedule.n_groups, genesis_time=sim.genesis_time,
+            accelerated_forkchoice=sim.accelerated_forkchoice,
+            debug=telemetry.debug, resumed_at_slot=sim.slot)
     if adversaries or monitors:
         sim.adversaries = list(adversaries)
         sim.monitors = list(monitors)
@@ -399,8 +415,9 @@ def _restore_das(sim, meta: dict, das) -> None:
     for root, sb in sim.block_archive.items():
         if parse_das_graffiti(bytes(sb.message.body.graffiti)) is not None:
             sim.blob_archive[root] = das.regenerate(sb, root)
+    registry = sim.telemetry.registry if sim.telemetry is not None else None
     for g, gm in zip(sim.groups, meta["groups"]):
-        g.blob_store = BlobStore(das, registry=None, group=g.id)
+        g.blob_store = BlobStore(das, registry=registry, group=g.id)
         g.store.blob_store = g.blob_store
         # insert directly: these sidecars were just regenerated from the
         # trusted seed (bit-identical by construction), so re-running the

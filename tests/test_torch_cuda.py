@@ -1158,3 +1158,50 @@ def test_b9_card_equals_cpu(cuda):
     cw = ofc.rebuild_epoch_buckets(args[0].to(cuda), args[1].to(cuda),
                                    torch.from_numpy(w).to(cuda), nb, 4, 2)
     assert torch.equal(cw.cpu(), hw)
+
+
+def test_checkpoint_digest_through_k2(cuda, tmp_path):
+    """A checkpoint's merkle digest on the card: one K2 launch a tree level,
+    each counted on the writer thread that made it, the manifest's hex equal
+    to K2's plain version on the card and to the CPU's; validation re-checks
+    it through K2; the supervision of a run on the card picks it."""
+    import json
+    import math
+
+    from pos_evolution_tpu_torch.backend.torch_backend import TorchBackend
+    from pos_evolution_tpu_torch.ops.merkle_device import digest_bytes
+    from pos_evolution_tpu_torch.resilience import CheckpointManager, RunSupervision
+    payload = np.random.default_rng(7).integers(0, 256, 3_000_001, dtype=np.uint8).tobytes()
+    levels = math.ceil(math.log2(-(-len(payload) // 32)))
+    backend = TorchBackend(cuda)
+    m = CheckpointManager(tmp_path / "store", digest="merkle", backend=backend, async_mode=True)
+    before = kernels.launches["merkle_level"]
+    m.save(1, lambda: payload)
+    m.drain()
+    assert kernels.launches["merkle_level"] - before == levels
+    assert m.step_log[0]["digest_launches"] == {"merkle_level": levels}
+    with open(tmp_path / "store" / "step_00000001" / "manifest.json") as f:
+        hexd = json.load(f)["files"]["payload.bin"]["merkle"]
+    assert hexd == digest_bytes(payload, cuda, plain=True).hex() == digest_bytes(payload, "cpu").hex()
+    assert m.latest_valid() == (1, {"payload.bin": payload})
+    assert m.verify_log[-1]["digest_launches"] == {"merkle_level": levels}
+    m.close()
+    sup = RunSupervision({"every_n_slots": 2, "dir": str(tmp_path / "s")}, kind="dense",
+                         backend=backend)
+    assert sup.manager.digest == "merkle"
+
+
+def test_supervised_dense_run_resumes_on_the_card(cuda, tmp_path):
+    """A dense run on the card with autocheckpoint: its newest step resumed on
+    the card, and the CPU's run, end on its digest."""
+    from pos_evolution_tpu_torch.config import mainnet_config
+    cfg = mainnet_config().replace(slots_per_epoch=8, max_committees_per_slot=4)
+    sim = DenseSimulation(4096, cfg, device=cuda, autocheckpoint=(4, str(tmp_path)))
+    sim.run_epochs(1)
+    stats = sim.finish_autocheckpoint()
+    assert stats["saves"] == 3 and sim.supervision.manager.digest == "merkle"
+    back = DenseSimulation.resume_latest(tmp_path, device=cuda)
+    assert back.slot == 8 and state_digest(back) == state_digest(sim)
+    cpu = DenseSimulation(4096, cfg, device="cpu")
+    cpu.run_epochs(1)
+    assert state_digest(cpu) == state_digest(sim)

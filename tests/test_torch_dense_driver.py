@@ -145,20 +145,34 @@ def test_fingerprint_config_matches_jax():
 
 @pytest.mark.parametrize("kw,item", [
     ({"mesh": object()}, "item 3"),
-    ({"telemetry": object()}, "item 7"),
-    ({"flight_recorder": object()}, "item 7"),
-    ({"autocheckpoint": (8, "/nonexistent")}, "item 7"),
 ])
 def test_unported_options_raise(kw, item):
     with pytest.raises(ValueError, match=item):
         _port(**kw)
 
 
-def test_unported_supervision_and_riders_raise():
-    """Supervision (item 7) still raises; the KZG DAS rider (item 5b) now
-    builds, on the run's device and config."""
-    with pytest.raises(ValueError, match="item 7"):
-        DenseSimulation.resume_latest("/nonexistent")
+@pytest.mark.parametrize("kw", [
+    {"telemetry": "telemetry"},
+    {"flight_recorder": "flight_recorder"},
+    {"autocheckpoint": "autocheckpoint"},
+])
+def test_tooling_options_build(kw, tmp_path):
+    """Telemetry, the flight recorder and autocheckpoint (item 7a) build
+    and run a slot."""
+    from pos_evolution_tpu_torch.telemetry import FlightRecorder, Telemetry
+    tel = Telemetry()
+    value = {"telemetry": tel, "flight_recorder": FlightRecorder(tel),
+             "autocheckpoint": (1, str(tmp_path))}[next(iter(kw))]
+    sim = _port(**{next(iter(kw)): value})
+    sim.run_slot()
+    assert sim.slot == 1
+
+
+def test_unported_supervision_and_riders_raise(tmp_path):
+    """Resuming from a store with no valid step raises; the KZG DAS rider
+    (item 5b) builds, on the run's device and config."""
+    with pytest.raises(FileNotFoundError, match="no valid checkpoint"):
+        DenseSimulation.resume_latest(tmp_path / "empty", device="cpu")
     sim = _port(riders=[dense_rider_from_config({"kind": "das", "scheme": "kzg"})])
     scheme = sim.riders[0].engine.scheme
     assert scheme.name == "kzg" and scheme.device.type == "cpu" and scheme.cfg is sim.cfg

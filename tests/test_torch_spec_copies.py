@@ -1,7 +1,8 @@
 """The port's copies of the JAX package's jax-free spec layer, of the
 spec driver's schedules, monitors, adversaries, attacks and protocol
-variants, and of its riders' DAS server, single-flight and light-client
-modules: each copied
+variants, of its riders' DAS server, single-flight and light-client
+modules, and of the tooling's watchdog, event bus, metrics registry,
+tracing, fleet aggregator and supervisor: each copied
 module's source equals its original with ``pos_evolution_tpu.`` replaced
 by ``pos_evolution_tpu_torch.`` and nothing else, and the FakeBLS
 signature prefix the copy carries is the one kernel K1's wrapper hashes."""
@@ -52,6 +53,13 @@ COPIES = [
     "lightclient/spec.py",
     "lightclient/server.py",
     "lightclient/node.py",
+    "utils/watchdog.py",
+    "telemetry/events.py",
+    "telemetry/registry.py",
+    "telemetry/tracing.py",
+    "telemetry/fleet.py",
+    "resilience/supervision.py",
+    "resilience/supervisor.py",
 ]
 
 
