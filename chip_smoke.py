@@ -250,7 +250,27 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     checkpoint's bytes raw and compressed, the loop's blocked ms, the
     writer's ms, its digest's K2 launches and ms, the resume's seconds
     from the kill to the first resumed slot, goodput and the dense twin's
-    peak allocated bytes printed.
+    peak allocated bytes printed;
+40. the profiling tooling on the card, in this process right after phase
+    34, while phase 35's run ends beside it (so its times are contended):
+    (a) 8 slots of phase 10's dense
+    run at 2^20 under ``profiling.ProfiledRegion("dense")`` (and 8 before
+    it unprofiled, the profiler's overhead printed): no error, the
+    attribution a partition of the trace's device total (0.01 ms a row),
+    one ``agg_sig_kernel`` event for each K1 launch, each on a path
+    through the dense phase that launched it (``aggregate_verify``) and
+    credited to it, not to ``unattributed`` or the region's own name; the
+    device ms by range, the attribution and the top table printed; (b)
+    ``Simulation(1,024, profile=dir)`` (mainnet) for 8 slots against its
+    unprofiled twin: the four artifacts, a device lane in
+    ``chrome_trace.json``, one ``merkle_level_kernel`` event for each K2
+    launch, the records and the final state root equal; (c) the cost table
+    (``profiling/cost``) at 2^20 on the card: no error, every peak
+    positive, printed; (d) ``fused_measure`` of one K2 level at 4,194,304
+    pairs beside the CUDA-graph timer on the same launch, printed; (e)
+    ``compile_cache=`` (a child process during phases 32-33 that runs two
+    processes in turn): the first builds into a fresh directory, the
+    second builds nothing, as the build ledger counts it.
 
 Between phase groups it prints the seconds since the start (``lap``).
 
@@ -365,6 +385,15 @@ from pos_evolution_tpu_torch.sim.driver import PEERDAS, run_scale  # noqa: E402
 from pos_evolution_tpu_torch.config import minimal_config, use_config  # noqa: E402
 from pos_evolution_tpu_torch.variants import GoldfishVariant, SsfVariant  # noqa: E402
 from pos_evolution_tpu_torch.telemetry import FlightRecorder, Telemetry  # noqa: E402
+from pos_evolution_tpu_torch.profiling import (  # noqa: E402
+    ProfiledRegion,
+    attribute_to_spans,
+    xplane,
+)
+from pos_evolution_tpu_torch.profiling.cost import analyze_hot_paths  # noqa: E402
+from pos_evolution_tpu_torch.profiling.export import DEVICE_PID  # noqa: E402
+from pos_evolution_tpu_torch.utils.benchtime import checksum_tree as bench_checksum  # noqa: E402
+from pos_evolution_tpu_torch.utils.benchtime import fused_measure  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): 3.35 TB/s of HBM;
 # 67 TFLOP/s fp32 outside the tensor cores = 132 SMs x 128 lanes x 2 flops
@@ -573,6 +602,32 @@ RESIL = {"dense": {"n": N_MAINNET, "epochs": 2, "every": 32, "crash": 40, "resum
                    "final": 64},
          "spec": {"n": 1024, "epochs": 1, "every": 8, "crash": 20, "resumed": 16,
                   "final": 33}}
+# phase 40: the profiling tooling on the card (after phase 34, beside the end of phase
+# 35's run): a profiled region over PROFILE_SLOTS
+# slots of phase 10's dense run at 2^20 (and as many unprofiled before it), the spec
+# driver's profile= over PROFILE_SLOTS slots at BASELINE config 1's 1,024 validators
+# (mainnet) against its unprofiled twin, the cost table at 2^20, fused_measure of one
+# K2 level at K2_LARGEST pairs, and compile_cache= in two child processes (1,024
+# validators, 2 slots each) during phases 32-33
+PROFILE_SLOTS, PROFILE_SPEC_N = 8, 1024
+PROFILE_ARTIFACTS = ["chrome_trace.json", "flame.txt", "flame_device.txt", "top_ops.json"]
+COMPILE_CACHE_CHILD = '''
+import json, sys
+from pos_evolution_tpu_torch.config import mainnet_config, use_config
+from pos_evolution_tpu_torch.ops import kernels
+from pos_evolution_tpu_torch.profiling import CompileLedger
+from pos_evolution_tpu_torch.sim.driver import Simulation
+from pos_evolution_tpu_torch.telemetry import MetricsRegistry, torchrt
+ledger = CompileLedger()
+torchrt.install(MetricsRegistry())
+torchrt.attach_ledger(ledger)
+with use_config(mainnet_config()):
+    sim = Simulation(int(sys.argv[2]), compile_cache=sys.argv[1], device="cuda")
+    sim.run_until_slot(2)
+print(json.dumps({"builds": ledger.rows(), "build_dir": str(kernels.BUILD_DIR),
+                  "launches": {k: v for k, v in kernels.launches.items() if v},
+                  "metrics": sim.metrics}))
+'''
 SPEC_STATE_COLUMNS = ("balances", "previous_epoch_participation",
                       "current_epoch_participation", "inactivity_scores")
 SPEC_REGISTRY_COLUMNS = ("pubkeys", "withdrawal_credentials", "effective_balance", "slashed",
@@ -784,7 +839,9 @@ def launch_event_ms(prepare, launches: dict, reps: int) -> dict:
 
 def profiled(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler``: its wall ms (host clock,
-    ending in a synchronize), the device's busy ms (kernel time summed) and
+    ending in a synchronize), the device's busy ms (kernel and copy time
+    summed; the ranges the drivers open while a profiler records are left
+    out) and
     each kernel's share of that (``k1_ms``, ``k2_ms``, ``kernel_ms``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -797,7 +854,9 @@ def profiled(fn) -> dict:
     busy = 0.0
     per = {name: 0.0 for name in kernels.KERNELS}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:    # kernels and copies; host ops would count twice
+        # kernels and copies: host ops would count twice, and a host range's
+        # projection onto the stream (a user annotation) envelops its kernels
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             busy += e.self_device_time_total
             for name in per:
                 if kernel_func(name) in e.key:
@@ -3498,6 +3557,225 @@ def resilient_phase(card: str, runs: dict) -> None:
                 f"{r['twin_epoch_s'] * 1e3:.1f} ms")
 
 
+def device_ops(planes, needle: str = "") -> list:
+    """(op path, ms) of each device event of a trace's planes whose op
+    path holds ``needle``."""
+    chosen = [p for p in planes if xplane.is_device_plane(p["name"])]
+    return [(op, dur / 1e9) for _, _, op, _, dur in xplane.iter_ops(chosen) if needle in op]
+
+
+def only_ops(planes, needle: str) -> list:
+    """The device planes with only the events whose op path holds ``needle``."""
+    out = []
+    for p in planes:
+        if not xplane.is_device_plane(p["name"]):
+            continue
+        meta = p["event_metadata"]
+        out.append({**p, "lines": [{**line, "events": [
+            e for e in line["events"] if needle in meta[e["metadata_id"]]]}
+            for line in p["lines"]]})
+    return out
+
+
+def profile_dense_region(sim, card: str) -> dict:
+    """Phase 40 (a): ``PROFILE_SLOTS`` slots of ``sim`` (phase 10's dense run
+    at 2^20) unprofiled, then as many under ``ProfiledRegion("dense")``: no
+    error; the attribution a partition of the device total (0.01 ms a row);
+    one ``agg_sig_kernel`` event a K1 launch, every one on a path through its
+    phase's range and credited to it, not to ``unattributed`` or the
+    region. Returns the region's launches by kernel."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_SLOTS):
+        sim.run_slot()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    before = dict(kernels.launches)
+    tel = Telemetry()
+    t0 = time.perf_counter()
+    with ProfiledRegion("dense", telemetry=tel) as prof:
+        for _ in range(PROFILE_SLOTS):
+            sim.run_slot()
+        torch.cuda.synchronize()
+        slots_s = time.perf_counter() - t0
+    region_s = time.perf_counter() - t0
+    grown = {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}
+    check(prof.error is None, f"phase 40: the dense region failed: {prof.error}")
+    ops = device_ops(prof.planes)
+    total = sum(ms for _, ms in ops)
+    rows = prof.attribution
+    check(abs(sum(r["total_ms"] for r in rows.values()) - total) <= 0.01 * len(rows),
+          f"phase 40: the dense attribution {json.dumps(rows)} does not sum to the device "
+          f"total {total:.4f} ms")
+    k1 = device_ops(prof.planes, "agg_sig_kernel")
+    check(len(k1) == grown.get("agg_sig", 0) == 2 * PROFILE_SLOTS,
+          f"phase 40: {len(k1)} agg_sig_kernel events for {grown.get('agg_sig', 0)} K1 launches")
+    k1_rows = attribute_to_spans(only_ops(prof.planes, "agg_sig_kernel"), [], region="dense",
+                                 exclude_ops={"dense"})
+    check(all(op.startswith("dense/slot/aggregate_verify/") for op, _ in k1)
+          and set(k1_rows) == {"aggregate_verify"},
+          f"phase 40: K1 credited to {sorted(k1_rows)}, paths {sorted({op for op, _ in k1})}")
+    k1_ms = sum(ms for _, ms in k1)
+    check(rows.get("aggregate_verify", {}).get("total_ms", 0) >= round(k1_ms, 4) - 1e-4,
+          f"phase 40: aggregate_verify's row {rows.get('aggregate_verify')} holds less than "
+          f"K1's {k1_ms:.4f} ms")
+    n_host = sum(len(line["events"]) for p in prof.planes if not xplane.is_device_plane(p["name"])
+                 for line in p["lines"])
+    say(f"[{card}] phase 40 (a) (contended: beside phase 35's run): {PROFILE_SLOTS} dense "
+        f"slots at n={N_MAINNET}: "
+        f"{plain_s:.3f} s unprofiled, {slots_s:.3f} s profiled "
+        f"({100 * (slots_s / plain_s - 1):.1f}% over), the trace's stop, export and read "
+        f"{region_s - slots_s:.3f} s; {len(ops)} device events ({total:.3f} ms), {n_host} "
+        f"host; launches {json.dumps(grown)}; K1 {len(k1)} events, {k1_ms:.4f} ms, all on "
+        f"dense/slot/aggregate_verify/, credited to aggregate_verify")
+    say(f"[{card}] phase 40 (a): device ms by innermost range: " + json.dumps(
+        {k: [v["total_ms"], v["count"]] for k, v in
+         sorted(prof.by_jit.items(), key=lambda kv: -kv[1]["total_ms"])}))
+    say(f"[{card}] phase 40 (a): attribution: " + json.dumps(rows))
+    say(f"[{card}] phase 40 (a): top ops: " + json.dumps(prof.top_ops))
+    return grown
+
+
+def spec_root(sim) -> str:
+    """The state root of group 0's head (the host walk's)."""
+    store = sim.groups[0].store
+    with use_backend(sim.backend):
+        return hash_tree_root(store.block_states[ofc.get_head_host(store)]).hex()
+
+
+def profile_spec_runs(dev, card: str) -> dict:
+    """Phase 40 (b): ``Simulation(PROFILE_SPEC_N, profile=dir)`` (mainnet) for
+    ``PROFILE_SLOTS`` slots and its unprofiled twin: the four artifacts,
+    a device lane in ``chrome_trace.json``, one ``merkle_level_kernel``
+    event a K2 launch of the profiled segment, and the records and the
+    final state root equal. Returns the segment's launches by kernel."""
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile_spec")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    with use_config(mainnet_config()):
+        tel = Telemetry()
+        sim = Simulation(PROFILE_SPEC_N, telemetry=tel, profile=out_dir, device=dev)
+        before = dict(kernels.launches)
+        t0 = time.perf_counter()
+        sim.run_until_slot(PROFILE_SLOTS - 1)
+        prof_s = time.perf_counter() - t0
+        grown = {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}
+        t0 = time.perf_counter()
+        plain = Simulation(PROFILE_SPEC_N, device=dev)
+        t1 = time.perf_counter()
+        plain.run_until_slot(PROFILE_SLOTS - 1)
+        plain_s = time.perf_counter() - t1
+        construct_s = t1 - t0
+        roots = spec_root(sim), spec_root(plain)
+    region = sim.profile_region
+    (ev,) = tel.bus.of_type("profile")
+    check(region is not None and region.error is None and "error" not in ev,
+          f"phase 40: the spec driver's profile failed: {ev.get('error')}")
+    check(sorted(os.listdir(out_dir)) == PROFILE_ARTIFACTS
+          and [e["files"] for e in tel.bus.of_type("profile_artifacts")] == [PROFILE_ARTIFACTS],
+          f"phase 40: profile artifacts {sorted(os.listdir(out_dir))}")
+    with open(os.path.join(out_dir, "chrome_trace.json")) as f:
+        chrome = json.load(f)["traceEvents"]
+    lanes = [e["args"]["name"] for e in chrome
+             if e.get("pid") == DEVICE_PID and e.get("name") == "thread_name"]
+    check(any(name.startswith("/device:GPU") for name in lanes),
+          f"phase 40: chrome_trace.json has no device lane: {lanes}")
+    k2 = device_ops(region.planes, "merkle_level_kernel")
+    check(len(k2) == grown.get("merkle_level", 0) > 0,
+          f"phase 40: {len(k2)} merkle_level_kernel events for "
+          f"{grown.get('merkle_level', 0)} K2 launches")
+    check(driver_record(sim) == driver_record(plain) and roots[0] == roots[1],
+          "phase 40: the profiled spec run differs from its unprofiled twin")
+    k2_rows = attribute_to_spans(only_ops(region.planes, "merkle_level_kernel"),
+                                 region._region_span_names(), region="sim_run",
+                                 exclude_ops={"sim_run"})
+    say(f"[{card}] phase 40 (b) (contended): Simulation({PROFILE_SPEC_N}, profile=) "
+        f"{PROFILE_SLOTS} slots "
+        f"{prof_s:.3f} s with the export, its twin {plain_s:.3f} s (construction "
+        f"{construct_s:.3f} s); artifacts {PROFILE_ARTIFACTS}; launches {json.dumps(grown)}; "
+        f"K2 {len(k2)} events, {sum(ms for _, ms in k2):.4f} ms, credited "
+        + json.dumps({k: v["count"] for k, v in k2_rows.items()})
+        + f"; records and final state root {roots[0][:16]} == the unprofiled run's")
+    say(f"[{card}] phase 40 (b): attribution: " + json.dumps(ev["attribution"]))
+    return grown
+
+
+def cost_phase(dev, card: str) -> dict:
+    """Phase 40 (c): the cost table at 2^20 on the card: no row with an
+    error, every peak positive. Returns its launches by kernel."""
+    before = dict(kernels.launches)
+    t0 = time.perf_counter()
+    table = analyze_hot_paths(n=N_MAINNET, capacity=64, device=dev)
+    cost_s = time.perf_counter() - t0
+    grown = {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]}
+    rows = table["kernels"]
+    check(table["backend"] == "cuda" and not [k for k, v in rows.items() if "error" in v],
+          f"phase 40: cost table errors: {json.dumps(rows)}")
+    check(all((v["peak_bytes"] or 0) > 0 for v in rows.values()),
+          f"phase 40: cost table peaks {[(k, v['peak_bytes']) for k, v in rows.items()]}")
+    say(f"[{card}] phase 40 (c): cost table at n={N_MAINNET}, capacity 64 ({cost_s:.3f} s; "
+        f"launches {json.dumps(grown)}):")
+    for name, row in rows.items():
+        say(f"  {name}: " + json.dumps(row, sort_keys=True))
+    return grown
+
+
+def fused_measure_phase(dev, card: str) -> None:
+    """Phase 40 (d): ``fused_measure`` of one K2 level at ``K2_LARGEST``
+    pairs (the salt written into one word, the output's checksum folded),
+    beside the CUDA-graph timer on the same launch; printed, not compared."""
+    rng = np.random.default_rng(40)
+    left, right = rand_words(rng, K2_LARGEST, dev), rand_words(rng, K2_LARGEST, dev)
+
+    def body(salt, acc):
+        left[0, 0] = salt
+        return acc + bench_checksum(merkle_level(left, right))
+
+    fused = fused_measure(body, k_hi=8, reps=3, tag="phase 40 K2 level") * 1e3
+    graph = device_ms(lambda: merkle_level(left, right))
+    say(f"[{card}] phase 40 (d) (contended): one K2 level at {K2_LARGEST} pairs: fused_measure "
+        f"{fused:.4f} ms an iteration (the launch, the salt's write and the checksum); "
+        f"CUDA-graph timer {fmt_ms(graph)} a launch")
+
+
+def compile_cache_runs() -> dict:
+    """Phase 40 (e), in a child process during phases 32-33: two processes,
+    one after the other, each running ``Simulation(1,024,
+    compile_cache=dir)`` (mainnet) for 3 slots on the card with a fresh
+    ``dir`` the first time; each one's build ledger rows, build
+    directory, launches and records."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cache = os.path.join(root, "build", "compile_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", COMPILE_CACHE_CHILD, cache,
+                               str(PROFILE_SPEC_N)], capture_output=True, text=True,
+                              timeout=600, cwd=root)
+        check(proc.returncode == 0,
+              f"compile_cache child: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+        runs.append({**json.loads(proc.stdout.strip().splitlines()[-1]),
+                     "s": time.perf_counter() - t0})
+    return {"cache": cache, "runs": runs,
+            "files": sorted(os.listdir(cache)) if os.path.isdir(cache) else []}
+
+
+def compile_cache_check(res: dict) -> None:
+    first, second = res["runs"]
+    built = sorted({r["source"] for r in first["builds"]})
+    check(all(r["build_dir"] == res["cache"] for r in res["runs"]),
+          f"phase 40: build dirs {[r['build_dir'] for r in res['runs']]}")
+    check("merkle_level.cu" in built and second["builds"] == []
+          and first["launches"].get("merkle_level", 0) > 0
+          and second["launches"] == first["launches"] and second["metrics"] == first["metrics"],
+          f"phase 40: compile_cache builds {first['builds']} then {second['builds']}, "
+          f"launches {first['launches']} / {second['launches']}")
+    say(f"phase 40 (e) (run during phases 32-33): compile_cache= at a fresh directory built "
+        f"{built} ({first['s']:.3f} s), the second process built nothing ({second['s']:.3f} s); "
+        f"launches {json.dumps(first['launches'])} each, records equal; the directory "
+        f"{res['files']}")
+
+
 def profiled_launches(fn, reps: int = 5) -> dict:
     """``fn`` ``reps`` times under ``torch.profiler``: wall ms, device
     launches (kernels and copies) and device busy ms, each a call."""
@@ -3510,7 +3788,8 @@ def profiled_launches(fn, reps: int = 5) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
-    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     return {"wall_ms": wall, "launches": sum(e.count for e in dev_events) / reps,
             "busy_ms": sum(e.self_device_time_total for e in dev_events) / 1e3 / reps}
 
@@ -3929,6 +4208,8 @@ def main() -> int:
                     for where in ("cpu", "cuda")]
     deferred.insert(2, (kzg_card_run, (),
                         lambda res: driver_twins.__setitem__(("kzg", "run"), res)))
+    # phase 40 (e): two child processes in turn, beside phases 32-33
+    deferred.append((compile_cache_runs, (), compile_cache_check))
     # phase 39's runs, one child process each, first in the queue (the longest)
     resilient = {}
     deferred[:0] = [(resilient_kind, (kind,),
@@ -3941,6 +4222,14 @@ def main() -> int:
         spec_launches = spec_phases(dev, card, deferred)
         say(f"spec phases 32-34: {time.perf_counter() - t_spec:.3f} s")
         lap("phases 32-34")
+        # phase 40 (a)-(d) here, while phase 35's run ends beside it
+        t_prof = time.perf_counter()
+        profile_launches = {"dense": profile_dense_region(sim, card),
+                            "spec": profile_spec_runs(dev, card), "cost": cost_phase(dev, card)}
+        fused_measure_phase(dev, card)
+        say(f"phase 40 (a-d, beside phase 35's run): {time.perf_counter() - t_prof:.3f} s; "
+            "launches " + json.dumps(profile_launches))
+        lap("phase 40")
         t_driver = time.perf_counter()
         scale_run = scale.result()
     say(f"phase 35's run: waited {time.perf_counter() - t_driver:.3f} s after phase 34")

@@ -109,13 +109,22 @@ def _leaves(tree):
         raise TypeError(f"checksum_tree: unsupported leaf {type(tree).__name__}")
 
 
-def checksum_tree(tree) -> int:
-    """i32 wraparound sum of every element of every tensor leaf: each
-    element taken as its low 32 bits, summed modulo 2^32, returned as a
-    signed 32-bit int (the counterpart of
+def checksum_device(tree) -> torch.Tensor:
+    """i32 wraparound sum of every element of every tensor leaf, as a 0-d
+    int32 tensor on the first leaf's device (nothing is read back): each
+    element taken as its low 32 bits (bools and bytes widened), summed
+    modulo 2^32 (the counterpart of
     ``pos_evolution_tpu/utils/benchtime.py::checksum_tree``)."""
-    acc = 0
+    acc = None
     for leaf in _leaves(tree):
-        acc += int((leaf.reshape(-1).to(torch.int64) & MASK32).sum())
-    acc &= MASK32
-    return acc - (1 << 32) if acc & _SIGN32 else acc
+        flat = leaf.reshape(-1)
+        if flat.dtype != torch.int32:
+            flat = u32(flat)
+        part = flat.sum(dtype=torch.int64)
+        acc = part if acc is None else acc + part.to(acc.device)
+    return torch.zeros((), dtype=torch.int32) if acc is None else i32(acc)
+
+
+def checksum_tree(tree) -> int:
+    """``checksum_device`` read back: a signed 32-bit int."""
+    return int(checksum_device(tree))

@@ -5,7 +5,8 @@ interface (one or more entry points, each a kernel name here), compiled by
 ``nvcc`` for ``sm_90a`` at first use into
 ``build/torch_kernels/`` at the repository root and loaded with
 ``ctypes``. A library's file name carries a hash of its source, the
-shared headers and the flags, so an edited source is always rebuilt.
+shared headers and the flags, so an edited source is always rebuilt, and
+processes may share one directory (``set_build_dir``).
 ``build_all`` starts one ``nvcc`` per source, all at once.
 
 ``launches`` counts, per kernel, the launches its wrapper made; a wrapper
@@ -125,6 +126,14 @@ def reset_launches() -> None:
     with _LAUNCH_LOCK:
         for name in launches:
             launches[name] = 0
+
+
+def set_build_dir(path) -> None:
+    """Build and load kernel libraries under ``path`` from now on, for the
+    whole process (``Simulation(compile_cache=...)``): processes that share
+    it build each library once. Libraries already loaded stay loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
 
 
 def _nvcc() -> str:

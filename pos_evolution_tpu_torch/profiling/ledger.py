@@ -11,13 +11,16 @@ into:
 
 - ``profiling/phases.py`` sets the *phase* slot on every
   ``with pt.phase(name)`` enter and exit (two attribute writes);
-- ``function_scope`` names the function about to launch.
+- ``function_scope`` names the function about to launch;
+- ``profiling/attribution.py``'s ``ProfiledRegion`` sets the *region*
+  slot so ad-hoc profiled blocks name their builds too.
 
 ``CompileLedger.on_build`` (called through ``telemetry/torchrt.py``
 when a ledger is attached) reads the context on the thread that built
 and charges the build to a ``(source, function, phase)`` row. With no
-function scope but a phase, the row is named ``inline:<phase>``, as in
-the JAX package. Rows also flow into the registry as
+function scope but a phase, the row is named ``inline:<phase>``, and
+with neither but a region, the region's name, as in the JAX package.
+Rows also flow into the registry as
 ``kernel_builds_by_provenance_total{source,function,phase}``.
 
 Everything here is stdlib-only and never raises into the caller: the
@@ -33,6 +36,7 @@ __all__ = [
     "CompileLedger",
     "current_function",
     "current_phase",
+    "current_region",
     "function_scope",
     "pop_phase",
     "push_phase",
@@ -44,7 +48,7 @@ _TLS = threading.local()
 def _ctx():
     ctx = getattr(_TLS, "ctx", None)
     if ctx is None:
-        ctx = _TLS.ctx = {"function": None, "phase": None}
+        ctx = _TLS.ctx = {"function": None, "phase": None, "region": None}
     return ctx
 
 
@@ -66,6 +70,22 @@ def current_phase() -> str | None:
 
 def current_function() -> str | None:
     return _ctx()["function"]
+
+
+def push_region(name: str):
+    """Set the active profiled region; returns the previous value."""
+    ctx = _ctx()
+    prev = ctx["region"]
+    ctx["region"] = name
+    return prev
+
+
+def pop_region(prev) -> None:
+    _ctx()["region"] = prev
+
+
+def current_region() -> str | None:
+    return _ctx()["region"]
 
 
 class function_scope:
@@ -92,12 +112,15 @@ class function_scope:
 def provenance() -> tuple[str, str]:
     """The (function, phase) a build is charged to now: an explicit
     ``function_scope``, else ``inline:<phase>`` when only a phase is
-    active, else ``"?"``."""
+    active, else the active ``ProfiledRegion``'s name, else ``"?"``."""
     ctx = _ctx()
     phase = ctx["phase"] or "?"
     fn = ctx["function"]
     if fn is None:
-        fn = f"inline:{ctx['phase']}" if ctx["phase"] is not None else "?"
+        if ctx["phase"] is not None:
+            fn = f"inline:{ctx['phase']}"
+        else:
+            fn = ctx["region"] or "?"
     return fn, phase
 
 

@@ -17,7 +17,10 @@ almost all of the slot's wall time:
 
 Each phase is published to the span context of ``profiling/ledger.py``
 while it is open, so kernel builds and transfer bytes inside it name
-their phase. With a registry the sampled slots feed the
+their phase. While ``torch.profiler`` records, each phase is also a named
+host range (``utils/metrics.trace_region``), the timer on or off, so a
+trace (``profiling/kineto.py``) credits every kernel to the phase that
+launched it. With a registry the sampled slots feed the
 ``dense_phase_ms`` histogram, with a bus one ``dense_phase`` event each.
 Work done off the slot loop (the checkpoint writer thread's
 serialization) is charged apart by ``charge_async``, never into the
@@ -34,6 +37,7 @@ import time
 import torch
 
 from pos_evolution_tpu_torch.profiling import ledger
+from pos_evolution_tpu_torch.utils.metrics import trace_region
 
 __all__ = ["DENSE_PHASES", "NULL_TIMER", "PhaseTimer"]
 
@@ -59,7 +63,7 @@ DENSE_PHASES = (
 class _Phase:
     """One timed section; re-entered phases accumulate."""
 
-    __slots__ = ("_prev_phase", "name", "timer")
+    __slots__ = ("_prev_phase", "_range", "name", "timer")
 
     def __init__(self, timer: PhaseTimer, name: str):
         self.timer = timer
@@ -67,26 +71,16 @@ class _Phase:
 
     def __enter__(self) -> _Phase:
         self._prev_phase = ledger.push_phase(self.name)
+        self._range = trace_region(self.name)
+        self._range.__enter__()
         self.timer._stack.append((self.name, time.perf_counter()))
         return self
 
     def __exit__(self, *exc) -> None:
         name, t0 = self.timer._stack.pop()
         self.timer._charge(name, time.perf_counter() - t0)
+        self._range.__exit__(*exc)
         ledger.pop_phase(self._prev_phase)
-
-
-class _NullPhase:
-    __slots__ = ()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return None
-
-
-_NULL_PHASE = _NullPhase()
 
 
 class PhaseTimer:
@@ -214,7 +208,8 @@ class PhaseTimer:
 
 
 class _NullTimer:
-    """The disabled twin: identical surface, empty bodies."""
+    """The disabled twin: identical surface, empty bodies (its phases are
+    still named host ranges while a profiler records)."""
 
     enabled = False
     sampled = False
@@ -222,8 +217,8 @@ class _NullTimer:
     def begin_slot(self, slot: int) -> None:
         pass
 
-    def phase(self, name: str) -> _NullPhase:
-        return _NULL_PHASE
+    def phase(self, name: str):
+        return trace_region(name)     # a null context unless a profiler records
 
     def fence(self, *tensors) -> None:
         pass

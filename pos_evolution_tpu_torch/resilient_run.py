@@ -24,9 +24,10 @@ time, keeps the resumed attempt from crashing again).
 Bit-identity contract: the final ``state_digest`` of a killed and
 resumed run equals an uninterrupted run's.
 
-Not ported here: ``--sharded`` and ``--degraded-sharded`` (a device mesh,
-ROADMAP Queue 1 item 3) and ``--history`` (the bench history, item 7b)
-raise.
+``--history PATH`` appends the emission to a bench history
+(``profiling/history.py``, kind ``bench_resilience``), which the JAX
+package's ``read_history`` reads too. Not ported here: ``--sharded`` and
+``--degraded-sharded`` (a device mesh, ROADMAP Queue 1 item 3) raise.
 
 Usage (``--device cpu`` runs the plain versions on the CPU; the default
 is the card):
@@ -78,7 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "every attempt")
     ap.add_argument("--json", default=None, help="write the emission here")
     ap.add_argument("--history", default=None,
-                    help="the bench history: not ported (ROADMAP Queue 1 item 7b)")
+                    help="append the emission to this bench_history.jsonl")
     ap.add_argument("--device", default="cuda",
                     help="the run's device (cuda, or cpu for the plain versions)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
@@ -88,8 +89,7 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     for flag, value, item in (("--sharded", args.sharded, "item 3, the multi-GPU mode"),
                               ("--degraded-sharded", args.degraded_sharded,
-                               "item 3, the multi-GPU mode"),
-                              ("--history", args.history, "item 7b, the profiling tooling")):
+                               "item 3, the multi-GPU mode")):
         if value:
             raise SystemExit(f"resilient_run: {flag} is not ported yet "
                              f"(ROADMAP Queue 1 {item})")
@@ -362,6 +362,10 @@ def run_parent(args, argv: list[str]) -> int:
         with open(args.json, "w") as fh:
             json.dump(emission, fh, indent=1, sort_keys=True)
             fh.write("\n")
+    if args.history:
+        from pos_evolution_tpu_torch.profiling import history
+        history.append_entry(args.history, emission, kind="bench_resilience")
+        print(f"# appended bench_resilience emission to {args.history}", file=sys.stderr)
     return 0
 
 

@@ -33,10 +33,24 @@ call. ``autocheckpoint=`` (or ``attach_autocheckpoint``) arms run
 supervision (``resilience.RunSupervision``: heartbeats, integrity
 audits, checkpoints every N slots, serialized on the loop, digested and
 written on the manager's writer thread, through K2 on the card);
-``resume_latest`` resumes from the newest valid step. The knobs of the
-JAX package's driver that are not ported raise ``ValueError`` naming
-their ROADMAP item: ``profile=`` and ``compile_cache=`` (item 7b, the
-profiling tooling); ``serve=`` (item 4d, the serving tier); a
+``resume_latest`` resumes from the newest valid step.
+
+``profile=dir`` profiles the first top-level run segment
+(``run_until_slot`` / ``run_epochs``) under
+``profiling.ProfiledRegion("sim_run")``: each kernel is credited to the
+host ranges that launched it (``slot``, ``propose``, ``attest``, and each
+handler by name: ``HandlerTimer.track`` opens one while the profiler
+records), and ``profiling/export.write_artifacts`` writes
+``chrome_trace.json``, ``flame.txt``, ``flame_device.txt`` and
+``top_ops.json`` into ``dir``; ``profile_region`` keeps the region (its
+planes and tables). One capture only: later segments run unprofiled.
+``compile_cache=dir`` points the kernel build directory
+(``ops/kernels.set_build_dir``, process-wide, as the JAX package's
+compilation cache is) at ``dir``, so a sweep's processes build each
+kernel library once (a library's name carries its source's hash, so
+sharing is safe). Neither knob changes what a run computes. The knobs of
+the JAX package's driver that are not ported raise ``ValueError`` naming
+their ROADMAP item: ``serve=`` (item 4d, the serving tier); a
 ``sharded=`` other than None or False goes to the backend, which raises
 (item 3).
 
@@ -66,6 +80,7 @@ message and no timings when a resident store degraded.
 from __future__ import annotations
 
 import heapq
+import os
 import time as _time
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
@@ -89,9 +104,9 @@ from pos_evolution_tpu_torch.specs.validator import (
     make_sync_aggregate,
 )
 from pos_evolution_tpu_torch.ssz import cached_root, hash_tree_root
+from pos_evolution_tpu_torch.utils.metrics import trace_region
 
-_ITEMS = {"3": "the multi-GPU mode", "4d": "the serving tier of the spec driver",
-          "7b": "the profiling tooling"}
+_ITEMS = {"3": "the multi-GPU mode", "4d": "the serving tier of the spec driver"}
 
 #: The PeerDAS blob geometry, applied over ``mainnet_config()`` (whose 8
 #: samples a client it keeps): EIP-7594's 128 extended cells of 2,048 bytes
@@ -391,11 +406,20 @@ class Simulation:
                  das=None, prewarm: bool = False, compile_cache=None,
                  variant=None, sharded=None, autocheckpoint=None,
                  serve=None, device=None):
-        for knob, value, item in (("profile=", profile, "7b"),
-                                  ("compile_cache=", compile_cache, "7b"),
-                                  ("serve=", serve, "4d")):
-            if value is not None and value is not False:
-                raise _not_ported(knob, item)
+        if serve is not None and serve is not False:
+            raise _not_ported("serve=", "4d")
+        # Opt-in profiling: a directory, the first top-level run segment
+        # captured (see the module docstring). Like telemetry, not
+        # simulation state: checkpoint() leaves it out.
+        self.profile = os.fspath(profile) if profile is not None else None
+        self._profiled = False
+        self.profile_region = None   # the profiled segment's ProfiledRegion
+        # Kernel-build hygiene: the port's compiled artifacts are its
+        # kernel libraries, so the persistent cache is their directory.
+        self.compile_cache = os.fspath(compile_cache) if compile_cache is not None else None
+        if self.compile_cache is not None:
+            from pos_evolution_tpu_torch.ops import kernels
+            kernels.set_build_dir(self.compile_cache)
         self.backend = _backend_for(device)
         with use_backend(self.backend):
             self._init(n_validators, schedule, genesis_time, accelerated_forkchoice,
@@ -943,6 +967,12 @@ class Simulation:
             self._run_slot()
 
     def _run_slot(self) -> None:
+        # named host ranges while torch.profiler records (free otherwise):
+        # the segments of each kernel's launch path
+        with trace_region("slot"):
+            self._run_slot_body()
+
+    def _run_slot_body(self) -> None:
         slot = self.slot
         t0 = self.slot_start(slot)
         self._apply_fault_transitions(slot)
@@ -954,11 +984,13 @@ class Simulation:
         self.variant.on_slot_start(self, slot)
         if slot > 0:
             self._adversary_phase("before_propose", slot, t0)
-            self._propose(slot)
+            with trace_region("propose"):
+                self._propose(slot)
             self._tick_all(t0 + 1)  # timely blocks land within the boost window
             self._tick_all(t0 + self.delta)
             self._adversary_phase("before_attest", slot, t0 + self.delta)
-            self._attest(slot)
+            with trace_region("attest"):
+                self._attest(slot)
             self._tick_all(t0 + 2 * self.delta)
             self._adversary_phase("after_attest", slot, t0 + 2 * self.delta)
         variant_record = self.variant.on_slot_end(self, slot)
@@ -976,9 +1008,55 @@ class Simulation:
             self.supervision.tick(self, self.slot, self.checkpoint)
 
     def run_until_slot(self, slot: int) -> None:
+        if self.profile is not None and not self._profiled:
+            self._profiled = True
+            self._run_profiled(slot)
+            return
         with use_backend(self.backend):
             while self.slot <= slot:
                 self._run_slot()
+
+    def _run_profiled(self, slot: int) -> None:
+        """One profiled run segment: capture a torch.profiler trace around
+        the slot loop, attribute device work to the telemetry spans emitted
+        during it, and write the exporter artifacts into ``self.profile``
+        (see the module docstring). The artifacts are best-effort, the
+        simulation is not: a failed capture or export is an event, and the
+        run goes on."""
+        from pos_evolution_tpu_torch.profiling import ProfiledRegion
+        from pos_evolution_tpu_torch.profiling.export import write_artifacts
+        if self.telemetry is not None and not self.telemetry.bus.keep_in_memory:
+            # the sim lane and span attribution are built from the
+            # in-memory event view; say so rather than silently emit an
+            # empty lane + all-unattributed tables
+            self.telemetry.bus.emit(
+                "profile_export_note",
+                warning="bus keep_in_memory=False: profile artifacts will "
+                        "carry no sim-time lane or span attribution")
+        mark = len(self.telemetry.bus.events) if self.telemetry is not None else 0
+        with use_backend(self.backend), \
+                ProfiledRegion("sim_run", telemetry=self.telemetry) as prof:
+            while self.slot <= slot:
+                self._run_slot()
+        self.profile_region = prof
+        events = self.telemetry.bus.events[mark:] if self.telemetry is not None else []
+        try:
+            # device slices capped to the longest 50K (a long run records one
+            # event per kernel; the cap lands in a "truncated" metadata event)
+            written = write_artifacts(self.profile, events=events, planes=prof.planes,
+                                      top_ops=prof.top_ops, max_device_events=50_000,
+                                      exclude_ops={"sim_run"})
+            if self.telemetry is not None:
+                # where the artifacts landed, so offline readers find them
+                # from the event log alone
+                self.telemetry.bus.emit("profile_artifacts", dir=self.profile,
+                                        files=sorted(written))
+        except Exception as e:
+            # not just OSError: a payload some emitter slipped onto an
+            # in-memory bus that JSON cannot take surfaces here as TypeError;
+            # the completed run must survive it regardless
+            if self.telemetry is not None:
+                self.telemetry.bus.emit("profile_export_failed", error=f"{e!r:.200}")
 
     def run_epochs(self, n_epochs: int) -> None:
         self.run_until_slot(n_epochs * self.cfg.slots_per_epoch)
@@ -1279,8 +1357,6 @@ class Simulation:
         fingerprint of another config refuses. ``autocheckpoint`` re-arms
         supervision on the resumed run. Raises ``FileNotFoundError`` when
         no valid checkpoint exists."""
-        import os
-
         from pos_evolution_tpu_torch.resilience import CheckpointManager
         from pos_evolution_tpu_torch.resilience.runner import run_fingerprint
         backend = _backend_for(device)

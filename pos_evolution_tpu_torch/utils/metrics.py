@@ -1,6 +1,5 @@
 """Observability: per-handler tracing + structured per-slot metrics
-(port of ``pos_evolution_tpu/utils/metrics.py``; its ``jax.profiler``
-regions ``device_trace`` and ``trace_region`` are ROADMAP Queue 1 item 7b).
+(port of ``pos_evolution_tpu/utils/metrics.py``).
 
 - ``HandlerTimer``: wall-clock tracing of ``on_block`` / ``on_attestation``
   / ``get_head`` with percentile summaries — the north-star fork-choice p50
@@ -12,15 +11,20 @@ regions ``device_trace`` and ``trace_region`` are ROADMAP Queue 1 item 7b).
   pos-evolution.md:1041 (failed handlers must not modify the store),
   enforced by snapshot/compare around handler calls — the framework's
   "race detector" analogue (the handlers are the only mutation sites).
+- ``device_trace`` / ``trace_region``: a ``torch.profiler`` trace around a
+  region (the JAX package's ``jax.profiler`` ones) and the named host
+  ranges that ``profiling/kineto.py`` folds into each kernel's path.
 """
 
 from __future__ import annotations
 
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 class HandlerTimer:
@@ -31,9 +35,12 @@ class HandlerTimer:
 
     @contextmanager
     def track(self, name: str):
+        """Time one call of handler ``name``; a named host range
+        (``trace_region``) while torch.profiler records."""
         t0 = time.perf_counter()
         try:
-            yield
+            with trace_region(name):
+                yield
         finally:
             self.samples[name].append(time.perf_counter() - t0)
 
@@ -164,6 +171,48 @@ class StoreInvariantChecker:
                     f"{getattr(handler, '__name__', handler)} mutated the store "
                     f"on a failed call")
             raise
+
+
+@contextmanager
+def device_trace(log_dir, annotation: str | None = None):
+    """``torch.profiler`` device trace around a code region (SURVEY.md §5:
+    per-handler tracing "via jax.profiler traces + host-side counters").
+
+    Writes a Kineto trace (``*.pt.trace.json``, Perfetto- and
+    TensorBoard-loadable; ``profiling/kineto.parse_path`` reads it) under
+    ``log_dir``, covering the host work and, where CUDA is available,
+    every kernel launched inside the region: the device-timeline
+    complement to ``HandlerTimer``'s host wall-clock. The region waits for
+    the device before the trace stops, so its last kernels are in it.
+    Optionally wraps the region in a named range so it is findable on the
+    timeline.
+    """
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        record_function,
+        tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+        with (record_function(annotation) if annotation is not None else nullcontext()):
+            yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+
+def trace_region(name: str):
+    """Named ``torch.profiler.record_function`` range (e.g. per handler:
+    ``with trace_region("on_block"): ...``) — a segment of the path of
+    every kernel launched inside it, in any enclosing ``device_trace`` or
+    ``ProfiledRegion``; free when no profiler records (a null context)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return nullcontext()
 
 
 def percentile_ms(xs, q: float) -> float:

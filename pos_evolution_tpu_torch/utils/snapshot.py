@@ -12,8 +12,12 @@ names no class path, so the JAX package's checkpoints load here as they
 are, and the port's there, a DAS run's too: its queued ``blob``
 sidecars, the engine's ``describe()`` and each view's verified
 (block, blob) keys, from which ``_restore_das`` regenerates the sidecars.
-The JAX package's dense-registry offloads (``save_dense``, ``load_dense`` and
-their orbax forms) are item 7b.
+The dense-registry offloads ``save_dense`` / ``load_dense`` write and read
+the JAX package's npz (one array per ``DenseRegistry`` field), so either
+package loads the other's. Their orbax forms (``save_dense_orbax``,
+``load_dense_orbax``) are not ported: orbax is JAX's checkpoint library,
+which the card's machine does not have, and their mesh restore is
+ROADMAP Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -429,3 +433,32 @@ def _restore_das(sim, meta: dict, das) -> None:
                 if int(sc.blob_index) == int(idx):
                     g.blob_store.sidecars.setdefault(
                         (root, int(idx)), {})[bytes(sc.commitment)] = sc
+
+
+# --- dense-array host offload -------------------------------------------------
+
+def save_dense(path: str, registry) -> None:
+    """Host-offload a ``DenseRegistry`` to .npz, atomically (the compressed
+    stream lands in memory first, then tmp + fsync + rename — a preempted
+    offload can never leave a torn npz). The keys are the field names, each
+    column read back from its device as numpy."""
+    import numpy as np
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **{f: getattr(registry, f).cpu().numpy()
+                                for f in registry._fields})
+    atomic_write_bytes(path, buf.getvalue())
+
+
+def load_dense(path: str, device="cuda"):
+    """A ``save_dense`` file (of either package) -> ``ops/epoch.DenseRegistry``
+    on ``device`` (CUDA unless the caller asks for another; raises without
+    it)."""
+    import numpy as np
+    import torch
+
+    from pos_evolution_tpu_torch.device import resolve_device
+    from pos_evolution_tpu_torch.ops.epoch import DenseRegistry
+    dev = resolve_device(device)
+    with np.load(path) as z:
+        return DenseRegistry(**{f: torch.from_numpy(z[f]).to(dev)
+                                for f in DenseRegistry._fields})

@@ -1205,3 +1205,44 @@ def test_supervised_dense_run_resumes_on_the_card(cuda, tmp_path):
     cpu = DenseSimulation(4096, cfg, device="cpu")
     cpu.run_epochs(1)
     assert state_digest(cpu) == state_digest(sim)
+
+
+def test_profiled_region_credits_k1_and_k2_to_their_ranges(cuda):
+    """A ``ProfiledRegion`` around one K1 and one K2 launch, each under a
+    range of its own: the trace holds both kernels, each named by the path
+    of its launch and credited to its range (never to the region's own
+    name), and the attribution partitions the device total."""
+    from pos_evolution_tpu_torch.profiling import ProfiledRegion
+    from pos_evolution_tpu_torch.utils.metrics import trace_region
+    pk, comm, bits, msgs = (t.to(cuda) for t in _k1_inputs(64, 512, 40000, seed=9))
+    left, right = (words_to_torch(np.random.default_rng(s).integers(
+        0, 2**32, (4096, 8), dtype=np.uint64).astype(np.uint32), cuda) for s in (1, 2))
+    committee_aggregates(pk, comm, bits, msgs)
+    merkle_level(left, right)
+    before = dict(kernels.launches)
+    with ProfiledRegion("region") as prof:
+        with trace_region("sign"):
+            committee_aggregates(pk, comm, bits, msgs)
+        with trace_region("hash"):
+            merkle_level(left, right)
+    assert prof.error is None, prof.error
+    assert kernels.launches["agg_sig"] - before["agg_sig"] == 1
+    assert kernels.launches["merkle_level"] - before["merkle_level"] == 1
+    ops = {}
+    for plane in prof.planes:
+        if plane["name"].startswith("/device:GPU"):
+            for line in plane["lines"]:
+                for e in line["events"]:
+                    ops.setdefault(plane["event_metadata"][e["metadata_id"]], []).append(
+                        e["duration_ps"])
+    k1 = [op for op in ops if "agg_sig_kernel" in op]
+    k2 = [op for op in ops if "merkle_level_kernel" in op]
+    assert len(k1) == 1 and k1[0].startswith("region/sign/") and len(ops[k1[0]]) == 1
+    assert len(k2) == 1 and k2[0].startswith("region/hash/") and len(ops[k2[0]]) == 1
+    # K1's wrapper also zeroes its output and checks the indices on the card
+    assert k1[0] in prof.by_jit["sign"]["ops"] and list(prof.by_jit["hash"]["ops"]) == k2
+    assert prof.attribution["sign"]["total_ms"] >= round(ops[k1[0]][0] / 1e9, 4)
+    assert prof.attribution["hash"]["total_ms"] == round(ops[k2[0]][0] / 1e9, 4)
+    assert "region" not in prof.attribution
+    total_ms = sum(d for ds in ops.values() for d in ds) / 1e9
+    assert abs(sum(r["total_ms"] for r in prof.attribution.values()) - total_ms) < 1e-3

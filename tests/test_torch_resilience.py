@@ -441,8 +441,7 @@ def test_tooling_and_resilient_child_run_with_jax_blocked(tmp_path):
 
 def test_resilient_run_refuses_unported_flags_and_cpu_default(tmp_path):
     from pos_evolution_tpu_torch import resilient_run
-    for flag, item in (("--sharded", "item 3"), ("--degraded-sharded", "item 3"),
-                       ("--history", "item 7b")):
+    for flag, item in (("--sharded", "item 3"), ("--degraded-sharded", "item 3")):
         with pytest.raises(SystemExit, match=item):
             resilient_run.main(["--ckpt-dir", str(tmp_path), flag, "2x2"])
     if not torch.cuda.is_available():

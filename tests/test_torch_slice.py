@@ -319,3 +319,53 @@ def test_spec_driver_runs_with_jax_blocked():
     """)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ran")
+
+
+def test_profiling_runs_with_jax_blocked(tmp_path):
+    """The profiling tooling (``profiling/``, ``utils/benchtime``, the
+    metrics regions and the dense offloads) imports and runs on the CPU
+    with jax and pos_evolution_tpu impossible to import: a profiled dense
+    region, its artifacts, a profiled spec ``Simulation``, the cost table
+    and a timed body."""
+    proc = _run_blocked(f"""
+        import importlib, os, torch
+        for name in ("kineto", "xplane", "history", "attribution", "export", "cost"):
+            importlib.import_module("pos_evolution_tpu_torch.profiling." + name)
+        from pos_evolution_tpu_torch.config import mainnet_config, minimal_config, use_config
+        from pos_evolution_tpu_torch.profiling import ProfiledRegion
+        from pos_evolution_tpu_torch.profiling.cost import analyze_hot_paths
+        from pos_evolution_tpu_torch.profiling.export import write_artifacts
+        from pos_evolution_tpu_torch.sim.dense_driver import DenseSimulation
+        from pos_evolution_tpu_torch.sim.driver import Simulation
+        from pos_evolution_tpu_torch.telemetry import Telemetry
+        from pos_evolution_tpu_torch.utils.benchtime import checksum_tree, fused_measure
+        from pos_evolution_tpu_torch.utils.snapshot import load_dense, save_dense
+        cfg = mainnet_config().replace(slots_per_epoch=4, max_committees_per_slot=2)
+        sim = DenseSimulation(64, cfg, device="cpu", shuffle_rounds=4)
+        sim.run_slot()
+        tel = Telemetry()
+        with ProfiledRegion("dense", telemetry=tel) as prof:
+            sim.run_slot()
+        assert prof.error is None and prof.planes, prof.error
+        wrote = write_artifacts({str(tmp_path)!r}, events=tel.bus.events, planes=prof.planes,
+                                top_ops=prof.top_ops)
+        assert sorted(wrote) == ["chrome_trace.json", "flame.txt", "flame_device.txt",
+                                 "top_ops.json"], wrote
+        save_dense({str(tmp_path / "reg.npz")!r}, sim.views[0].registry)
+        back = load_dense({str(tmp_path / "reg.npz")!r}, device="cpu")
+        assert torch.equal(back.balance, sim.views[0].registry.balance)
+        with use_config(minimal_config()):
+            s = Simulation(16, device="cpu", profile={str(tmp_path / "prof")!r},
+                           telemetry=Telemetry())
+            s.run_until_slot(2)
+        assert sorted(os.listdir({str(tmp_path / "prof")!r})) == sorted(wrote)
+        table = analyze_hot_paths(n=64, capacity=8, device="cpu")
+        assert not [k for k, v in table["kernels"].items() if "error" in v], table
+        x = torch.arange(64)
+        assert fused_measure(lambda salt, acc: acc + checksum_tree(x + salt), reps=1) > 0
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not bad, bad
+        print("ran", len(prof.planes))
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ran")

@@ -60,6 +60,9 @@ COPIES = [
     "telemetry/fleet.py",
     "resilience/supervision.py",
     "resilience/supervisor.py",
+    "profiling/xplane.py",
+    "profiling/history.py",
+    "crypto/bls12_381.py",
 ]
 
 
