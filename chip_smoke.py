@@ -220,7 +220,7 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     1/16 of the stake, the default monitors), its checkpoint after epoch
     1 resumed on the card equal to it; Goldfish and SSF at 256; the
     riders at 1,024 under the PeerDAS geometry and a lossy plan (2,000
-    samplers, 2 light clients, 8 slots), its checkpoint after slot 4
+    samplers, 2 light clients, 4 slots), its checkpoint after slot 2
     resumed on the card equal to it in every record, blob key and served
     block;
 37. B9 (``ops/forkchoice.py``'s incremental vote buckets) on the card
@@ -271,6 +271,30 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     ``compile_cache=`` (a child process during phases 32-33 that runs two
     processes in turn): the first builds into a fresh directory, the
     second builds nothing, as the build ledger counts it.
+41. the serving tier on the card: (a) in phase 35's child, its run
+    publishes a ``ServeView`` a slot (``run_scale(serve=True)``), one
+    view a slot; a ``ServeFront`` of 4 threads on the run's merkle scheme
+    serves them, replayed as ``serve_demo`` replays them, under the demo's
+    two phases cut to 1,000 + 1,000 arrivals at 6,000/s (uniform, then
+    hotspot with two 10x bursts, two worker stalls, proof-cache wipes, a
+    backing outage and 8 slow-loris connections): every served proof and
+    update verified, the launch counts zeroed just before and read just
+    after holding K6 once and K2 7 times a scheme build; then 64 seeded
+    ``das_cells`` requests of 8 samples at once over 2 blobs of each root of
+    the last view, on a front on the card and on one on the plain scheme:
+    the replies equal byte for byte, one build a (block, blob) requested; (b) ``python -m
+    pos_evolution_tpu_torch.serve_demo --mp --mainnet`` at its defaults
+    (a process of its own beside phase 35's run): every scheduled arrival
+    recorded, proofs verified and zero verify failures in each phase, every
+    kill and wedge detected, every live worker on the board's current
+    generation, the fleet metrics consistent, K6 and K2 launched in the
+    workers (``kernel_launches_total`` off the ``metrics`` RPC, K2 7
+    times K6 in the steady phase); (c) in phase 38's child, a kzg front
+    answers 4 seeded ``das_aggregate`` requests of 8 samples, each proof
+    verifying through ``verify_aggregate`` on the card, K10 and K11
+    counted a proof. The SLO and goodput contracts (steady interactive
+    p99 <= 50 ms and chaos interactive goodput > 95% for (a); goodput
+    >= 99% and p99 <= 300 ms for (b)) are printed, met or missed.
 
 Between phase groups it prints the seconds since the start (``lap``).
 
@@ -279,6 +303,7 @@ and last ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and
 prints no result. Run from the repository root: ``python3 chip_smoke.py``.
 """
 
+import atexit
 import contextlib
 import hashlib
 import json
@@ -286,6 +311,7 @@ import math
 import multiprocessing
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -382,6 +408,12 @@ from pos_evolution_tpu_torch.sim import (  # noqa: E402
     lossy_plan,
 )
 from pos_evolution_tpu_torch.sim.driver import PEERDAS, run_scale  # noqa: E402
+from pos_evolution_tpu_torch.das.commitment import get_scheme  # noqa: E402
+from pos_evolution_tpu_torch.serve import (  # noqa: E402
+    ServeClient,
+    ServeFront,
+    ServingState,
+)
 from pos_evolution_tpu_torch.config import minimal_config, use_config  # noqa: E402
 from pos_evolution_tpu_torch.variants import GoldfishVariant, SsfVariant  # noqa: E402
 from pos_evolution_tpu_torch.telemetry import FlightRecorder, Telemetry  # noqa: E402
@@ -582,8 +614,9 @@ RIDER_LAUNCHES = {"blob_build": {"sha256_blocks": 2, "gf256_matmul": 1, "merkle_
 # RIDER_TWIN_CLIENTS samplers and RIDER_TWIN_LCS light clients for RIDER_TWIN_SLOTS slots,
 # the checkpoint after RIDER_TWIN_CKPT resumed on the card
 # (a slot of it costs ~10 s on the CPU backend, the plain SHA-256 over 9 x 128 cells of
-# 2,048 bytes: the depth is cut from 2 epochs to 8 slots to fit beside phases 32-34)
-RIDER_TWIN_CLIENTS, RIDER_TWIN_LCS, RIDER_TWIN_SLOTS, RIDER_TWIN_CKPT = 2000, 2, 8, 4
+# 2,048 bytes: the depth is cut from 2 epochs to 8 slots to fit beside phases 32-34, and
+# to 4 slots to make room for phase 41)
+RIDER_TWIN_CLIENTS, RIDER_TWIN_LCS, RIDER_TWIN_SLOTS, RIDER_TWIN_CKPT = 2000, 2, 4, 2
 # phase 38: the kzg rider on the card (1,024 validators, the PeerDAS geometry, 16
 # samplers), and its twin, card against CPU, at the minimal geometry (16 validators, 1 blob)
 # through slot 1 (one proposal and one aggregate proof: a pairing check on the CPU
@@ -628,6 +661,33 @@ print(json.dumps({"builds": ledger.rows(), "build_dir": str(kernels.BUILD_DIR),
                   "launches": {k: v for k, v in kernels.launches.items() if v},
                   "metrics": sim.metrics}))
 '''
+# phase 41: the serving tier on the card. (a) In phase 35's child, after its 4 epochs
+# (run_scale(serve=True)): a ServeFront of SERVE_THREADS threads on the run's merkle
+# scheme serves the run's views (one a slot), replayed as the serving demo replays them,
+# under the demo's two phases (uniform, then hotspot with two 10x bursts, two worker
+# stalls, a backing outage and 8 slow-loris connections) cut from 100,000 arrivals to
+# SERVE_ARRIVALS at SERVE_RATE/s to fit phase 35's wait (the host served ~230 requests/s
+# there: 30,000 arrivals took 130 s in a probe, 4,000 26 s); then SERVE_CHECKS seeded
+# das_cells requests of SERVE_CHECK_SAMPLES samples at once over 2 blobs of each root of
+# the last view, on the card and on the plain scheme. (b) The serving demo's multi-process plane at its --mp
+# defaults under the PeerDAS config (steady 60,000 at 20,000/s, chaos 30,000 at
+# 10,000/s with 2 kills, 1 wedge and 32 held fds; 2 fronts x 2 worker processes), a
+# process of its own beside phase 35's run alone, after phase 40 (a)-(d) (beside phases
+# 26-31 it shared the host with their plain versions; beside phases 32-33 it slowed
+# phase 39's supervised dense run until the kill landed before step 32 was durable).
+# (c) In phase 38's child, a kzg front answers
+# SERVE_AGG_REQUESTS das_aggregate requests of SERVE_AGG_SAMPLES samples.
+SERVE_ARRIVALS, SERVE_RATE, SERVE_THREADS, SERVE_SLO_MS = 2_000, 6000.0, 4, 50.0
+SERVE_CHECKS, SERVE_CHECK_SAMPLES = 64, 8
+SERVE_AGG_REQUESTS, SERVE_AGG_SAMPLES = 4, 8
+# a merkle proof build of one blob's 128 cells: K6 the leaves, K2 the 7 tree levels
+SERVE_BUILD_LAUNCHES = {"sha256_blocks": 1, "merkle_level": 7}
+# a kzg das_aggregate proof: K11's bucket route for W and W' (6 launches each); the
+# two points' affine normalization (K3's ladder and products, K4); no K10, the grids'
+# commitments held by the scheme's memo since their proposals
+SERVE_PROOF_LAUNCHES = {**{f"g1_bucket_{s}": 2 for s in (
+    "recode", "scan", "scatter", "fill", "totals", "reduce")},
+    "fp_pow": 2, "fp_modmul": 8, "fp_addsub": 6}
 SPEC_STATE_COLUMNS = ("balances", "previous_epoch_participation",
                       "current_epoch_participation", "inactivity_scores")
 SPEC_REGISTRY_COLUMNS = ("pubkeys", "withdrawal_credentials", "effective_balance", "slashed",
@@ -3178,10 +3238,14 @@ def driver_scale_run() -> dict:
     kernels.reset_launches()
     with use_config(mainnet_config().replace(**PEERDAS)):
         out = run_scale(DRIVER_N, DRIVER_EPOCHS, device=dev, das="merkle",
-                        das_clients=DRIVER_DAS_CLIENTS, light_clients=DRIVER_LIGHT_CLIENTS)
+                        das_clients=DRIVER_DAS_CLIENTS, light_clients=DRIVER_LIGHT_CLIENTS,
+                        serve=True)
     torch.cuda.synchronize()
     launches = {k: v for k, v in kernels.launches.items() if v}
     sim = out.pop("sim")
+    # the views' publication: every slot's best update (built or from the cache)
+    out["serve_publish"] = {"calls": sim.meter.calls.get("serve_publish", 0),
+                            "launches": sim.meter.launches.get("serve_publish", {})}
     out["riders"]["serves"] = sim.das_serves
     out["riders_ok"] = driver_riders_check(sim, out["riders"], launches)
     out["launches"] = launches
@@ -3201,6 +3265,12 @@ def driver_scale_run() -> dict:
             res.flush()
         out["flush_prof"] = profiled_launches(flush)
     out["capacity"] = res.capacity
+    # 41 (a): the serving tier over this run's views, on the card
+    views = out.pop("serving_state").views
+    check(len(views) == sim.slot and views[-1].sidecars,
+          f"phase 41: {len(views)} views published in {sim.slot} slots")
+    with use_config(mainnet_config().replace(**PEERDAS)):
+        out["serve"] = serve_front_run(sim.das.scheme, views)
     return out
 
 
@@ -3347,16 +3417,19 @@ def kzg_card_run() -> dict:
     t0 = time.perf_counter()
     with use_config(cfg):
         sim = Simulation(KZG_DRIVER_N, accelerated_forkchoice=True, device="cuda",
-                         das=BlobEngine(cfg, scheme="kzg", device="cuda"))
+                         das=BlobEngine(cfg, scheme="kzg", device="cuda"), serve=True)
         sim.attach_das_clients(KZG_DRIVER_CLIENTS)
         sim.run_until_slot(KZG_DRIVER_SLOTS)
-    torch.cuda.synchronize()
-    return {"s": time.perf_counter() - t0,
-            "launches": {k: v for k, v in kernels.launches.items() if v},
-            "record": spec_rider_record(sim), "served": sim.das_serves,
-            "proposals": sim.meter.calls.get("blob_build", 0),
-            "per_call": {k: sim.meter.per_call(k) for k in sim.meter.calls},
-            "seconds": dict(sim.meter.seconds)}
+        torch.cuda.synchronize()
+        out = {"s": time.perf_counter() - t0,
+               "launches": {k: v for k, v in kernels.launches.items() if v},
+               "record": spec_rider_record(sim), "served": sim.das_serves,
+               "proposals": sim.meter.calls.get("blob_build", 0),
+               "per_call": {k: sim.meter.per_call(k) for k in sim.meter.calls},
+               "seconds": dict(sim.meter.seconds)}
+        # 41 (c): a kzg front's das_aggregate proofs over the last view, on the card
+        out["serve_kzg"] = serve_kzg_run(sim.das.scheme, sim.serving_state.current())
+    return out
 
 
 def kzg_driver_phase(card: str, twins: dict) -> dict:
@@ -3400,6 +3473,279 @@ def kzg_driver_phase(card: str, twins: dict) -> dict:
         f"== CPU ({want['s']:.3f} s) in every per-slot record, blob key and served summary "
         f"({len(tw)} aggregate proofs verified)")
     return launches
+
+
+# --- the serving tier (phase 41) ------------------------------------------------------
+
+def _serve_requests(view, rng, method: str, n: int, k: int, blobs: int | None = None) -> list:
+    """``n`` seeded requests of ``k`` samples each over ``view``'s roots (over
+    the first ``blobs`` blobs of each, when given)."""
+    roots = list(view.sidecars)
+    out = []
+    for _ in range(n):
+        root = roots[int(rng.integers(len(roots)))]
+        n_blobs = min(len(view.sidecars[root]), blobs or len(view.sidecars[root]))
+        out.append((method, {"block_root": root.hex(),
+                             "samples": [[int(rng.integers(n_blobs)),
+                                          int(rng.integers(view.n_cells))] for _ in range(k)]}))
+    return out
+
+
+def _front_replies(view, scheme, requests, concurrent: bool) -> dict:
+    """``requests`` against a fresh ``ServeFront`` of SERVE_THREADS threads on
+    ``scheme`` over ``view`` (at once when ``concurrent``), the launch counts
+    zeroed just before and read just after: the replies, each one's ms, the
+    front's scheme builds and the launches."""
+    from concurrent.futures import ThreadPoolExecutor
+    state = ServingState()
+    state.publish(view)
+    front = ServeFront(state, scheme=scheme, workers=SERVE_THREADS)
+    cli = ServeClient(front.start(), connections=16 if concurrent else 1, hedge_ms=None)
+
+    def one(req):
+        t0 = time.perf_counter()
+        res = cli.request(req[0], req[1], deadline_s=120.0)
+        return res, (time.perf_counter() - t0) * 1e3
+
+    try:
+        kernels.reset_launches()
+        if concurrent:
+            with ThreadPoolExecutor(16) as pool:
+                got = list(pool.map(one, requests))
+        else:
+            got = [one(r) for r in requests]
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.launches.items() if v}
+        builds = front.summary()["scheme_builds"]
+    finally:
+        cli.close()
+        front.stop()
+    return {"replies": [(r.status, r.result, r.error) for r, _ in got],
+            "ms": [ms for _, ms in got], "builds": builds, "launches": launches}
+
+
+def serve_front_run(scheme, views) -> dict:
+    """Phase 41 (a), in phase 35's child under its config: ``serve_demo.
+    serve_views`` over the run's views on its merkle scheme (proofs built
+    on the card), the launch counts zeroed just before and read just
+    after; then SERVE_CHECKS seeded ``das_cells`` requests at once over 2
+    blobs of each root of the last view, on a front on the card and on one
+    on the plain scheme."""
+    from pos_evolution_tpu_torch.config import cfg
+    from pos_evolution_tpu_torch.serve_demo import serve_views
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = serve_views(views, scheme, arrivals=SERVE_ARRIVALS, rate=SERVE_RATE,
+                      workers=SERVE_THREADS, seed=7, slo_ms=SERVE_SLO_MS, device="cuda")
+    torch.cuda.synchronize()
+    res["s"] = time.perf_counter() - t0
+    res["launches"] = {k: v for k, v in kernels.launches.items() if v}
+    res["views"] = len(views)
+    # one backing build (a blob's 128 cells and branches to the host) alone, on
+    # the card and on the plain scheme: the front's work a build, without the load
+    grid = np.ascontiguousarray(next(iter(views[-1].sidecars.values()))[0].cells)
+    cells = list(range(grid.shape[0]))
+    res["build_ms"] = {plain: time_ms(lambda sch=get_scheme("merkle", "cuda", plain=plain,
+                                                            cfg=cfg()): sch.branches(grid, cells),
+                                      3 if plain else 10) for plain in (False, True)}
+    # over 2 blobs of each root: 16 requests a (block, blob) at once, and a plain
+    # build (~0.65 s) for each, on the path to the end of phase 35's wait
+    requests = _serve_requests(views[-1], np.random.default_rng(41), "das_cells",
+                               SERVE_CHECKS, SERVE_CHECK_SAMPLES, blobs=2)
+    res["distinct_blobs"] = len({(p["block_root"], b) for _, p in requests
+                                 for b, _ in p["samples"]})
+    res["check"] = {plain: _front_replies(views[-1], get_scheme("merkle", "cuda", plain=plain,
+                                                                cfg=cfg()), requests, True)
+                    for plain in (False, True)}
+    return res
+
+
+def serve_kzg_run(scheme, view) -> dict:
+    """Phase 41 (c), in phase 38's child under its config: a kzg front's
+    SERVE_AGG_REQUESTS seeded ``das_aggregate`` replies over ``view`` (one
+    after another, each timed), the launch counts zeroed just before and
+    read just after; each proof then checked by ``scheme.verify_aggregate``
+    on the card, timed."""
+    requests = _serve_requests(view, np.random.default_rng(43), "das_aggregate",
+                               SERVE_AGG_REQUESTS, SERVE_AGG_SAMPLES)
+    out = _front_replies(view, scheme, requests, False)
+    verdicts, verify_ms = [], []
+    for status, result, _err in out["replies"]:
+        if status != "ok":
+            verdicts.append(False)
+            continue
+        t0 = time.perf_counter()
+        proof = scheme.decode_proof([bytes.fromhex(x) for x in result["proof"]])
+        verdicts.append(bool(scheme.verify_aggregate(
+            [bytes.fromhex(x) for x in result["commitments"]],
+            [(int(b), int(c)) for b, c in result["samples"]],
+            [np.frombuffer(bytes.fromhex(c), dtype=np.uint8) for c in result["cells"]], proof)))
+        torch.cuda.synchronize()
+        verify_ms.append((time.perf_counter() - t0) * 1e3)
+    out["verdicts"], out["verify_ms"] = verdicts, verify_ms
+    out["proof_bytes"] = [scheme.proof_n_bytes(scheme.decode_proof(
+        [bytes.fromhex(x) for x in r[1]["proof"]])) for r in out["replies"] if r[0] == "ok"]
+    return out
+
+
+def serve_mp_start():
+    """Phase 41 (b), started in the background after phase 40 (a)-(d), beside
+    phase 35's run alone: ``python
+    -m pos_evolution_tpu_torch.serve_demo --mp --mainnet`` at its defaults
+    on the card, its workers started from the entry point's light main
+    module, its output in files under ``build/serve_mp``."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "serve_mp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    emitted, log = os.path.join(root, "emission.json"), os.path.join(root, "log.txt")
+    with open(log, "w") as out:
+        # a session of its own: if this run fails first, its exit stops the
+        # demo, its forkserver and its workers together
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pos_evolution_tpu_torch.serve_demo", "--mp", "--mainnet",
+             "--json", emitted], stdout=out, stderr=subprocess.STDOUT, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)), start_new_session=True)
+    atexit.register(_stop_session, proc)
+    return proc, emitted, log, time.perf_counter()
+
+
+def _stop_session(proc) -> None:
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+
+
+def serve_mp_finish(started) -> dict:
+    """Wait for phase 41 (b): its exit code, seconds, emission and log's tail."""
+    proc, emitted, log, t0 = started
+    rc = proc.wait(timeout=600)
+    wall = time.perf_counter() - t0
+    _stop_session(proc)     # any worker left behind
+    with open(log) as f:
+        tail = f.read()[-3000:]
+    check(os.path.exists(emitted), f"serve_demo --mp: exit {rc}, no emission\n{tail}")
+    with open(emitted) as f:
+        emission = json.load(f)
+    return {"rc": rc, "s": wall, "emission": emission, "log": tail}
+
+
+def _contract(ok: bool) -> str:
+    return "MET" if ok else "MISSED"
+
+
+def serve_phase(card: str, front: dict, mp: dict, kzg: dict) -> dict:
+    """Phase 41's checks and report: (a) the front over phase 35's views,
+    (b) the multi-process plane, (c) the kzg front. Fails on any verify
+    failure, a reply that differs from the plain scheme's, a build count or
+    launch count off, an undetected kill or wedge, a stale respawn or an
+    inconsistent fleet; prints the SLO and goodput contracts, met or
+    missed. Returns the serving paths' launches by kernel."""
+    # (a)
+    steady, chaos, server = front["steady"], front["chaos"], front["server"]
+    builds, launches = server["scheme_builds"], front["launches"]
+    check(front["verify_failures"] == 0 and front["verified_proofs"] > 0,
+          f"phase 41 (a): {front['verify_failures']} verify failures of "
+          f"{front['verified_proofs']}")
+    check(builds > 0 and launches == {k: v * builds for k, v in SERVE_BUILD_LAUNCHES.items()},
+          f"phase 41 (a): launches {launches} for {builds} scheme builds")
+    card_run, plain_run = front["check"][False], front["check"][True]
+    check(all(r[0] == "ok" for r in card_run["replies"]),
+          f"phase 41 (a): {[r[2] for r in card_run['replies'] if r[0] != 'ok'][:3]}")
+    check(card_run["replies"] == plain_run["replies"],
+          "phase 41 (a): das_cells replies on the card differ from the plain scheme's")
+    check(card_run["builds"] == plain_run["builds"] == front["distinct_blobs"]
+          and card_run["launches"] == {k: v * card_run["builds"]
+                                       for k, v in SERVE_BUILD_LAUNCHES.items()}
+          and plain_run["launches"] == {},
+          f"phase 41 (a): {card_run['builds']} / {plain_run['builds']} builds for "
+          f"{front['distinct_blobs']} (block, blob) pairs, launches {card_run['launches']}")
+    s_int, c_int = steady["tiers"]["interactive"], chaos["tiers"]["interactive"]
+    c_blk = chaos["tiers"]["bulk"]
+    say(f"phase 41 (a): {front['views']} views of phase 35's run served by a front of "
+        f"{SERVE_THREADS} threads on the card: {front['verified_proofs']} proofs verified, 0 "
+        f"failures; {builds} scheme builds, launches {launches} (K6 1 and K2 7 a build); "
+        f"{SERVE_CHECKS} das_cells requests of {SERVE_CHECK_SAMPLES} at once over 2 blobs of "
+        f"each root of the last view == the plain scheme's byte for byte, "
+        f"{card_run['builds']} builds for "
+        f"{front['distinct_blobs']} (block, blob) pairs")
+    say(f"[{card}] phase 41 (a) (contended: phase 35's child, beside phase 40 and 41 (b); "
+        f"generator-bound: the load generator shares the front's interpreter, "
+        f"{steady['late_dispatch'] + chaos['late_dispatch']} of {SERVE_ARRIVALS} arrivals "
+        f"dispatched late): "
+        f"{SERVE_ARRIVALS} arrivals at {SERVE_RATE:.0f}/s in {front['s']:.3f} s; steady "
+        f"interactive p50 {s_int['p50_ms']} ms p99 {s_int['p99_ms']} ms p999 "
+        f"{s_int['p999_ms']} ms goodput {s_int['goodput_pct']}% (SLO p99 <= {SERVE_SLO_MS} ms "
+        f"{_contract(front['slo_ok'])}); chaos interactive p50 {c_int['p50_ms']} ms p99 "
+        f"{c_int['p99_ms']} ms goodput {c_int['goodput_pct']}% (> 95% "
+        f"{_contract(front['goodput_ok'])}), bulk goodput {c_blk['goodput_pct']}% shed "
+        f"{c_blk['shed_pct']}%; shed share {server['shed_rate']}; hedges "
+        f"{steady['hedges'] + chaos['hedges']}; single-flight waits "
+        f"{server['singleflight']['waits']}; late dispatches {steady['late_dispatch']} + "
+        f"{chaos['late_dispatch']}; the front's service EMA {server['service_ema_ms']} ms, "
+        f"brownout transitions {server['brownout_transitions']}, shed by reason "
+        f"{json.dumps(server['shed_by_reason'])}; a build alone {front['build_ms'][False]:.3f} "
+        f"ms on the card, {front['build_ms'][True]:.3f} ms plain; the check's replies p50 "
+        f"{np.percentile(card_run['ms'], 50):.3f} ms on the card, "
+        f"{np.percentile(plain_run['ms'], 50):.3f} ms plain")
+    # (b)
+    em = mp["emission"]
+    verdicts = em["verdicts"]
+    for tag, v in verdicts.items():
+        # every scheduled arrival recorded, at least one proof verified and
+        # none failing in each phase; the throughput contracts are printed
+        # below, met or missed
+        check(v["records_match_schedule"] and v["integrity_ok"] and v["verify_failures"] == 0
+              and (v["verified_proofs"] or 0) > 0,
+              f"phase 41 (b): {tag} verdict {json.dumps(v)}")
+        check(v["kills_detected"] and v["wedges_detected"]
+              and v["respawned_on_current_generation"] and v["fleet_consistent"],
+              f"phase 41 (b): {tag} supervision or fleet {json.dumps(v)}")
+    check(verdicts["chaos"]["kills_delivered"] == 2 and verdicts["chaos"]["hang_interruptions"] >= 1,
+          f"phase 41 (b): chaos {json.dumps(verdicts['chaos'])}")
+    wl = em["kernel_launches"]
+    check(wl["steady"] and wl["steady"].get("sha256_blocks", 0) > 0
+          and wl["steady"] == {k: v * wl["steady"]["sha256_blocks"]
+                               for k, v in SERVE_BUILD_LAUNCHES.items()}
+          and wl["chaos"].get("sha256_blocks", 0) > 0
+          and wl["chaos"].get("merkle_level", 0) > 0,
+          f"phase 41 (b): the workers' launches {wl}")
+    sv, cv = verdicts["steady"], verdicts["chaos"]
+    say(f"phase 41 (b): serve_demo --mp --mainnet (exit {mp['rc']}, non-zero when a throughput "
+        f"contract is missed): every arrival recorded; "
+        f"{sv['verified_proofs'] + cv['verified_proofs']} proofs verified, 0 failures; chaos "
+        f"{cv['kills_delivered']} kills detected as {cv['crash_interruptions']} crashes, "
+        f"{cv['hang_interruptions']} hangs, {cv['restarts']} respawns, all live workers on the "
+        f"board's generation; the fleet consistent; the workers' launches {json.dumps(wl)}")
+    serving = em["serving"]
+    say(f"[{card}] phase 41 (b) (contended: beside phase 35's run): {em['elapsed_s']:.3f} s "
+        f"(collected {mp['s']:.3f} s after its start); the "
+        f"pools ready after {json.dumps(em['pool_ready_s'])} s; steady "
+        f"{em['arrivals'] - em['chaos']['arrivals']} at {em['rate']:.0f}/s interactive "
+        f"{json.dumps(serving['steady'])} (goodput >= 99% {_contract(sv['goodput_ok'])}, p99 "
+        f"<= {em['slo_ms']} ms {_contract(sv['slo_ok'])}); chaos {em['chaos']['arrivals']} at "
+        f"{em['chaos']['rate']:.0f}/s interactive {json.dumps(serving['chaos_interactive'])} "
+        f"(goodput {_contract(cv['goodput_ok'])}, p99 {_contract(cv['slo_ok'])}), bulk "
+        f"{json.dumps(serving['chaos_bulk'])}, resends {serving['chaos_resends']}, lost "
+        f"{serving['chaos_lost']}; proofs verified: steady {sv['verified_proofs']}, chaos "
+        f"{cv['verified_proofs']}")
+    # (c)
+    check(kzg["replies"] and all(r[0] == "ok" for r in kzg["replies"]) and all(kzg["verdicts"]),
+          f"phase 41 (c): kzg aggregate replies {[r[0] for r in kzg['replies']]}, verdicts "
+          f"{kzg['verdicts']}")
+    per = {k: v / SERVE_AGG_REQUESTS for k, v in kzg["launches"].items()}
+    check(per == SERVE_PROOF_LAUNCHES,
+          f"phase 41 (c): launches a proof {per}, want {SERVE_PROOF_LAUNCHES}")
+    say(f"phase 41 (c): {SERVE_AGG_REQUESTS} das_aggregate proofs of {SERVE_AGG_SAMPLES} "
+        f"samples from a kzg front on the card, each verifying through verify_aggregate "
+        f"({kzg['proof_bytes']} bytes); launches a proof {json.dumps(per)}")
+    say(f"[{card}] phase 41 (c) (contended: beside phases 32-33): ms a proof "
+        + ", ".join(f"{x:.3f}" for x in kzg["ms"]) + "; verify ms "
+        + ", ".join(f"{x:.3f}" for x in kzg["verify_ms"]))
+    workers = {}
+    for tag in ("steady", "chaos"):
+        for k, v in (wl[tag] or {}).items():
+            workers[k] = workers.get(k, 0) + v
+    return {"front": launches, "workers": workers, "kzg": kzg["launches"]}
 
 
 def resilient_kind(kind: str) -> dict:
@@ -4230,6 +4576,12 @@ def main() -> int:
         say(f"phase 40 (a-d, beside phase 35's run): {time.perf_counter() - t_prof:.3f} s; "
             "launches " + json.dumps(profile_launches))
         lap("phase 40")
+        # phase 41 (b) in a process of its own beside phase 35's run alone: no
+        # kernel of the kernels line is timed from here on, and the host is
+        # otherwise quiet (beside phases 26-31 it shared the host with their
+        # plain versions; beside phases 32-34 it slowed phase 39's supervised
+        # runs until a kill landed before its checkpoint was durable)
+        serve_mp = serve_mp_start()
         t_driver = time.perf_counter()
         scale_run = scale.result()
     say(f"phase 35's run: waited {time.perf_counter() - t_driver:.3f} s after phase 34")
@@ -4239,6 +4591,9 @@ def main() -> int:
     lap("phase 38")
     resilient_phase(card, resilient)
     lap("phase 39")
+    serve_launches = serve_phase(card, scale_run["serve"], serve_mp_finish(serve_mp),
+                                 driver_twins[("kzg", "run")]["serve_kzg"])
+    lap("phase 41")
 
     big = k2[K2_LARGEST]
     say(card)
@@ -4258,10 +4613,14 @@ def main() -> int:
         "ms_1048576": k2[N_MAINNET]["ms"], "full_build_ms": builds[-1][0],
         "update_ms": updates[-1][0], "dense_launches": digest_k2}, *field_rows, *das_rows,
         *kzg_rows]
-    for row in rows:   # each kernel's launches in phase 32's spec chain, phases 35 and 38
+    for row in rows:   # each kernel's launches in phase 32's spec chain, phases 35, 38 and 41
         row["spec_chain_launches"] = spec_launches.get(row["name"], 0)
         row["spec_driver_launches"] = driver_launches.get(row["name"], 0)
         row["spec_driver_kzg_launches"] = kzg_driver_launches.get(row["name"], 0)
+        # phase 41: the serving front's load, its workers' (steady + chaos), the kzg front's
+        row["serve_front_launches"] = serve_launches["front"].get(row["name"], 0)
+        row["serve_worker_launches"] = serve_launches["workers"].get(row["name"], 0)
+        row["serve_kzg_launches"] = serve_launches["kzg"].get(row["name"], 0)
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -4270,4 +4629,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    # every process the run started has been stopped and waited for, and every
+    # line flushed: skip the interpreter's teardown of the run's heaps and its
+    # CUDA context (with the imports, ~20 s after the last lap on a slow host)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

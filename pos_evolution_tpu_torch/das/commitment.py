@@ -46,6 +46,7 @@ __all__ = [
     "CellCommitmentScheme",
     "MerkleCellScheme",
     "register_scheme",
+    "scheme_class",
     "get_scheme",
 ]
 
@@ -171,16 +172,22 @@ def register_scheme(cls) -> type:
     return cls
 
 
-def get_scheme(name: str = "merkle", device="cuda", *, plain: bool = False, cfg=None):
-    """The scheme registered as ``name`` on ``device``, under config ``cfg``
-    (the kzg scheme's geometry and setup seed: mainnet's when None)."""
+def scheme_class(name: str) -> type:
+    """The class registered as ``name``, with nothing built (its class
+    flags, such as ``aggregates``, read without a device)."""
     if name not in _SCHEMES:
         # the kzg package loads its field and curve constants when asked for
         import pos_evolution_tpu_torch.kzg.scheme  # noqa: F401
     if name not in _SCHEMES:
         raise ValueError(f"unknown cell-commitment scheme {name!r}; "
                          f"registered: {list(_SCHEMES)}")
-    return _SCHEMES[name](device, plain=plain, cfg=cfg)
+    return _SCHEMES[name]
+
+
+def get_scheme(name: str = "merkle", device="cuda", *, plain: bool = False, cfg=None):
+    """The scheme registered as ``name`` on ``device``, under config ``cfg``
+    (the kzg scheme's geometry and setup seed: mainnet's when None)."""
+    return scheme_class(name)(device, plain=plain, cfg=cfg)
 
 
 register_scheme(MerkleCellScheme)

@@ -48,11 +48,21 @@ planes and tables). One capture only: later segments run unprofiled.
 (``ops/kernels.set_build_dir``, process-wide, as the JAX package's
 compilation cache is) at ``dir``, so a sweep's processes build each
 kernel library once (a library's name carries its source's hash, so
-sharing is safe). Neither knob changes what a run computes. The knobs of
-the JAX package's driver that are not ported raise ``ValueError`` naming
-their ROADMAP item: ``serve=`` (item 4d, the serving tier); a
-``sharded=`` other than None or False goes to the backend, which raises
-(item 3).
+sharing is safe). Neither knob changes what a run computes. The knob of
+the JAX package's driver that is not ported raises naming its ROADMAP
+item: a ``sharded=`` other than None or False goes to the backend, which
+raises ``ValueError`` (item 3, the multi-GPU mode).
+
+``serve=`` (True, or an existing ``serve.ServingState``) publishes one
+immutable ``serve.ServeView`` at the end of every slot, after the riders:
+the serving group's head and checkpoints, its best light-client update
+(serialized, with its root) and the DAS window's sidecars, which a
+socket-facing ``serve.ServeFront`` answers from (live, or replaying the
+recorded views). True records every view (``keep_history``). Like
+telemetry, not simulation state: a checkpoint leaves it out, and a
+resumed run re-attaches one (``sim.serving_state = state``). The
+publication's work (the best update's build, on the backend's device)
+is metered as ``serve_publish``.
 
 The riders are the JAX package's. ``das=`` (True, a scheme name, or a
 ``das/engine.BlobEngine``; ``blob_engine_for``) makes proposals carry
@@ -106,18 +116,10 @@ from pos_evolution_tpu_torch.specs.validator import (
 from pos_evolution_tpu_torch.ssz import cached_root, hash_tree_root
 from pos_evolution_tpu_torch.utils.metrics import trace_region
 
-_ITEMS = {"3": "the multi-GPU mode", "4d": "the serving tier of the spec driver"}
-
 #: The PeerDAS blob geometry, applied over ``mainnet_config()`` (whose 8
 #: samples a client it keeps): EIP-7594's 128 extended cells of 2,048 bytes
 #: (64 data cells a blob) and EIP-7691's 9 blobs a block.
 PEERDAS = {"das_cells_per_blob": 64, "das_cell_bytes": 2048, "das_max_blobs_per_block": 9}
-
-
-def _not_ported(what: str, item) -> ValueError:
-    item = str(item)
-    return ValueError(f"Simulation: {what} is not ported yet "
-                      f"(ROADMAP Queue 1 item {item}, {_ITEMS[item]})")
 
 
 def blob_engine_for(das, cfg, device):
@@ -406,8 +408,12 @@ class Simulation:
                  das=None, prewarm: bool = False, compile_cache=None,
                  variant=None, sharded=None, autocheckpoint=None,
                  serve=None, device=None):
-        if serve is not None and serve is not False:
-            raise _not_ported("serve=", "4d")
+        # The live serving tier's publication (see the module docstring).
+        self.serving_state = None
+        if serve:
+            from pos_evolution_tpu_torch.serve import ServingState
+            self.serving_state = (serve if isinstance(serve, ServingState)
+                                  else ServingState(keep_history=True))
         # Opt-in profiling: a directory, the first top-level run segment
         # captured (see the module docstring). Like telemetry, not
         # simulation state: checkpoint() leaves it out.
@@ -1000,6 +1006,7 @@ class Simulation:
         self._run_monitors(slot)
         self._serve_light_clients(slot)
         self._serve_das(slot)
+        self._publish_serve_view(slot)
         self.slot += 1
         if self.supervision is not None:
             # heartbeat -> integrity audit -> checkpoint, in that order.
@@ -1293,6 +1300,55 @@ class Simulation:
                 self.telemetry.bus.emit("das_serve", slot=slot, age=age,
                                         block_root=root.hex()[:16], **summary)
 
+    # -- the live serving tier -------------------------------------------------
+
+    def _publish_serve_view(self, slot: int) -> None:
+        """End-of-slot view publication for the socket-facing serve tier:
+        one immutable snapshot of everything the RPC handlers answer from
+        (serve/state.py), swapped in atomically. A crashed serving group
+        freezes the view: the front keeps serving its last published
+        state, as a node that lost its beacon backend would."""
+        if self.serving_state is None:
+            return
+        from pos_evolution_tpu_torch.serve import ServeView
+        group = self.groups[self._das_group if self.das is not None else self._lc_group]
+        if group.crashed:
+            return
+        head = self._get_head(group)
+        store = group.store
+        update_ssz = update_root = None
+        with self.meter.phase("serve_publish"):
+            if self.das_server is not None:
+                update = self.das_server.best_update(store, head, archive=self.block_archive)
+            else:
+                from pos_evolution_tpu_torch.lightclient import build_update
+                update = build_update(store, head, archive=self.block_archive)
+            if update is not None:
+                from pos_evolution_tpu_torch.ssz import serialize
+                update_ssz = serialize(update)
+                update_root = bytes(hash_tree_root(update))
+        sidecars: dict[bytes, list] = {}
+        if self.das is not None:
+            for root, _block in self._das_targets(group):
+                cars = (group.blob_store.sidecars_for_block(root)
+                        if group.blob_store is not None else [])
+                if not cars:
+                    cars = self.blob_archive.get(root, [])
+                if cars:
+                    sidecars[root] = cars
+        self.serving_state.publish(ServeView(
+            slot=slot,
+            head_root=bytes(head),
+            head_slot=int(store.blocks[head].slot),
+            justified_epoch=int(store.justified_checkpoint.epoch),
+            justified_root=bytes(store.justified_checkpoint.root),
+            finalized_epoch=int(store.finalized_checkpoint.epoch),
+            finalized_root=bytes(store.finalized_checkpoint.root),
+            update_ssz=update_ssz, update_root=update_root,
+            sidecars=sidecars,
+            n_cells=2 * self.cfg.das_cells_per_blob,
+            scheme=self.das.scheme.name if self.das is not None else "merkle"))
+
     # -- whole-simulation checkpoint / resume ----------------------------------
     def checkpoint(self) -> bytes:
         """Serialize the ENTIRE simulation — every view group's store,
@@ -1391,8 +1447,9 @@ class Simulation:
 
 
 def run_scale(n: int = 65_536, epochs: int = 4, device="cuda", on_epoch=None, *,
-              das=None, das_clients: int = 0, light_clients: int = 0) -> dict:
-    """``Simulation(n, accelerated_forkchoice=True, das=das)`` under the
+              das=None, das_clients: int = 0, light_clients: int = 0,
+              serve=False) -> dict:
+    """``Simulation(n, accelerated_forkchoice=True, das=das, serve=serve)`` under the
     active config for ``epochs`` epochs on ``device``, with ``das_clients``
     sampling clients (``attach_das_clients``) and ``light_clients`` light
     clients attached before the first slot and flushed after the last ->
@@ -1402,7 +1459,8 @@ def run_scale(n: int = 65_536, epochs: int = 4, device="cuda", on_epoch=None, *,
     the first epoch (its samples hold the first launches and capacity
     growth), K2 launches a state root, the run's head queries and each
     resident store's counts of fresh device queries, memo answers, flushes
-    and rebuilds; with riders, ``riders`` (``_rider_summary``).
+    and rebuilds; with riders, ``riders`` (``_rider_summary``); with
+    ``serve``, ``serving_state`` (the views published, one a slot).
     ``on_epoch(e, sim)`` runs after each epoch."""
     import torch
 
@@ -1415,7 +1473,7 @@ def run_scale(n: int = 65_536, epochs: int = 4, device="cuda", on_epoch=None, *,
     roots0 = incremental.stats()["htr_calls"]
     k2_0 = kernels.launches.get("merkle_level", 0)
     t0 = _time.perf_counter()
-    sim = Simulation(n, accelerated_forkchoice=True, device=backend, das=das)
+    sim = Simulation(n, accelerated_forkchoice=True, device=backend, das=das, serve=serve)
     if das_clients:
         sim.attach_das_clients(das_clients)
     for _ in range(light_clients):
@@ -1466,6 +1524,7 @@ def run_scale(n: int = 65_536, epochs: int = 4, device="cuda", on_epoch=None, *,
         "k2_launches_per_state_root": (k2 / roots) if roots else 0.0,
         "head_root": sim.metrics[-1]["head_root"], "n_blocks": sim.metrics[-1]["n_blocks"],
         "riders": riders,
+        "serving_state": sim.serving_state,
         "sim": sim,
     }
 

@@ -1246,3 +1246,53 @@ def test_profiled_region_credits_k1_and_k2_to_their_ranges(cuda):
     assert "region" not in prof.attribution
     total_ms = sum(d for ds in ops.values() for d in ds) / 1e9
     assert abs(sum(r["total_ms"] for r in prof.attribution.values()) - total_ms) < 1e-3
+
+
+def test_front_das_cells_on_the_card_equal_plain(cuda):
+    """A ``ServeFront`` whose merkle scheme builds its proofs on the card
+    (K6 the cell leaves, K2 the 7 tree levels of a 128-cell blob) answers a
+    seeded set of ``das_cells`` requests over a PeerDAS grid of 2 blobs
+    byte for byte as a front on the plain scheme does; one backing build
+    a (block, blob), each of 1 K6 and 7 K2 launches."""
+    from pos_evolution_tpu_torch.config import mainnet_config, use_config
+    from pos_evolution_tpu_torch.das import BlobEngine
+    from pos_evolution_tpu_torch.das.commitment import get_scheme
+    from pos_evolution_tpu_torch.serve import ServeClient, ServeFront, ServeView, ServingState
+    from pos_evolution_tpu_torch.sim.driver import PEERDAS
+
+    class Sidecar:
+        def __init__(self, cells, commitment):
+            self.cells, self.commitment = cells, commitment
+
+    cfg = mainnet_config().replace(**PEERDAS)
+    root = b"\x05" * 32
+    with use_config(cfg):
+        grids, coms, _ = BlobEngine(cfg, n_blobs=2, seed=3, device=cuda).build_for(4, root)
+        view = ServeView(slot=4, head_root=root, head_slot=4, justified_epoch=0,
+                         justified_root=bytes(32), finalized_epoch=0, finalized_root=bytes(32),
+                         update_ssz=None, update_root=None,
+                         sidecars={root: [Sidecar(g, c) for g, c in zip(grids, coms)]},
+                         n_cells=2 * cfg.das_cells_per_blob)
+        rng = np.random.default_rng(41)
+        requests = [{"block_root": root.hex(),
+                     "samples": [[int(rng.integers(2)), int(rng.integers(view.n_cells))]
+                                 for _ in range(8)]} for _ in range(16)]
+        replies, builds = [], []
+        for scheme in (get_scheme("merkle", cuda, cfg=cfg),
+                       get_scheme("merkle", cuda, plain=True, cfg=cfg)):
+            state = ServingState()
+            state.publish(view)
+            front = ServeFront(state, scheme=scheme, workers=4)
+            cli = ServeClient(front.start(), connections=4, hedge_ms=None)
+            kernels.reset_launches()
+            try:
+                replies.append([cli.request("das_cells", p, deadline_s=30.0).result
+                                for p in requests])
+                builds.append((front.summary()["scheme_builds"],
+                               {k: v for k, v in kernels.launches.items() if v}))
+            finally:
+                cli.close()
+                front.stop()
+    assert all(r is not None for r in replies[0]) and replies[0] == replies[1]
+    assert builds[0] == (2, {"sha256_blocks": 2, "merkle_level": 14})
+    assert builds[1] == (2, {})

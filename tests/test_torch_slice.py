@@ -369,3 +369,72 @@ def test_profiling_runs_with_jax_blocked(tmp_path):
     """)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ran")
+
+
+def test_serving_tier_runs_with_jax_blocked():
+    """The serving tier with jax and pos_evolution_tpu impossible to import:
+    ``pos_evolution_tpu_torch.serve`` imports, a served spec-driver run
+    publishes its views, an in-process front answers ``das_cells`` from
+    one, and a worker's spawn entry (``serve/workers._worker_main``),
+    run as this process's main thread, boots, follows the board, serves
+    a ``das_cells`` request and drains on SIGTERM, on the CPU."""
+    proc = _run_blocked("""
+        import os, signal, socket, tempfile, threading, time
+        import pos_evolution_tpu_torch.serve as serve
+        from pos_evolution_tpu_torch.backend import use_backend
+        from pos_evolution_tpu_torch.config import minimal_config, use_config
+        from pos_evolution_tpu_torch.serve.shm import ShmViewBoard
+        from pos_evolution_tpu_torch.serve.workers import _worker_main, worker_spec
+        from pos_evolution_tpu_torch.sim.driver import Simulation
+        from pos_evolution_tpu_torch.utils.watchdog import read_heartbeat
+        with use_config(minimal_config()), use_backend("torch", device="cpu"):
+            sim = Simulation(16, das=True, serve=True)
+            sim.run_until_slot(3)
+            view = sim.serving_state.current()
+            assert len(sim.serving_state.views) == 4 and view.sidecars
+            root = next(iter(view.sidecars)).hex()
+            params = {"block_root": root, "samples": [[0, 1], [1, 5]]}
+            state = serve.ServingState()
+            state.publish(view)
+            front = serve.ServeFront(state, scheme=sim.das.scheme, workers=1)
+            cli = serve.ServeClient(front.start(), connections=1, hedge_ms=None)
+            local = cli.request("das_cells", params, deadline_s=10.0)
+            cli.close()
+            front.stop()
+            assert local.ok, local.error
+            tmp = tempfile.mkdtemp()
+            lock = os.path.join(tmp, "board.lock")
+            board = ShmViewBoard.create(lock)
+            gen = board.publish(view)
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+            s.close()
+            spec = worker_spec(0, port, board.name, lock, tmp, threads=1, device="cpu")
+            got = {}
+
+            def client():
+                deadline = time.time() + 120
+                while time.time() < deadline:
+                    hb = read_heartbeat(spec["heartbeat_path"])
+                    if hb and hb["payload"].get("slot") == gen:
+                        break
+                    time.sleep(0.05)
+                c = serve.ServeClient(("127.0.0.1", port), connections=1, hedge_ms=None)
+                got["res"] = c.request("das_cells", params, deadline_s=10.0)
+                c.close()
+                os.kill(os.getpid(), signal.SIGTERM)
+
+            threading.Thread(target=client, daemon=True).start()
+            try:
+                _worker_main(spec)
+            except SystemExit as e:
+                assert e.code == 0, e.code
+            board.close()
+        assert got["res"].ok and got["res"].result == local.result, got["res"].error
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not bad, bad
+        print("ran", len(got["res"].result["cells"]))
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ran 2")

@@ -1,10 +1,13 @@
 """The port's copies of the JAX package's jax-free spec layer, of the
 spec driver's schedules, monitors, adversaries, attacks and protocol
 variants, of its riders' DAS server, single-flight and light-client
-modules, and of the tooling's watchdog, event bus, metrics registry,
-tracing, fleet aggregator and supervisor: each copied
+modules, of the tooling's watchdog, event bus, metrics registry,
+tracing, fleet aggregator and supervisor, and of the serving tier's
+protocol, views, admission, client, front, chaos, view board and
+balancer: each copied
 module's source equals its original with ``pos_evolution_tpu.`` replaced
-by ``pos_evolution_tpu_torch.`` and nothing else, and the FakeBLS
+by ``pos_evolution_tpu_torch.`` and nothing else (the view board and the
+balancer with one repair each besides, listed in ``PATCHED``), and the FakeBLS
 signature prefix the copy carries is the one kernel K1's wrapper hashes."""
 
 import os
@@ -63,7 +66,73 @@ COPIES = [
     "profiling/xplane.py",
     "profiling/history.py",
     "crypto/bls12_381.py",
+    "serve/protocol.py",
+    "serve/state.py",
+    "serve/admission.py",
+    "serve/client.py",
+    "serve/server.py",
+    "serve/chaos.py",
+    "serve/__init__.py",
 ]
+
+# copies with a repair: the original with the prefix replaced and each
+# (original text, repaired text) pair applied, and nothing else
+_SWEEP = """                self._finish(li, ltier, "lost", now - lsched)
+        self.wall_s = time.monotonic() - t_start
+"""
+_FD = """        self._lock_fd: int | None = None
+"""
+_LOCK = """    def _flock(self):
+        if self._lock_fd is None:
+            self._lock_fd = os.open(self.lock_path, os.O_RDWR)
+        fcntl.flock(self._lock_fd, fcntl.LOCK_EX)
+        return self._lock_fd
+
+    def _funlock(self) -> None:
+        fcntl.flock(self._lock_fd, fcntl.LOCK_UN)
+"""
+PATCHED = {
+    "serve/shm.py": [(_FD, _FD + """\
+        # flock excludes other open files only, not the threads sharing
+        # this one: they take this lock first, which also keeps two first
+        # callers from each opening the lock file (the lock held through
+        # one descriptor, released through the other, never released)
+        self._tlock = threading.Lock()
+"""), (_LOCK, """\
+    def _flock(self):
+        self._tlock.acquire()
+        try:
+            if self._lock_fd is None:
+                self._lock_fd = os.open(self.lock_path, os.O_RDWR)
+            fcntl.flock(self._lock_fd, fcntl.LOCK_EX)
+        except BaseException:
+            self._tlock.release()
+            raise
+        return self._lock_fd
+
+    def _funlock(self) -> None:
+        try:
+            fcntl.flock(self._lock_fd, fcntl.LOCK_UN)
+        finally:
+            self._tlock.release()
+""")],
+    "serve/balancer.py": [(_SWEEP, _SWEEP.replace("""        self.wall_s""", """\
+        # the sweep reaches only the grid's connections: one a failover
+        # displaced from its slot, and a retry the stopped retry thread
+        # never sent, still hold arrivals. Lost all the same, so that
+        # records == schedule
+        now = time.monotonic()
+        for li in range(self.n):
+            with self._lock:
+                if self._resolved[li]:
+                    continue
+                self.lost += 1
+                self.lost_by_reason["unswept"] = \\
+                    self.lost_by_reason.get("unswept", 0) + 1
+            self._finish(li, int(is_bulk[li]), "lost",
+                         now - (t_start + offsets[li]))
+        self.wall_s"""))],
+}
 
 
 def _read(*parts) -> str:
@@ -78,7 +147,17 @@ def test_copy_equals_original_with_the_prefix_replaced(path):
     assert copy == original.replace("pos_evolution_tpu.", "pos_evolution_tpu_torch.")
 
 
-@pytest.mark.parametrize("path", COPIES)
+@pytest.mark.parametrize("path", sorted(PATCHED))
+def test_patched_copy_equals_original_with_its_repairs(path):
+    original = _read("pos_evolution_tpu", path).replace(
+        "pos_evolution_tpu.", "pos_evolution_tpu_torch.")
+    for old, new in PATCHED[path]:
+        assert original.count(old) == 1, old
+        original = original.replace(old, new)
+    assert _read("pos_evolution_tpu_torch", path) == original
+
+
+@pytest.mark.parametrize("path", COPIES + sorted(PATCHED))
 def test_copy_names_no_module_of_the_jax_package(path):
     copy = _read("pos_evolution_tpu_torch", path)
     for line in copy.splitlines():
@@ -117,3 +196,13 @@ def test_rider_copies_reach_the_ports_dispatch():
     assert server.CellCommitmentScheme.__module__ == "pos_evolution_tpu_torch.das.commitment"
     assert verify.verify_sync_update_batch.__module__ == "pos_evolution_tpu_torch.ops.sync_verify"
     assert server.cfg.__module__ == "pos_evolution_tpu_torch.config"
+
+
+def test_serve_copies_reach_the_ports_modules():
+    """The copied serving front builds its proofs through the port's DAS
+    server and scheme contract, under the port's config."""
+    from pos_evolution_tpu_torch.serve import server, shm
+    assert server.DasServer.__module__ == "pos_evolution_tpu_torch.das.server"
+    assert shm.ServeView.__module__ == "pos_evolution_tpu_torch.serve.state"
+    from pos_evolution_tpu_torch.serve.workers import worker_spec
+    assert worker_spec.__module__ == "pos_evolution_tpu_torch.serve.workers"
