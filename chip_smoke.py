@@ -54,7 +54,8 @@ Phases, in order; any mismatch or exception ends the run non-zero:
 14. count the SASS instructions of every kernel (``cuobjdump -sass``), by
     opcode group (and K7's tensor-core wgmma, GMMA, K6's cp.async LDGSTS
     and mbarrier SYNCS), per signer and per pair, and the two bounds they
-    give;
+    give (the census runs in a child process from the end of phase 1,
+    beside phases 2-13, on the host's CPU);
 15. hold the field kernels K3 (``csrc/fp_modmul.cu``), K4
     (``csrc/fp_addsub.cu``) and K5 (``csrc/alg_mul.cu``) against their
     plain versions at the BLS path's shapes, digit for digit: K3's product
@@ -192,7 +193,8 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     of phases 10, 17 and 24, run beside them. Phase 32's times are taken
     with those children running;
 35. drive the spec driver's path once, in a child process of its own
-    beside phases 32-34 (both host-bound) -- ``sim/driver.run_scale``:
+    started before phase 20, beside phases 20-34 (host-bound, its launches
+    small) -- ``sim/driver.run_scale``:
     ``Simulation(65,536, accelerated_forkchoice=True, das="merkle")``
     under the mainnet config with the PeerDAS geometry (``sim/driver.
     PEERDAS``: 128 extended cells of 2,048 bytes, 9 blobs a block) for 4
@@ -236,7 +238,7 @@ Phases, in order; any mismatch or exception ends the run non-zero:
 39. run supervision (``python -m pos_evolution_tpu_torch.resilient_run``,
     in a child process during phases 32-33): the dense run at 2^20,
     mainnet config, 2 epochs, a checkpoint every 32 slots, SIGKILLed after
-    slot 40 and resumed by the supervisor from step 32 (its merkle digest
+    slot 56 and resumed by the supervisor from step 32 (its merkle digest
     re-checked through K2), ending at slot 64 with a final checkpoint; and
     the spec driver at BASELINE config 1 (1,024 validators, mainnet, one
     epoch, a checkpoint every 8 slots, killed after slot 20, resumed from
@@ -252,7 +254,7 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     from the kill to the first resumed slot, goodput and the dense twin's
     peak allocated bytes printed;
 40. the profiling tooling on the card, in this process right after phase
-    34, while phase 35's run ends beside it (so its times are contended):
+    34, beside phase 41 (b) (so its times are contended):
     (a) 8 slots of phase 10's dense
     run at 2^20 under ``profiling.ProfiledRegion("dense")`` (and 8 before
     it unprofiled, the profiler's overhead printed): no error, the
@@ -271,7 +273,8 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     ``compile_cache=`` (a child process during phases 32-33 that runs two
     processes in turn): the first builds into a fresh directory, the
     second builds nothing, as the build ledger counts it.
-41. the serving tier on the card: (a) in phase 35's child, its run
+41. the serving tier on the card: (a) in phase 35's child, once phase 40 and
+    (b) have ended (the main process releases it), its run
     publishes a ``ServeView`` a slot (``run_scale(serve=True)``), one
     view a slot; a ``ServeFront`` of 4 threads on the run's merkle scheme
     serves them, replayed as ``serve_demo`` replays them, under the demo's
@@ -284,7 +287,9 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     the last view, on a front on the card and on one on the plain scheme:
     the replies equal byte for byte, one build a (block, blob) requested; (b) ``python -m
     pos_evolution_tpu_torch.serve_demo --mp --mainnet`` at its defaults
-    (a process of its own beside phase 35's run): every scheduled arrival
+    (a process of its own started after phase 32 once phase 39's supervised
+    runs have ended, beside phases 33, 34 and 40; 1% of its requests traced, its events, spans,
+    heartbeats and fleet snapshots kept under ``build/serve_mp``): every scheduled arrival
     recorded, proofs verified and zero verify failures in each phase, every
     kill and wedge detected, every live worker on the board's current
     generation, the fleet metrics consistent, K6 and K2 launched in the
@@ -295,6 +300,25 @@ Phases, in order; any mismatch or exception ends the run non-zero:
     counted a proof. The SLO and goodput contracts (steady interactive
     p99 <= 50 ms and chaos interactive goodput > 95% for (a); goodput
     >= 99% and p99 <= 300 ms for (b)) are printed, met or missed.
+42. the offline tooling over this run's own files, in this process,
+    touching no device, within 15 s: (a) ``run_report`` over phase 39's
+    supervised runs' events (the kill and the resume named; goodput and
+    replayed slots equal to the run's emission; the checkpoint digests'
+    K2 launches equal to the run's records); (b) over phase 40 (b)'s events
+    log, the top ops found through its ``profile_artifacts`` event (no
+    ``--top-ops``), ``merkle_level_kernel`` with the events phase 40 held
+    against the launch counter, and phase 40 (c)'s cost table under
+    ``cost_analysis``; (c) over phase 41 (b)'s events log: the
+    multi-process Serving section equal to (b)'s emission (goodput,
+    verified proofs, kills and wedges detected), ``trace_merge
+    --expect-pids`` one lane a process, ``obs_top --once`` a heartbeat and
+    a fleet row for each worker, and (b)'s goodput printed beside the
+    earlier runs' (``PERF.md`` §5);
+    (d) ``perf_gate --count-only``: the supervised dense run's counts
+    against themselves pass, against a copy with
+    ``kernel_launches_total{merkle_level}`` doubled fail; (e) the analysis
+    gate of the port on this checkout: ``--strict`` exits 0, ``--doctor``
+    1.
 
 Between phase groups it prints the seconds since the start (``lap``).
 
@@ -305,17 +329,21 @@ prints no result. Run from the repository root: ``python3 chip_smoke.py``.
 
 import atexit
 import contextlib
+import glob
 import hashlib
+import io
 import json
 import math
 import multiprocessing
 import os
+import re
 import shutil
 import signal
 import subprocess
 import sys
 import time
 import warnings
+import concurrent.futures
 from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
@@ -324,6 +352,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from pos_evolution_tpu_torch import bls_verify  # noqa: E402
+from pos_evolution_tpu_torch import obs_top, perf_gate, run_report, trace_merge  # noqa: E402
 from pos_evolution_tpu_torch.convert import registry_to_torch  # noqa: E402
 from pos_evolution_tpu_torch.crypto import bls12_381 as oracle  # noqa: E402
 from pos_evolution_tpu_torch.device import (  # noqa: E402
@@ -628,10 +657,12 @@ KZG_TWIN_N, KZG_TWIN_SLOTS = 16, 1
 KZG_PROPOSAL_LAUNCHES = {"fr_ntt": 2, "fr_ew": 2, **{f"g1_bucket_{s}": 1 for s in (
     "recode", "scan", "scatter", "fill", "totals", "reduce")}}
 # phase 39: supervised runs killed once and resumed (resilient_run): the dense run at
-# 2^20 (mainnet, 2 epochs, a checkpoint every 32 slots, killed after slot 40) and the
+# 2^20 (mainnet, 2 epochs, a checkpoint every 32 slots, killed after slot 56: step 32's
+# write is asynchronous, and a kill 8 slots after it (about a second on the card) once
+# landed, on a loaded host, before the write was durable) and the
 # spec driver at BASELINE config 1 (1,024 validators, mainnet, 1 epoch, every 8, killed
 # after slot 20); each against its uninterrupted twin
-RESIL = {"dense": {"n": N_MAINNET, "epochs": 2, "every": 32, "crash": 40, "resumed": 32,
+RESIL = {"dense": {"n": N_MAINNET, "epochs": 2, "every": 32, "crash": 56, "resumed": 32,
                    "final": 64},
          "spec": {"n": 1024, "epochs": 1, "every": 8, "crash": 20, "resumed": 16,
                   "final": 33}}
@@ -643,6 +674,10 @@ RESIL = {"dense": {"n": N_MAINNET, "epochs": 2, "every": 32, "crash": 40, "resum
 # K2 level at K2_LARGEST pairs, and compile_cache= in two child processes (1,024
 # validators, 2 slots each) during phases 32-33
 PROFILE_SLOTS, PROFILE_SPEC_N = 8, 1024
+# phase 40 (b)'s events log and (c)'s cost table, for phase 42's report
+TOOLING_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "tooling")
+PROFILE_EVENTS = os.path.join(TOOLING_DIR, "profile_spec", "events.jsonl")
+COST_TABLE = os.path.join(TOOLING_DIR, "cost.json")
 PROFILE_ARTIFACTS = ["chrome_trace.json", "flame.txt", "flame_device.txt", "top_ops.json"]
 COMPILE_CACHE_CHILD = '''
 import json, sys
@@ -672,12 +707,21 @@ print(json.dumps({"builds": ledger.rows(), "build_dir": str(kernels.BUILD_DIR),
 # the last view, on the card and on the plain scheme. (b) The serving demo's multi-process plane at its --mp
 # defaults under the PeerDAS config (steady 60,000 at 20,000/s, chaos 30,000 at
 # 10,000/s with 2 kills, 1 wedge and 32 held fds; 2 fronts x 2 worker processes), a
-# process of its own beside phase 35's run alone, after phase 40 (a)-(d) (beside phases
-# 26-31 it shared the host with their plain versions; beside phases 32-33 it slowed
-# phase 39's supervised dense run until the kill landed before step 32 was durable).
+# process of its own started after phase 32 once phase 39's supervised runs have
+# ended, beside phases 33, 34 and 40 (beside phases 26-31 it shared the host with their plain versions;
+# beside phases 32-33 it slowed phase 39's supervised dense run until the kill landed
+# before step 32 was durable).
 # (c) In phase 38's child, a kzg front answers
 # SERVE_AGG_REQUESTS das_aggregate requests of SERVE_AGG_SAMPLES samples.
 SERVE_ARRIVALS, SERVE_RATE, SERVE_THREADS, SERVE_SLO_MS = 2_000, 6000.0, 4, 50.0
+# (a) waits in phase 35's child until this file exists: the main process writes it
+# once phase 40 and (b) have ended, so that (a)'s front runs on a quiet host (beside
+# phase 40 and (b), its load once shed every bulk request on the card's host)
+SERVE_FRONT_GO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                              "serve_front.go")
+# (b)'s files (phase 42 reads them) and the share of its requests traced
+SERVE_MP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "serve_mp")
+SERVE_TRACE_RATE = 0.01
 SERVE_CHECKS, SERVE_CHECK_SAMPLES = 64, 8
 SERVE_AGG_REQUESTS, SERVE_AGG_SAMPLES = 4, 8
 # a merkle proof build of one blob's 128 cells: K6 the leaves, K2 the 7 tree levels
@@ -1881,6 +1925,7 @@ def das_sync_phases(dev, card: str, census, deferred: list) -> list:
         + f" ms wall per call ({SYNC_B / (min(sync_ms) / 1e3):.1f} updates/s at the best)")
     del batch, got, host, plain
 
+    lap("phases 20-21")
     # 22. the DAS sample verify at 1,152 and 36,864 samples, and the crossover
     cfg = mainnet_config().replace(**PEERDAS)
     engine = BlobEngine(cfg, seed=1, device=dev)
@@ -1941,6 +1986,7 @@ def das_sync_phases(dev, card: str, census, deferred: list) -> list:
             f"ms; host {', '.join(f'{x:.3f}' for x in host_ms)} ms (wall per call)")
     del big
 
+    lap("phase 22")
     # 23. the reconstruction of 9 blobs at k = 64 x 2,048
     present = np.repeat(half[None], DAS_BLOBS, 0)
     ok, data = das_verify.reconstruct_check_batch(block_grids, present)
@@ -1976,6 +2022,7 @@ def das_sync_phases(dev, card: str, census, deferred: list) -> list:
         + ", ".join(f"{x:.3f}" for x in recon_ms)
         + " ms wall per 9-blob check")
 
+    lap("phase 23")
     # 24. the dense run with both riders at 2^20, counted
     torch.cuda.empty_cache()
     kernels.reset_launches()
@@ -2016,13 +2063,16 @@ def das_sync_phases(dev, card: str, census, deferred: list) -> list:
     t4 = time.perf_counter()
     base_phases = base.phases.summary()
     del base
-    prof_riders = profiled(lambda: sim.run_epochs(RIDER_EPOCHS + 1))
+    t5 = time.perf_counter()
+    prof_riders = profiled(lambda: [sim.run_slot() for _ in range(PROFILE_SLOTS)])
+    prof_s = time.perf_counter() - t5
     with_s, without_s = (t2 - t1) / RIDER_EPOCHS, (t4 - t3) / RIDER_EPOCHS
     work = phases["phases"].get("workload", {})
     say(f"[{card}] dense path with riders: setup {t1 - t0:.3f} s, {with_s:.3f} s per simulated "
         f"epoch; without riders (same process) {without_s:.3f} s; workload phase "
-        f"{work.get('total_ms')} ms = {work.get('share_pct')}% of the rider run's wall; one more "
-        f"epoch under torch.profiler wall {prof_riders['wall_ms']:.3f} ms, device busy "
+        f"{work.get('total_ms')} ms = {work.get('share_pct')}% of the rider run's wall; "
+        f"{PROFILE_SLOTS} more slots under torch.profiler (the trace read included "
+        f"{prof_s:.3f} s) wall {prof_riders['wall_ms']:.3f} ms, device busy "
         f"{prof_riders['busy_ms']:.3f} ms "
         f"({100 * prof_riders['busy_ms'] / prof_riders['wall_ms']:.2f}%), by kernel "
         + json.dumps({k: round(v, 3) for k, v in prof_riders["kernel_ms"].items() if v}))
@@ -2056,6 +2106,7 @@ def das_sync_phases(dev, card: str, census, deferred: list) -> list:
     say(f"rider run: the Gasper run checkpointed after epoch 1 ({len(data)} bytes) and resumed "
         f"on the card == uninterrupted")
 
+    lap("phase 24")
     # 25. K6 and K7 per launch at the path's shapes, against their bounds and
     # (in the printed lines only) beside the parent's times
     min_blocks = k6_chains_min_blocks()
@@ -2864,12 +2915,13 @@ def spec_states_equal(a, b) -> list:
     return bad
 
 
-def spec_phases(dev, card: str, deferred: list) -> dict:
+def spec_phases(dev, card: str, deferred: list, then=None) -> tuple:
     """Phases 32-34, and the earlier phases' ``deferred`` plain twins
     ((function, arguments, checker)) in child processes beside the spec
     chain, which leaves the card mostly idle; each checker takes its
-    twin's result at the end. Returns the spec chain's launches by
-    kernel."""
+    twin's result at the end. ``then`` = (fn, start): after phase 32, once
+    every deferred job of ``fn`` has ended, ``start()`` is called. Returns
+    the spec chain's launches by kernel and what ``start`` returned."""
     with ProcessPoolExecutor(4, mp_context=multiprocessing.get_context("spawn"),
                              initializer=torch.set_num_threads, initargs=(2,)) as pool:
         twins = {d: pool.submit(spec_twin_chain, d) for d in ("cuda", "cpu")}
@@ -2900,6 +2952,11 @@ def spec_phases(dev, card: str, deferred: list) -> dict:
             f"launches {launches}; {s['state_roots']} state roots, "
             f"{s['k2_launches_per_state_root']:.2f} K2 launches each; finalized epoch "
             f"{s['finalized_epoch']}; final root {s['final_root'][:16]}")
+        started = None
+        if then is not None:
+            fn, start = then
+            concurrent.futures.wait([f for (f, _), job in zip(futures, deferred) if job[0] is fn])
+            started = start()
         say(f"[{card}] spec chain at n={N_MAINNET} (contended: beside phase 35's run and the "
             f"twins' pool): genesis {s['genesis_s']:.3f} s "
             f"({s['genesis_k2_launches']} K2 launches); per block build_block "
@@ -2958,7 +3015,7 @@ def spec_phases(dev, card: str, deferred: list) -> dict:
         f"{got['cuda']['finalized']}")
     for res, done in late:
         done(res)
-    return launches
+    return launches, started
 
 
 # --- the spec driver (phases 35-37) -------------------------------------------------
@@ -3227,8 +3284,8 @@ def driver_twin_check(card: str, kind: str, got: dict, want: dict) -> None:
 
 
 def driver_scale_run() -> dict:
-    """Phase 35's run, in a child process of its own beside phases 32-34
-    (both paths are host-bound and leave the card mostly idle): the spec
+    """Phase 35's run, in a child process of its own beside phases 20-34
+    (all host-bound and leaving the card mostly idle): the spec
     driver's path at 65,536 validators, mainnet config with the PeerDAS
     geometry, its riders attached, 4 epochs, its launch counts zeroed just
     before and read just after; the rider checks (``driver_riders_check``)
@@ -3265,7 +3322,12 @@ def driver_scale_run() -> dict:
             res.flush()
         out["flush_prof"] = profiled_launches(flush)
     out["capacity"] = res.capacity
-    # 41 (a): the serving tier over this run's views, on the card
+    # 41 (a): the serving tier over this run's views, on the card, once released
+    t0 = time.perf_counter()
+    while not os.path.exists(SERVE_FRONT_GO):
+        check(time.perf_counter() - t0 < 1200, "phase 41 (a): never released")
+        time.sleep(0.1)
+    out["serve_wait_s"] = time.perf_counter() - t0
     views = out.pop("serving_state").views
     check(len(views) == sim.slot and views[-1].sidecars,
           f"phase 41: {len(views)} views published in {sim.slot} slots")
@@ -3279,7 +3341,7 @@ def driver_phases(dev, card: str, twins: dict, out: dict) -> dict:
     made in child processes during phases 32-33; ``out`` phase 35's run
     (``driver_scale_run``). Returns phase 35's launches by kernel."""
     # 35. the spec driver's path at 65,536 validators, mainnet config with the PeerDAS
-    # geometry, its riders attached, 4 epochs, counted (run beside phases 32-34)
+    # geometry, its riders attached, 4 epochs, counted (run beside phases 20-34)
     launches, riders_ok = out["launches"], out["riders_ok"]
     check(out["justified_epoch"] >= 3 and out["finalized_epoch"] >= 2,
           f"spec driver: justified {out['justified_epoch']}, finalized {out['finalized_epoch']}")
@@ -3302,7 +3364,7 @@ def driver_phases(dev, card: str, twins: dict, out: dict) -> dict:
         f"{out['head_queries']} = {st['device_heads']} on the card + {st['memo_hits']} memo; "
         f"{st['flushes']} flushes, {st['rebuilds']} rebuilds; {riders_ok}")
     say(f"[{card}] spec driver at n={DRIVER_N} (contended: a child process beside phases "
-        f"32-34 and the twins' pool; the driver's entry point alone gives the uncontended "
+        f"20-34 and the twins' pool; the driver's entry point alone gives the uncontended "
         f"numbers): set-up {out['init_s']:.3f} s; per epoch "
         + ", ".join(f"{x:.3f}" for x in out["per_epoch_s"])
         + f" s (mean {sum(out['per_epoch_s']) / DRIVER_EPOCHS:.3f}); after the first epoch "
@@ -3589,12 +3651,15 @@ def serve_kzg_run(scheme, view) -> dict:
 
 
 def serve_mp_start():
-    """Phase 41 (b), started in the background after phase 40 (a)-(d), beside
-    phase 35's run alone: ``python
+    """Phase 41 (b), started in the background after phase 32 once phase 39's
+    supervised runs have ended, beside phases 33, 34 and 40: ``python
     -m pos_evolution_tpu_torch.serve_demo --mp --mainnet`` at its defaults
     on the card, its workers started from the entry point's light main
-    module, its output in files under ``build/serve_mp``."""
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "serve_mp")
+    module, its output in files under ``build/serve_mp``: the emission, the
+    events log, SERVE_TRACE_RATE of the requests traced (the span files
+    under ``trace/``) and each phase's heartbeats and fleet snapshots
+    (``run/``), for phase 42."""
+    root = SERVE_MP_DIR
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     emitted, log = os.path.join(root, "emission.json"), os.path.join(root, "log.txt")
@@ -3603,7 +3668,10 @@ def serve_mp_start():
         # demo, its forkserver and its workers together
         proc = subprocess.Popen(
             [sys.executable, "-m", "pos_evolution_tpu_torch.serve_demo", "--mp", "--mainnet",
-             "--json", emitted], stdout=out, stderr=subprocess.STDOUT, text=True,
+             "--json", emitted, "--events", os.path.join(root, "events.jsonl"),
+             "--trace-rate", str(SERVE_TRACE_RATE), "--trace-dir", os.path.join(root, "trace"),
+             "--run-dir", os.path.join(root, "run")],
+            stdout=out, stderr=subprocess.STDOUT, text=True,
             cwd=os.path.dirname(os.path.abspath(__file__)), start_new_session=True)
     atexit.register(_stop_session, proc)
     return proc, emitted, log, time.perf_counter()
@@ -3668,7 +3736,7 @@ def serve_phase(card: str, front: dict, mp: dict, kzg: dict) -> dict:
         f"each root of the last view == the plain scheme's byte for byte, "
         f"{card_run['builds']} builds for "
         f"{front['distinct_blobs']} (block, blob) pairs")
-    say(f"[{card}] phase 41 (a) (contended: phase 35's child, beside phase 40 and 41 (b); "
+    say(f"[{card}] phase 41 (a) (phase 35's child, after phase 40 and 41 (b); "
         f"generator-bound: the load generator shares the front's interpreter, "
         f"{steady['late_dispatch'] + chaos['late_dispatch']} of {SERVE_ARRIVALS} arrivals "
         f"dispatched late): "
@@ -3717,7 +3785,8 @@ def serve_phase(card: str, front: dict, mp: dict, kzg: dict) -> dict:
         f"{cv['hang_interruptions']} hangs, {cv['restarts']} respawns, all live workers on the "
         f"board's generation; the fleet consistent; the workers' launches {json.dumps(wl)}")
     serving = em["serving"]
-    say(f"[{card}] phase 41 (b) (contended: beside phase 35's run): {em['elapsed_s']:.3f} s "
+    say(f"[{card}] phase 41 (b) (contended: beside phases 33, 34 and 40): "
+        f"{em['elapsed_s']:.3f} s "
         f"(collected {mp['s']:.3f} s after its start); the "
         f"pools ready after {json.dumps(em['pool_ready_s'])} s; steady "
         f"{em['arrivals'] - em['chaos']['arrivals']} at {em['rate']:.0f}/s interactive "
@@ -3746,6 +3815,186 @@ def serve_phase(card: str, front: dict, mp: dict, kzg: dict) -> dict:
         for k, v in (wl[tag] or {}).items():
             workers[k] = workers.get(k, 0) + v
     return {"front": launches, "workers": workers, "kzg": kzg["launches"]}
+
+
+# --- the offline tooling (phase 42) -----------------------------------------------------
+
+TOOLING_BUDGET_S = 15.0
+# phase 41 (b)'s interactive goodput on earlier runs of this card (PERF.md §5), printed
+# beside this run's
+SERVE_MP_EARLIER_GOODPUT = {"steady": (82.8, 97.6), "chaos": (21.2, 95.0)}
+
+
+def analysis_gate_start() -> list:
+    """Phase 42 (e), started first and read last: the analysis gate of the
+    port on this checkout (``--strict``) and its doctor, each in a process
+    of its own (pure ``ast``: no torch, no card)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return [subprocess.Popen([sys.executable, "-m", "pos_evolution_tpu_torch.analysis", flag],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                             cwd=here) for flag in ("--strict", "--doctor")]
+
+
+def run_tool(main_fn, argv) -> tuple:
+    """One of the port's offline tools, in this process: its exit code,
+    standard output and standard error."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main_fn(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def report_of(events: str, name: str, *flags) -> tuple:
+    """``run_report`` over ``events``: the report dict, its markdown and
+    standard error."""
+    os.makedirs(TOOLING_DIR, exist_ok=True)
+    js, md = (os.path.join(TOOLING_DIR, f"{name}.{x}") for x in ("json", "md"))
+    rc, _, err = run_tool(run_report.main, [events, "--json", js, "--markdown", md, *flags])
+    check(rc == 0, f"phase 42: run_report {name} exited {rc}: {err[-2000:]}")
+    with open(js) as f, open(md) as g:
+        return json.load(f), g.read(), err
+
+
+def tooling_phase(card: str, resilient: dict, spec_k2: int, mp: dict) -> None:
+    """Phase 42: the port's offline tools over this run's own files, in this
+    process, touching no device. (a) The run report over phase 39's
+    supervised runs: the kill, the resume, goodput and replayed slots as the
+    run emitted them, and the final attempt's checkpoint K2 launches as its
+    records hold them; (b) over phase 40 (b)'s log: the top ops found through
+    its profile_artifacts event, ``merkle_level_kernel`` with the events
+    phase 40 held against the launch counter, and phase 40 (c)'s cost table;
+    (c) over phase 41 (b)'s log: the multi-process Serving section equal to
+    (b)'s emission, ``trace_merge`` one lane a process, ``obs_top --once`` a
+    row for each worker; (d) ``perf_gate --count-only``: the dense run
+    against itself passes, against a copy with its K2 launches doubled
+    fails; (e) the analysis gate: ``--strict`` exits 0, ``--doctor`` 1."""
+    t0 = time.perf_counter()
+    gates = analysis_gate_start()
+    # (a)
+    for kind, r in resilient.items():
+        c, em, res = RESIL[kind], r["emission"], r["result"]
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                            "resilient_run", kind)
+        rep, md, _ = report_of(os.path.join(root, "events.jsonl"), f"resilient_{kind}")
+        rs = rep.get("resilience") or {}
+        gp = rs.get("goodput") or {}
+        writes_k2 = sum(w["digest_launches"].get("merkle_level", 0)
+                        for w in res["checkpoint_writes"])
+        check([i.get("reason") for i in rs.get("interruptions", [])] == ["crash"]
+              and [x.get("step") for x in rs.get("resumes", [])] == [c["resumed"]]
+              and "interruptions: 1 — attempt 0: crash" in md
+              and f"resumes: step {c['resumed']} -> slot" in md,
+              f"phase 42 (a): {kind}'s report: interruptions {rs.get('interruptions')}, "
+              f"resumes {rs.get('resumes')}")
+        check(gp.get("goodput_pct") == em["goodput_pct"]
+              and rs.get("replayed_slots") == gp.get("replayed_slots") == em["replayed_slots"]
+              and gp.get("final_slot") == res["slot"],
+              f"phase 42 (a): {kind}'s report: goodput {gp}, replayed {rs.get('replayed_slots')}; "
+              f"the run's {em['goodput_pct']}% and {em['replayed_slots']}")
+        check((rs.get("checkpoint_digest_launches") or {}).get("merkle_level") == writes_k2 > 0,
+              f"phase 42 (a): {kind}'s report: checkpoint digest launches "
+              f"{rs.get('checkpoint_digest_launches')}, the records' K2 {writes_k2}")
+        say(f"phase 42 (a): run_report over resilient {kind}'s events: crash at attempt 0, "
+            f"resumed at step {c['resumed']}, goodput {gp['goodput_pct']}% with "
+            f"{gp['replayed_slots']} slots replayed == the run's; checkpoint digests "
+            f"{writes_k2} K2 == its records")
+    # (b)
+    rep, md, err = report_of(PROFILE_EVENTS, "profile_spec", "--cost", COST_TABLE)
+    found = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile_spec",
+                         "top_ops.json")
+    k2 = {plane: rows.get("merkle_level_kernel")
+          for plane, rows in (rep.get("top_device_kernels") or {}).items()}
+    with open(COST_TABLE) as f:
+        cost = json.load(f)
+    check(f"auto-discovered top-ops table: {found}" in err
+          and any((row or {}).get("count") == spec_k2 for row in k2.values()),
+          f"phase 42 (b): top ops from {err.strip()}; merkle_level_kernel {k2}, phase 40 "
+          f"held {spec_k2} events")
+    check(rep.get("cost_analysis") == cost and cost["kernels"]
+          and all(f"| {name} |" in md for name in cost["kernels"]),
+          f"phase 42 (b): cost_analysis {sorted((rep.get('cost_analysis') or {}).get('kernels', {}))}")
+    say(f"phase 42 (b): run_report over phase 40 (b)'s log: top ops found through its "
+        f"profile_artifacts event; merkle_level_kernel {json.dumps(k2)} (phase 40: {spec_k2} "
+        f"events); cost_analysis names {sorted(cost['kernels'])}")
+    # (c)
+    em = mp["emission"]
+    rep, md, _ = report_of(os.path.join(SERVE_MP_DIR, "events.jsonl"), "serve_mp")
+    s = rep.get("serving_mp") or {}
+    got = {"steady": (s.get("steady") or {}).get("goodput_pct"),
+           "chaos": (s.get("chaos") or {}).get("goodput_pct"),
+           "verified": sum((s.get(p) or {}).get("verified_proofs") or 0
+                           for p in ("steady", "chaos")),
+           "kills": (s.get("interruptions_by_reason") or {}).get("crash", 0),
+           "wedges": (s.get("interruptions_by_reason") or {}).get("hang", 0)}
+    want = {"steady": em["serving"]["steady"]["goodput_pct"],
+            "chaos": em["serving"]["chaos_interactive"]["goodput_pct"],
+            "verified": em["serving"]["verified_proofs"],
+            "kills": em["supervision"]["crash_interruptions"],
+            "wedges": em["supervision"]["hang_interruptions"]}
+    check(got == want, f"phase 42 (c): the report's Serving (multi-process) {got}, "
+          f"(b)'s emission {want}")
+    trace_dir = os.path.join(SERVE_MP_DIR, "trace")
+    files = glob.glob(os.path.join(trace_dir, "spans.*.jsonl"))
+    pids = {int(os.path.basename(f).split(".")[1]) for f in files}
+    merged = os.path.join(TOOLING_DIR, "merged_trace.json")
+    rc, out, err = run_tool(trace_merge.main, [trace_dir, "--out", merged,
+                                               "--expect-pids", str(len(pids))])
+    with open(merged) as f:
+        lanes = [e["pid"] for e in json.load(f)["traceEvents"] if e.get("name") == "process_name"]
+    check(rc == 0 and len(pids) > 1 and sorted(lanes) == sorted(pids),
+          f"phase 42 (c): trace_merge exit {rc}, lanes {lanes} for span files of {sorted(pids)}: "
+          f"{out}{err}")
+    n_workers = em["workers"]
+    rows = {}
+    for phase in ("steady", "chaos"):
+        rc, out, _ = run_tool(obs_top.main, ["--dir", os.path.join(SERVE_MP_DIR, "run", phase),
+                                             "--once"])
+        rows[phase] = (sorted({int(w) for w in re.findall(r"hb worker(\d+)\.hb", out)}),
+                       sorted({int(w) for w in re.findall(r"\n  worker (\d+) ", out)}))
+        check(rc == 0 and rows[phase] == (list(range(n_workers)),) * 2,
+              f"phase 42 (c): obs_top --once over {phase}'s run dir: heartbeat and fleet rows "
+              f"{rows[phase]} for {n_workers} workers:\n{out}")
+    moved = {p: f"{got[p]}% against the earlier runs' {lo}-{hi}% "
+                f"({'inside' if lo <= got[p] <= hi else 'outside'})"
+             for p, (lo, hi) in SERVE_MP_EARLIER_GOODPUT.items()}
+    say(f"phase 42 (c): run_report over (b)'s log == its emission {json.dumps(got)}; "
+        f"trace_merge: {len(files)} span files, one lane a process ({len(lanes)}); obs_top "
+        f"--once: a heartbeat and a fleet row for each of {n_workers} workers in both phases")
+    say(f"[{card}] phase 41 (b) traced {SERVE_TRACE_RATE:.0%} of its requests: interactive "
+        f"goodput steady {moved['steady']}, chaos {moved['chaos']}")
+    # (d)
+    emitted = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "resilient_run", "dense", "emission.json")
+    key = "kernel_launches_total;kernel=merkle_level"
+    base = resilient["dense"]["emission"]
+    check(base["counts"].get(key, 0) > 0, f"phase 42 (d): the dense run's counts {base['counts']}")
+    doubled = json.loads(json.dumps(base))
+    doubled["counts"][key] *= 2
+    doubled_path = os.path.join(TOOLING_DIR, "dense_emission_doubled.json")
+    with open(doubled_path, "w") as f:
+        json.dump(doubled, f)
+    same = run_tool(perf_gate.main, ["--candidate", emitted, "--baseline", emitted, "--count-only"])
+    worse = run_tool(perf_gate.main, ["--candidate", doubled_path, "--baseline", emitted,
+                                      "--count-only"])
+    check(same[0] == 0 and worse[0] == 1
+          and f"[FAIL] {key}" in worse[1],
+          f"phase 42 (d): perf_gate exits {same[0]} and {worse[0]}:\n{worse[1][-1500:]}")
+    say(f"phase 42 (d): perf_gate --count-only on the dense supervised run's counts: against "
+        f"themselves pass, with {key} doubled ({base['counts'][key]} -> {doubled['counts'][key]}) "
+        f"fail")
+    # (e)
+    (strict, doctor), outs = gates, []
+    for proc in gates:
+        outs.append(proc.communicate(timeout=120)[0])
+    check(strict.returncode == 0 and "0 new finding(s)" in outs[0],
+          f"phase 42 (e): the analysis gate exited {strict.returncode}:\n{outs[0][-2000:]}")
+    check(doctor.returncode == 1 and "doctor: all" in outs[1],
+          f"phase 42 (e): the analysis doctor exited {doctor.returncode}:\n{outs[1][-2000:]}")
+    say(f"phase 42 (e): the analysis gate on this checkout: {outs[0].strip().splitlines()[-1]} "
+        f"(exit 0); --doctor exit 1")
+    secs = time.perf_counter() - t0
+    say(f"[{card}] phase 42 (the offline tooling over this run's files): {secs:.3f} s")
+    check(secs <= TOOLING_BUDGET_S, f"phase 42 took {secs:.3f} s, over {TOOLING_BUDGET_S} s")
 
 
 def resilient_kind(kind: str) -> dict:
@@ -3967,7 +4216,8 @@ def profile_dense_region(sim, card: str) -> dict:
           f"K1's {k1_ms:.4f} ms")
     n_host = sum(len(line["events"]) for p in prof.planes if not xplane.is_device_plane(p["name"])
                  for line in p["lines"])
-    say(f"[{card}] phase 40 (a) (contended: beside phase 35's run): {PROFILE_SLOTS} dense "
+    say(f"[{card}] phase 40 (a) (contended: beside phase 41 (b)): "
+        f"{PROFILE_SLOTS} dense "
         f"slots at n={N_MAINNET}: "
         f"{plain_s:.3f} s unprofiled, {slots_s:.3f} s profiled "
         f"({100 * (slots_s / plain_s - 1):.1f}% over), the trace's stop, export and read "
@@ -3997,8 +4247,12 @@ def profile_spec_runs(dev, card: str) -> dict:
     final state root equal. Returns the segment's launches by kernel."""
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "profile_spec")
     shutil.rmtree(out_dir, ignore_errors=True)
+    # its events log, for phase 42, in a directory of its own: only the log's
+    # profile_artifacts event leads to the artifacts
+    shutil.rmtree(os.path.dirname(PROFILE_EVENTS), ignore_errors=True)
+    os.makedirs(os.path.dirname(PROFILE_EVENTS))
     with use_config(mainnet_config()):
-        tel = Telemetry()
+        tel = Telemetry.to_file(PROFILE_EVENTS)
         sim = Simulation(PROFILE_SPEC_N, telemetry=tel, profile=out_dir, device=dev)
         before = dict(kernels.launches)
         t0 = time.perf_counter()
@@ -4012,6 +4266,7 @@ def profile_spec_runs(dev, card: str) -> dict:
         plain_s = time.perf_counter() - t1
         construct_s = t1 - t0
         roots = spec_root(sim), spec_root(plain)
+    tel.close()
     region = sim.profile_region
     (ev,) = tel.bus.of_type("profile")
     check(region is not None and region.error is None and "error" not in ev,
@@ -4058,6 +4313,9 @@ def cost_phase(dev, card: str) -> dict:
           f"phase 40: cost table errors: {json.dumps(rows)}")
     check(all((v["peak_bytes"] or 0) > 0 for v in rows.values()),
           f"phase 40: cost table peaks {[(k, v['peak_bytes']) for k, v in rows.items()]}")
+    os.makedirs(TOOLING_DIR, exist_ok=True)
+    with open(COST_TABLE, "w") as f:     # for phase 42's report
+        json.dump(table, f, indent=1, sort_keys=True)
     say(f"[{card}] phase 40 (c): cost table at n={N_MAINNET}, capacity 64 ({cost_s:.3f} s; "
         f"launches {json.dumps(grown)}):")
     for name, row in rows.items():
@@ -4159,6 +4417,10 @@ def main() -> int:
     say(f"build_seconds {time.perf_counter() - t0:.3f}; by source "
         + json.dumps({k: round(v, 3) for k, v in kernels.build_seconds.items()}))
     lap("phase 1")
+    # phase 14's SASS census (cuobjdump over the built libraries: the host's
+    # CPU, not the card) in a process of its own beside phases 2-13
+    census_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    census_job = census_pool.submit(sass_census)
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
@@ -4486,16 +4748,21 @@ def main() -> int:
 
     deferred.extend((small_dense_twin, (label,), small_done) for label in SMALL_DENSE)
 
-    # 13. dense timings: a steady epoch, then one under the profiler
+    lap("phase 11")
+    # 13. dense timings: a steady epoch, then PROFILE_SLOTS slots under the profiler
+    # (not a whole epoch: its trace's read held most of the phase)
     t5 = time.perf_counter()
     sim.run_epochs(DENSE_EPOCHS + 1)
     torch.cuda.synchronize()
     steady_s = time.perf_counter() - t5
-    prof_dense = profiled(lambda: sim.run_epochs(DENSE_EPOCHS + 2))
+    t6 = time.perf_counter()
+    prof_dense = profiled(lambda: [sim.run_slot() for _ in range(PROFILE_SLOTS)])
+    prof_s = time.perf_counter() - t6
     per_epoch = (t2 - t1) / DENSE_EPOCHS
     say(f"[{card}] dense path: setup {t1 - t0:.3f} s, {DENSE_EPOCHS} epochs {t2 - t1:.3f} s "
         f"= {per_epoch:.3f} s per simulated epoch; epoch {DENSE_EPOCHS + 1} alone "
-        f"{steady_s:.3f} s; under torch.profiler epoch {DENSE_EPOCHS + 2} wall "
+        f"{steady_s:.3f} s; {PROFILE_SLOTS} slots under torch.profiler (the trace read "
+        f"included {prof_s:.3f} s) wall "
         f"{prof_dense['wall_ms']:.3f} ms, device busy {prof_dense['busy_ms']:.3f} ms "
         f"({100 * prof_dense['busy_ms'] / prof_dense['wall_ms']:.2f}%), K1 "
         f"{prof_dense['k1_ms']:.3f} ms, K2 {prof_dense['k2_ms']:.3f} ms")
@@ -4519,7 +4786,8 @@ def main() -> int:
     lap("phases 11-13")
 
     # 14. SASS census and the two bounds
-    census = sass_census()
+    census = census_job.result()
+    census_pool.shutdown()
     if census is None:
         say("SASS census: cuobjdump not found")
     else:
@@ -4539,61 +4807,76 @@ def main() -> int:
     lap("phase 14")
     field_rows = bls_phases(dev, card, census, deferred)
     lap("phases 15-19")
-    das_rows = das_sync_phases(dev, card, census, deferred)
-    lap("phases 20-25")
-    t_kzg = time.perf_counter()
-    kzg_rows = kzg_phases(dev, card, census)
-    say(f"KZG phases 26-31: {time.perf_counter() - t_kzg:.3f} s")
-    lap("phases 26-31")
-    # phase 36's runs on the card and the CPU, run beside phases 32-33 (first,
-    # the longest first) and kept for phase 36
-    driver_twins = {}
-    deferred[:0] = [(driver_run, (kind, where),
-                     lambda res, key=(kind, where): driver_twins.__setitem__(key, res))
-                    for kind in ("riders", "kzg", *DRIVER_TWINS[:-1])
-                    for where in ("cpu", "cuda")]
-    deferred.insert(2, (kzg_card_run, (),
-                        lambda res: driver_twins.__setitem__(("kzg", "run"), res)))
-    # phase 40 (e): two child processes in turn, beside phases 32-33
-    deferred.append((compile_cache_runs, (), compile_cache_check))
-    # phase 39's runs, one child process each, first in the queue (the longest)
-    resilient = {}
-    deferred[:0] = [(resilient_kind, (kind,),
-                     lambda res, key=kind: resilient.__setitem__(key, res)) for kind in RESIL]
-    # phase 35's run, in a process of its own beside phases 32-34
-    with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"),
-                             initializer=torch.set_num_threads, initargs=(2,)) as solo:
-        scale = solo.submit(driver_scale_run)
+    # phase 35's run, in a process of its own beside phases 20-34 (started before
+    # the rider phases: beside phases 26-34 alone it ended after phase 40)
+    solo = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=torch.set_num_threads, initargs=(2,))
+    # phase 41 (a), at the end of phase 35's run, waits for SERVE_FRONT_GO: written
+    # once phase 40 and 41 (b) have ended (or this run has failed)
+    with contextlib.suppress(FileNotFoundError):
+        os.unlink(SERVE_FRONT_GO)
+    scale = solo.submit(driver_scale_run)
+    try:
+        das_rows = das_sync_phases(dev, card, census, deferred)
+        lap("phases 20-25")
+        t_kzg = time.perf_counter()
+        kzg_rows = kzg_phases(dev, card, census)
+        say(f"KZG phases 26-31 (beside phase 35's run): {time.perf_counter() - t_kzg:.3f} s")
+        lap("phases 26-31")
+        # phase 36's runs on the card and the CPU, run beside phases 32-33 (first,
+        # the longest first) and kept for phase 36
+        driver_twins = {}
+        deferred[:0] = [(driver_run, (kind, where),
+                         lambda res, key=(kind, where): driver_twins.__setitem__(key, res))
+                        for kind in ("riders", "kzg", *DRIVER_TWINS[:-1])
+                        for where in ("cpu", "cuda")]
+        deferred.insert(2, (kzg_card_run, (),
+                            lambda res: driver_twins.__setitem__(("kzg", "run"), res)))
+        # phase 40 (e): two child processes in turn, beside phases 32-33
+        deferred.append((compile_cache_runs, (), compile_cache_check))
+        # phase 39's runs, one child process each, first in the queue (the longest)
+        resilient = {}
+        deferred[:0] = [(resilient_kind, (kind,),
+                         lambda res, key=kind: resilient.__setitem__(key, res)) for kind in RESIL]
+        # phase 41 (b) in a process of its own, started after phase 32 once phase 39's
+        # supervised runs have ended, beside phases 33-34 and 40: no kernel of the
+        # kernels line is timed from there on (beside phases 26-31 it shared the host
+        # with their plain versions; beside phase 39's supervised runs it slowed them
+        # until a kill landed before its checkpoint was durable)
         t_spec = time.perf_counter()
-        spec_launches = spec_phases(dev, card, deferred)
+        spec_launches, serve_mp = spec_phases(dev, card, deferred,
+                                              then=(resilient_kind, serve_mp_start))
         say(f"spec phases 32-34: {time.perf_counter() - t_spec:.3f} s")
         lap("phases 32-34")
-        # phase 40 (a)-(d) here, while phase 35's run ends beside it
+        # phase 40 (a)-(d) here, beside phase 41 (b)
         t_prof = time.perf_counter()
         profile_launches = {"dense": profile_dense_region(sim, card),
                             "spec": profile_spec_runs(dev, card), "cost": cost_phase(dev, card)}
         fused_measure_phase(dev, card)
-        say(f"phase 40 (a-d, beside phase 35's run): {time.perf_counter() - t_prof:.3f} s; "
-            "launches " + json.dumps(profile_launches))
+        say(f"phase 40 (a-d, beside phase 41 (b)): "
+            f"{time.perf_counter() - t_prof:.3f} s; launches " + json.dumps(profile_launches))
         lap("phase 40")
-        # phase 41 (b) in a process of its own beside phase 35's run alone: no
-        # kernel of the kernels line is timed from here on, and the host is
-        # otherwise quiet (beside phases 26-31 it shared the host with their
-        # plain versions; beside phases 32-34 it slowed phase 39's supervised
-        # runs until a kill landed before its checkpoint was durable)
-        serve_mp = serve_mp_start()
-        t_driver = time.perf_counter()
-        scale_run = scale.result()
-    say(f"phase 35's run: waited {time.perf_counter() - t_driver:.3f} s after phase 34")
+        serve_mp = serve_mp_finish(serve_mp)
+    finally:
+        os.makedirs(os.path.dirname(SERVE_FRONT_GO), exist_ok=True)
+        with open(SERVE_FRONT_GO, "w"):
+            pass
+    t_driver = time.perf_counter()
+    scale_run = scale.result()
+    solo.shutdown()
+    say(f"phase 35's run: waited {time.perf_counter() - t_driver:.3f} s after phase 41 (b) "
+        f"(its 41 (a) released after {scale_run['serve_wait_s']:.3f} s)")
     driver_launches = driver_phases(dev, card, driver_twins, scale_run)
     say(f"spec driver phases 35-37: {time.perf_counter() - t_driver:.3f} s")
     kzg_driver_launches = kzg_driver_phase(card, driver_twins)
     lap("phase 38")
     resilient_phase(card, resilient)
     lap("phase 39")
-    serve_launches = serve_phase(card, scale_run["serve"], serve_mp_finish(serve_mp),
+    serve_launches = serve_phase(card, scale_run["serve"], serve_mp,
                                  driver_twins[("kzg", "run")]["serve_kzg"])
     lap("phase 41")
+    tooling_phase(card, resilient, profile_launches["spec"]["merkle_level"], serve_mp)
+    lap("phase 42")
 
     big = k2[K2_LARGEST]
     say(card)

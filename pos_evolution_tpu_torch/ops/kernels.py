@@ -105,8 +105,8 @@ _LAUNCH_LOCK = threading.Lock()
 _THREAD = threading.local()            # .counts: this thread's launches, while counted
 build_seconds: dict[str, float] = {}   # source -> its last nvcc's wall seconds
 build_listeners: list = []             # fn(source, seconds), after each build
-_libs: dict[str, ctypes.CDLL] = {}     # source file -> its loaded library
-_entries: dict = {}          # kernel name -> its bound C entry point
+_LIBS: dict[str, ctypes.CDLL] = {}     # source file -> its loaded library
+_ENTRIES: dict = {}          # kernel name -> its bound C entry point
 
 
 @contextmanager
@@ -214,7 +214,7 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name`` (its source's), built first
     if needed, with every entry point of that source typed."""
     source = KERNELS[name][0]
-    lib = _libs.get(source)
+    lib = _LIBS.get(source)
     if lib is None:
         path = _library_path(name)
         if not path.exists():
@@ -229,22 +229,22 @@ def library(name: str) -> ctypes.CDLL:
             err = getattr(lib, f"{kname}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-        _libs[source] = lib
+        _LIBS[source] = lib
     return lib
 
 
 def entry(name: str):
     """Kernel ``name``'s C entry point, bound once."""
-    fn = _entries.get(name)
+    fn = _ENTRIES.get(name)
     if fn is None:
-        fn = _entries[name] = getattr(library(name), KERNELS[name][1])
+        fn = _ENTRIES[name] = getattr(library(name), KERNELS[name][1])
     return fn
 
 
 def launch(name: str, *args) -> None:
     """Call kernel ``name``'s C entry point, raise if CUDA refused the
     launch, and count it."""
-    rc = (_entries.get(name) or entry(name))(*args)
+    rc = (_ENTRIES.get(name) or entry(name))(*args)
     if rc != 0:
         msg = getattr(library(name), f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")

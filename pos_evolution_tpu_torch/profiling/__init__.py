@@ -20,42 +20,28 @@ Four legs, one pipeline (capture → attribute → export → gate):
   and the robust median ± k·MAD band a gate reads.
 
 ``ledger.py`` (kernel builds charged to spans) and ``phases.py`` (the
-dense driver's phase budget) complete it. Timing caveats are in
+dense driver's phase budget) complete it. The package's names resolve on
+first use, so that ``history``, ``xplane``, ``kineto`` and ``ledger``
+import without torch. Timing caveats are in
 ``utils/benchtime.py``: a CUDA launch is asynchronous, so wall-clock
 around a launch measures the enqueue; device *timelines* (this package)
 complement — never replace — the work-difference *numbers* (benchtime).
 """
 
-from pos_evolution_tpu_torch.profiling import kineto
-from pos_evolution_tpu_torch.profiling.attribution import (
-    ProfiledRegion,
-    attribute_to_spans,
-    group_by_jit,
-    innermost_jit,
-)
-from pos_evolution_tpu_torch.profiling.history import (
-    HISTORY_SCHEMA_VERSION,
-    append_entry,
-    band_verdicts,
-    read_history,
-    robust_band,
-)
-from pos_evolution_tpu_torch.profiling.ledger import (
-    CompileLedger,
-    function_scope,
-)
-from pos_evolution_tpu_torch.profiling.phases import (
-    DENSE_PHASES,
-    NULL_TIMER,
-    PhaseTimer,
-)
-from pos_evolution_tpu_torch.profiling.xplane import (
-    encode_xspace,
-    parse_xspace,
-    summarize_path,
-    summarize_xplane,
-    top_table,
-)
+import importlib
+
+# name -> the submodule defining it, imported on first use (PEP 562): the
+# offline tools read with the torch-free submodules wherever Python runs
+_EXPORTS = {
+    "ProfiledRegion": "attribution", "attribute_to_spans": "attribution",
+    "group_by_jit": "attribution", "innermost_jit": "attribution",
+    "HISTORY_SCHEMA_VERSION": "history", "append_entry": "history",
+    "band_verdicts": "history", "read_history": "history", "robust_band": "history",
+    "CompileLedger": "ledger", "function_scope": "ledger",
+    "DENSE_PHASES": "phases", "NULL_TIMER": "phases", "PhaseTimer": "phases",
+    "encode_xspace": "xplane", "parse_xspace": "xplane", "summarize_path": "xplane",
+    "summarize_xplane": "xplane", "top_table": "xplane",
+}
 
 __all__ = [
     "ProfiledRegion", "attribute_to_spans", "group_by_jit", "innermost_jit",
@@ -66,3 +52,14 @@ __all__ = [
     "encode_xspace", "parse_xspace", "summarize_path", "summarize_xplane",
     "top_table", "kineto",
 ]
+
+
+def __getattr__(name: str):
+    if name in _EXPORTS:
+        value = getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+    elif name == "kineto":
+        value = importlib.import_module(f"{__name__}.kineto")
+    else:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    globals()[name] = value
+    return value

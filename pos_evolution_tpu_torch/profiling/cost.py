@@ -48,6 +48,7 @@ CLI: ``python -m pos_evolution_tpu_torch.profiling.cost [--json out.json]
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import sys
 
@@ -109,24 +110,36 @@ def analyze_fn(fn, *args, **kwargs) -> dict:
     """Run ``fn(*args, **kwargs)`` on its device and return its memory row:
     argument, output, peak and temp bytes, and the generated code of the
     kernels it launched. On the card the call runs twice, the first to
-    build kernels and warm the allocator."""
+    build kernels and warm the allocator. The collector runs before the
+    measured call and is off during it: ``memory_allocated()`` builds dicts
+    after its snapshot, and a collection there that freed earlier garbage
+    put the peak below ``held`` (a negative peak on the card)."""
     from pos_evolution_tpu_torch.ops import kernels
     cuda = any(isinstance(a, torch.Tensor) and a.is_cuda for a in _arrays((args, kwargs)))
+    collecting = gc.isenabled()
     if cuda:
         fn(*args, **kwargs)
         torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-    before = dict(kernels.launches)
-    out = fn(*args, **kwargs)
-    grown = {k: v - before[k] for k, v in kernels.launches.items()}
-    row = {"argument_bytes": _nbytes((args, kwargs)), "output_bytes": _nbytes(out),
-           "alias_bytes": 0, "generated_code_bytes": _library_bytes(grown),
-           "peak_bytes": None, "temp_bytes": None}
-    if cuda:
-        torch.cuda.synchronize()
-        row["peak_bytes"] = torch.cuda.max_memory_allocated() - held + row["argument_bytes"]
-        row["temp_bytes"] = row["peak_bytes"] - row["argument_bytes"] - row["output_bytes"]
+        gc.collect()
+        gc.disable()
+    try:
+        if cuda:
+            # the peak reset first: it is then at least any later ``held``
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        before = dict(kernels.launches)
+        out = fn(*args, **kwargs)
+        grown = {k: v - before[k] for k, v in kernels.launches.items()}
+        row = {"argument_bytes": _nbytes((args, kwargs)), "output_bytes": _nbytes(out),
+               "alias_bytes": 0, "generated_code_bytes": _library_bytes(grown),
+               "peak_bytes": None, "temp_bytes": None}
+        if cuda:
+            torch.cuda.synchronize()
+            row["peak_bytes"] = torch.cuda.max_memory_allocated() - held + row["argument_bytes"]
+            row["temp_bytes"] = row["peak_bytes"] - row["argument_bytes"] - row["output_bytes"]
+    finally:
+        if collecting:
+            gc.enable()
     return row
 
 

@@ -15,7 +15,9 @@ One entry point, two roles:
   slots, the async writer, per-slot heartbeats, optional integrity
   audits), runs to the target, takes a final checkpoint, and writes
   ``result.json`` (slot, state digest, overhead, and this attempt's
-  checkpoint records and kernel launches) atomically.
+  checkpoint records and kernel launches, the latter also as the
+  ``kernel_launches_total`` / ``kernel_builds_total`` counters the
+  parent's emission carries in ``counts``) atomically.
 
 Failure injection: ``--crash-at-slot N`` SIGKILLs the child the first
 time slot N completes (a marker file, which also records the kill's
@@ -167,7 +169,7 @@ def run_child(args) -> int:
     from pos_evolution_tpu_torch.device import resolve_device
     from pos_evolution_tpu_torch.ops import kernels
     from pos_evolution_tpu_torch.resilience import state_digest
-    from pos_evolution_tpu_torch.telemetry import Telemetry
+    from pos_evolution_tpu_torch.telemetry import MetricsRegistry, Telemetry, torchrt
     dev = resolve_device(args.device)
     cfg_obj = minimal_config() if args.config == "minimal" else mainnet_config()
     telemetry = Telemetry.to_file(args.events, append=True) if args.events else None
@@ -178,6 +180,9 @@ def run_child(args) -> int:
     spec = _autocheckpoint_spec(args)
     t0 = time.perf_counter()
     kernels.reset_launches()
+    # this attempt's kernel builds and launches, as counters a gate reads
+    runtime = telemetry.registry if telemetry is not None else MetricsRegistry()
+    torchrt.install(runtime)
     with use_config(cfg_obj):
         if args.dense:
             sim, target, resume = _build_dense(args, cfg_obj, spec, dev)
@@ -219,6 +224,9 @@ def run_child(args) -> int:
             "final_capture": getattr(sim, "last_capture", {}),
             "launches": {k: v for k, v in kernels.launches.items() if v},
         }
+        torchrt.collect_launches()
+        result["counts"] = {k: v for k, v in runtime.counts().items()
+                            if k.startswith(("kernel_builds_total;", "kernel_launches_total;"))}
     from pos_evolution_tpu_torch.utils.snapshot import atomic_write_bytes
     atomic_write_bytes(os.path.join(args.ckpt_dir, "result.json"),
                        (json.dumps(result, indent=1, sort_keys=True) + "\n").encode())
@@ -298,6 +306,14 @@ def _replayed_slots(events_path: str | None) -> int:
     return replayed_slots_from_events(read_jsonl(events_path))
 
 
+def _digest_launches(writes: list[dict]) -> dict:
+    out: dict[str, int] = {}
+    for w in writes:
+        for k, v in (w.get("digest_launches") or {}).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def run_parent(args, argv: list[str]) -> int:
     from pos_evolution_tpu_torch.resilience import SupervisorGaveUp, supervise
     os.makedirs(args.ckpt_dir, exist_ok=True)
@@ -351,10 +367,16 @@ def run_parent(args, argv: list[str]) -> int:
         "resumed_on_degraded_mesh": None,
         "state_digest": result["state_digest"],
         "finalized_epoch": result["finalized_epoch"],
+        # the final attempt's checkpoint digests' kernel launches (K2, one
+        # a tree level, for the merkle digest), by kernel
+        "ckpt_digest_launches": _digest_launches(result.get("checkpoint_writes") or []),
+        # the final attempt's kernel_builds_total and kernel_launches_total
+        # beside the supervision's counts
         "counts": {"attempts": summary["attempts"],
                    "interruptions": len(summary["interruptions"]),
                    "replayed_slots": replayed,
-                   "ckpt_saves": ckpt.get("saves", 0)},
+                   "ckpt_saves": ckpt.get("saves", 0),
+                   **result.get("counts", {})},
     }
     bus.emit("goodput", **{k: v for k, v in emission.items() if k != "metric"})
     print(json.dumps(emission, indent=1, sort_keys=True))

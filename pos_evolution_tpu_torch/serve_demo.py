@@ -43,7 +43,10 @@ the SLO, zero verify failures, every kill and wedge detected, every
 respawned worker on the current shared-memory generation, and the fleet
 metrics scraped off the ``metrics`` RPC consistent with the loadgen's
 ledger. ``--trace-rate``/``--trace-dir`` switch on end-to-end request
-tracing; ``--metrics-out`` saves the fleet Prometheus text.
+tracing (``python -m pos_evolution_tpu_torch.trace_merge`` joins the span
+files); ``--metrics-out`` saves the fleet Prometheus text; ``--run-dir``
+keeps each phase's worker heartbeats and fleet snapshots
+(``python -m pos_evolution_tpu_torch.obs_top --dir RUN_DIR/chaos --once``).
 
 The card's name and power limit are printed beside the numbers. Any
 failed contract exits non-zero.
@@ -174,7 +177,7 @@ def _main_mp(args, telemetry, dev, card: str) -> int:
         arrivals=args.arrivals, rate=args.rate, seed=args.seed,
         kills=0, wedges=0, fd_exhaust_n=0, slo_ms=args.slo_ms,
         events_bus=telemetry.bus, trace_rate=args.trace_rate,
-        trace_dir=trace_dir, device=str(dev))
+        trace_dir=trace_dir, device=str(dev), run_dir=_phase_dir(args, "steady"))
     _phase_line("steady", steady)
     s_verdict = steady["verdict"]
 
@@ -190,7 +193,7 @@ def _main_mp(args, telemetry, dev, card: str) -> int:
             seed=args.seed, kills=args.kills, wedges=args.wedges,
             fd_exhaust_n=args.fd_exhaust, slo_ms=args.slo_ms,
             events_bus=telemetry.bus, trace_rate=args.trace_rate,
-            trace_dir=trace_dir, device=str(dev))
+            trace_dir=trace_dir, device=str(dev), run_dir=_phase_dir(args, "chaos"))
         _phase_line("chaos ", chaos)
         c_verdict = chaos["verdict"]
         print(f"pool:  {c_verdict['kills_delivered']} SIGKILLs "
@@ -421,6 +424,12 @@ def serve_views(views, scheme, *, arrivals: int, rate: float, workers: int = 4,
     return out
 
 
+def _phase_dir(args, phase: str) -> str | None:
+    """``--run-dir``'s directory for one ``--mp`` phase (None: the harness
+    makes a temp dir)."""
+    return os.path.join(args.run_dir, phase) if args.run_dir else None
+
+
 def _main_classic(args, telemetry, dev, card: str) -> int:
     from pos_evolution_tpu_torch.sim import Simulation
 
@@ -573,6 +582,11 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-dir",
                     help="[--mp] directory for per-process span files "
                          "(default: a fresh temp dir when --trace-rate > 0)")
+    ap.add_argument("--run-dir",
+                    help="[--mp] keep each phase's worker heartbeats, stats "
+                         "and fleet snapshots under RUN_DIR/<phase> "
+                         "(default: a fresh temp dir a phase), for "
+                         "obs_top --dir")
     ap.add_argument("--metrics-out",
                     help="[--mp] write the fleet Prometheus text scraped "
                          "off the metrics RPC here")

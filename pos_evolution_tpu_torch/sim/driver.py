@@ -42,8 +42,12 @@ host ranges that launched it (``slot``, ``propose``, ``attest``, and each
 handler by name: ``HandlerTimer.track`` opens one while the profiler
 records), and ``profiling/export.write_artifacts`` writes
 ``chrome_trace.json``, ``flame.txt``, ``flame_device.txt`` and
-``top_ops.json`` into ``dir``; ``profile_region`` keeps the region (its
-planes and tables). One capture only: later segments run unprofiled.
+``top_ops.json`` into ``dir`` (its table holds the 256 heaviest ops a
+plane, where the JAX package's holds 10: a Kineto op is named by its
+launch path, so one kernel's events spread over the rows of each path
+that launched it, and an offline reader, ``run_report``, folds them back
+by kernel); ``profile_region`` keeps the region (its planes and tables).
+One capture only: later segments run unprofiled.
 ``compile_cache=dir`` points the kernel build directory
 (``ops/kernels.set_build_dir``, process-wide, as the JAX package's
 compilation cache is) at ``dir``, so a sweep's processes build each
@@ -120,6 +124,8 @@ from pos_evolution_tpu_torch.utils.metrics import trace_region
 #: samples a client it keeps): EIP-7594's 128 extended cells of 2,048 bytes
 #: (64 data cells a blob) and EIP-7691's 9 blobs a block.
 PEERDAS = {"das_cells_per_blob": 64, "das_cell_bytes": 2048, "das_max_blobs_per_block": 9}
+# rows a plane of the profile=dir artifact's top-ops table (the module docstring)
+PROFILE_TOP_N = 256
 
 
 def blob_engine_for(das, cfg, device):
@@ -1042,7 +1048,8 @@ class Simulation:
                         "carry no sim-time lane or span attribution")
         mark = len(self.telemetry.bus.events) if self.telemetry is not None else 0
         with use_backend(self.backend), \
-                ProfiledRegion("sim_run", telemetry=self.telemetry) as prof:
+                ProfiledRegion("sim_run", telemetry=self.telemetry,
+                               top_n=PROFILE_TOP_N) as prof:
             while self.slot <= slot:
                 self._run_slot()
         self.profile_region = prof

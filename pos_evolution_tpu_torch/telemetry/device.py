@@ -300,6 +300,24 @@ class FlightRecorder:
         rows.sort(key=lambda r: (r["phase"], -r["max_ms"], r["device"]))
         return rows
 
+    def kernel_counts(self) -> dict:
+        """The registry's ``kernel_builds_total`` by source and
+        ``kernel_launches_total`` by kernel (launches collected first,
+        when this recorder feeds runtime telemetry)."""
+        if self.registry is None:
+            return {}
+        if self._installed:
+            from pos_evolution_tpu_torch.telemetry import torchrt
+            torchrt.collect_launches()
+        out: dict = {}
+        for key, n in self.registry.counts().items():
+            name, _, label = key.partition(";")
+            kind = {"kernel_builds_total": "builds",
+                    "kernel_launches_total": "launches"}.get(name)
+            if kind and label.count("=") == 1:
+                out.setdefault(kind, {})[label.split("=", 1)[1]] = n
+        return out
+
     def summary(self) -> dict:
         out: dict = {"sample_every": self.sample_every,
                      "installed": self._installed}
@@ -307,6 +325,9 @@ class FlightRecorder:
             out["memory"] = self.memory.watermark()
         if self.ledger is not None:
             out["compile_ledger"] = self.ledger.summary()
+        kernels = self.kernel_counts()
+        if kernels:
+            out["kernels"] = kernels
         if self.skew_enabled:
             out["shard_skew"] = {"probes": self.skew_probes,
                                  "table": self.skew_table()}

@@ -1,7 +1,8 @@
-"""K11's bucket route and K10's passes on the CPU: the plain versions of
+"""K11's bucket route on the CPU: the plain version of
 ``ops/pairing.g1_msm_fixed`` (the signed-window bucket MSM over a setup's
-window tables) and of ``kzg/ntt.ntt`` against the old plain ladder and fold,
-the port's host Pippenger and the JAX package's, at small sizes."""
+window tables) against the old plain ladder and fold, the port's host
+Pippenger and the JAX package's, at small sizes. K10's passes are in
+``tests/test_torch_k10.py``."""
 
 import re
 from pathlib import Path
@@ -12,10 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from pos_evolution_tpu.kzg import curve as jcurve  # noqa: E402
-from pos_evolution_tpu.kzg import fr as jfr  # noqa: E402
-from pos_evolution_tpu.kzg import ntt as jntt  # noqa: E402
 from pos_evolution_tpu_torch.crypto import bls12_381 as oracle  # noqa: E402
-from pos_evolution_tpu_torch.kzg import curve, fr, ntt  # noqa: E402
+from pos_evolution_tpu_torch.kzg import curve, fr  # noqa: E402
 from pos_evolution_tpu_torch.kzg import setup as tsetup  # noqa: E402
 from pos_evolution_tpu_torch.ops import fp, pairing  # noqa: E402
 
@@ -272,35 +271,3 @@ def test_bucket_msm_takes_lazy_scalars(c):
     scs = torch.stack([_raw_digits(s) for s in lazy])
     got = pairing.g1_decode_points(*pairing.g1_msm_fixed(tables, scs))
     assert got == [curve.g1_lincomb(pts, [v % R for v in s]) for s in lazy]
-
-
-# --- K10's passes -------------------------------------------------------------------
-
-def test_ntt_passes_cover_every_stage():
-    """The first pass runs at most csrc/fr_ntt.cu's kTileLog stages, each
-    later one up to kLaterLog, together every stage once, at n = 2 to 2^30."""
-    cu = (CSRC / "fr_ntt.cu").read_text()
-    assert ntt.K10_FIRST_LOG == int(re.search(r"kTileLog = (\d+)", cu).group(1))
-    assert int(re.search(r"kLaterLog = (\d+)", cu).group(1)) == ntt.K10_LATER_LOG
-    for logn in range(1, 31):
-        plan = ntt.passes(1 << logn)
-        assert plan[0][0] == 0 and plan[-1][1] == logn
-        assert all(a[1] == b[0] for a, b in zip(plan, plan[1:]))
-        assert plan[0][1] == min(logn, ntt.K10_FIRST_LOG)
-        assert all(0 < e - s <= ntt.K10_LATER_LOG for s, e in plan[1:])
-    assert len(ntt.passes(16384)) == 2
-
-
-@pytest.mark.parametrize("tiles", [0.5, 1, 2, 4])
-def test_ntt_plain_at_the_tile_boundaries(tiles):
-    """``_ntt_plain`` (K10's plain version) at half, one, two and four of the
-    first pass's tiles (T = 2^K10_FIRST_LOG positions), both ways, equals the
-    JAX package's numpy oracle and its jitted ``_device_kernel``."""
-    n = int(tiles * (1 << ntt.K10_FIRST_LOG))
-    rng = np.random.default_rng(n)
-    x = jfr.encode([int.from_bytes(rng.bytes(40), "little") % R for _ in range(n)])
-    x = x.reshape(1, n, fr.L)
-    for inverse in (False, True):
-        got = ntt.ntt(torch.from_numpy(x.astype(np.int32)), inverse).numpy()
-        np.testing.assert_array_equal(got, jntt.ntt_host(x, inverse))
-        np.testing.assert_array_equal(got, jntt.ntt_device(x, inverse))

@@ -1,11 +1,11 @@
 """The port's ``KzgCellScheme`` against the JAX package's on the CPU (its
 numpy backend: host Pippenger and oracle pairings), at tolerance 0:
 commits of random grids (point, compression, coefficients, wire, the
-memo), aggregate proofs byte for byte, and the verdicts of
-``tests/test_kzg.py``'s cases (honest, corrupted cell, wrong commitment,
-malformed proof, forged cell, tampered W and W', reversed points, swapped
-samples), each case through its own verify (one MSM and one 2-lane
-pairing check). Inputs come from numpy with a seed."""
+memo), aggregate proofs byte for byte, and the verdicts of the
+single-blob proofs (honest, corrupted cell, wrong commitment, malformed
+proof); the aggregate proofs' verdicts are in
+``tests/test_torch_kzg_verdicts.py`` (split off to run on a test worker
+of its own). Inputs come from numpy with a seed."""
 
 import numpy as np
 import pytest
@@ -97,38 +97,6 @@ def test_proofs_equal_jax(committee):
     assert s.decode_proof(s.encode_proof(proof)) == proof
     with pytest.raises(ValueError):
         s.decode_proof(s.encode_proof(proof)[1:])
-
-
-def _cases(c):
-    """tests/test_kzg.py's aggregate cases: (name, wires, samples, cells,
-    proof)."""
-    wires, samples, cells, proof = c["wires"], c["samples"], c["cells"], c["proof"]
-    out = [("honest", wires, samples, cells, proof)]
-    for j in range(len(cells)):
-        forged = [x.copy() for x in cells]
-        forged[j][0] ^= 0xA5
-        out.append((f"forged cell {j}", wires, samples, forged, proof))
-    out.append(("swapped samples", wires, [samples[1], samples[0]] + samples[2:], cells, proof))
-    for key in ("w", "wp"):
-        bad = dict(proof)
-        bad[key] = bytes(proof["points"][0])
-        out.append((f"tampered {key}", wires, samples, cells, bad))
-    bad = dict(proof)
-    bad["points"] = list(proof["points"][::-1])
-    out.append(("reversed points", wires, samples, cells, bad))
-    out.append(("wrong wire", [wires[1], wires[0]], samples, cells, proof))
-    return out
-
-
-def test_aggregate_verdicts_equal_jax(committee):
-    """Every case's verdict equals the JAX package's (its oracle pairing):
-    the honest proof passes, each forgery fails."""
-    cases = _cases(committee)
-    got = [committee["scheme"].verify_aggregate(*c[1:]) for c in cases]
-    with use_config(jax_minimal()):
-        want = [committee["jax"].verify_aggregate(*c[1:]) for c in cases]
-    assert got == want
-    assert got == [True] + [False] * (len(cases) - 1)
 
 
 def test_cell_proof_verdicts_equal_jax(committee):

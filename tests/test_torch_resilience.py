@@ -364,8 +364,8 @@ def test_supervision_digest_goes_by_device(tmp_path, backend, digest, want):
 def test_launch_counts_are_exact_across_threads(monkeypatch):
     """``kernels.launch`` counts under a lock, and ``thread_launches``
     sees only its own thread's launches."""
-    monkeypatch.setitem(kernels._entries, "merkle_level", lambda *a: 0)
-    monkeypatch.setitem(kernels._entries, "agg_sig", lambda *a: 0)
+    monkeypatch.setitem(kernels._ENTRIES, "merkle_level", lambda *a: 0)
+    monkeypatch.setitem(kernels._ENTRIES, "agg_sig", lambda *a: 0)
     before = dict(kernels.launches)
     counted = {}
 

@@ -352,27 +352,48 @@ class TestWorkerPoolSupervision:
                 tempfile.TemporaryDirectory() as tmp:
             board, lock_path = _board(tmp, n_fronts=4)
             board.publish(_tiny_view(slot=1))
-            (port,) = _free_ports(1)
             cfg_dict = dataclasses.asdict(cfg())
-            # worker 1 wedges shortly after ready: its beat thread goes
-            # silent inside the window while the process stays alive —
-            # exactly what hang detection exists to catch. The window is
-            # short enough that the RESPAWNED child is outside it (a
-            # still-open window would wedge every respawn into parking)
-            wedge_at = time.time() + 3.0
-            specs = [
-                worker_spec(0, port, board.name, lock_path, tmp,
-                            threads=1, config=cfg_dict, device="cpu"),
-                worker_spec(1, port, board.name, lock_path, tmp,
-                            threads=1, config=cfg_dict, device="cpu",
-                            chaos={"wedge_windows":
-                                   [(wedge_at, wedge_at + 2.5)]}),
-            ]
-            pool = WorkerPool(specs, board, hang_timeout_s=1.5,
-                              backoff_s=0.1, backoff_cap_s=0.5)
+
+            def start(lead):
+                # worker 1 wedges shortly after ready: its beat thread goes
+                # silent inside the window while the process stays alive —
+                # exactly what hang detection exists to catch. The window is
+                # short enough that the RESPAWNED child is outside it (a
+                # still-open window would wedge every respawn into parking)
+                (port,) = _free_ports(1)
+                wedge_at = time.time() + lead
+                specs = [
+                    worker_spec(0, port, board.name, lock_path, tmp,
+                                threads=1, config=cfg_dict, device="cpu"),
+                    worker_spec(1, port, board.name, lock_path, tmp,
+                                threads=1, config=cfg_dict, device="cpu",
+                                chaos={"wedge_windows":
+                                       [(wedge_at, wedge_at + 2.5)]}),
+                ]
+                pool = WorkerPool(specs, board, hang_timeout_s=1.5,
+                                  backoff_s=0.1, backoff_cap_s=0.5)
+                try:
+                    pool.start()
+                    return pool, pool.wait_ready(60.0), wedge_at
+                except BaseException:
+                    pool.stop()
+                    raise
+
+            # the window must open after the pool is ready: a worker that
+            # first beats after its window never wedges, and on a loaded
+            # host a boot can outlast the lead, so such a pool is started
+            # again with a lead twice the boot it took
+            lead = 3.0
+            pool, ready, wedge_at = start(lead)
+            for _ in range(2):
+                if not ready or time.time() < wedge_at:
+                    break
+                boot = time.time() - (wedge_at - lead)
+                pool.stop()
+                lead = 2 * boot
+                pool, ready, wedge_at = start(lead)
             try:
-                pool.start()
-                assert pool.wait_ready(60.0), "pool never became ready"
+                assert ready, "pool never became ready"
                 killed = pool.kill_worker(0)
                 assert killed is not None
                 deadline = time.monotonic() + 60.0
@@ -472,7 +493,8 @@ def test_worker_beats_once_before_its_scheme_outside_wedges(monkeypatch, wedged)
             assert hb is None
         else:
             assert hb["payload"]["booting"] and hb["payload"]["worker"] == 3
-            assert hb["payload"]["unix"] >= now
+            # the beat stamps its time rounded to the millisecond
+            assert hb["payload"]["unix"] >= round(now, 3)
 
 
 def test_fleet_kernel_launches_sum_by_kernel():

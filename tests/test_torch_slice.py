@@ -2,6 +2,7 @@
 same composition of JAX package functions (bit for bit), the port's
 independence from JAX, and its device rules."""
 
+import json
 import os
 import subprocess
 import sys
@@ -438,3 +439,48 @@ def test_serving_tier_runs_with_jax_blocked():
     """)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ran 2")
+
+
+def test_offline_tooling_runs_with_jax_blocked(tmp_path):
+    """Each entry point of the offline tooling, run as ``python -m`` runs
+    it, with jax and pos_evolution_tpu impossible to import: the analysis
+    gate and its doctor, the run report, the perf gate and diff, the
+    trace merge and the live view; none of them imports torch either."""
+    spans = tmp_path / "trace"
+    spans.mkdir()
+    for pid in (11, 12):
+        (spans / f"spans.{pid}.jsonl").write_text(json.dumps(
+            {"trace": "00000000000000aa", "name": "service", "t0": 1.0 + pid, "dur_ms": 2.0,
+             "pid": pid, "proc": f"p{pid}", "tid": 0}) + "\n")
+    emission = tmp_path / "emission.json"
+    emission.write_text(json.dumps({"counts": {"kernel_launches_total;kernel=merkle_level": 18}}))
+    proc = _run_blocked(f"""
+        import runpy
+        golden = {os.path.join(REPO, "tests", "golden_telemetry.jsonl")!r}
+        tmp = {str(tmp_path)!r}
+
+        def run(module, *argv):
+            sys.argv = [module, *argv]
+            try:
+                runpy.run_module(module, run_name="__main__")
+            except SystemExit as e:
+                return e.code
+            return 0
+
+        pkg = "pos_evolution_tpu_torch."
+        assert run(pkg + "analysis", "--doctor") == 1
+        assert run(pkg + "analysis", "--strict", "pos_evolution_tpu_torch/analysis",
+                   "--baseline", "none") == 0
+        assert run(pkg + "run_report", golden, "--json", tmp + "/r.json",
+                   "--markdown", tmp + "/r.md") == 0
+        assert run(pkg + "perf_gate", "--candidate", {str(emission)!r},
+                   "--baseline", {str(emission)!r}, "--count-only") == 0
+        assert run(pkg + "perf_diff", {str(emission)!r}, {str(emission)!r}) == 0
+        assert run(pkg + "trace_merge", {str(spans)!r}, "--expect-pids", "2") == 0
+        assert run(pkg + "obs_top", "--dir", tmp, "--events", golden, "--once") == 0
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED + ("torch",)]
+        assert not bad, bad
+        print("ran")
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.rstrip().endswith("ran"), proc.stdout

@@ -4,10 +4,11 @@ variants, of its riders' DAS server, single-flight and light-client
 modules, of the tooling's watchdog, event bus, metrics registry,
 tracing, fleet aggregator and supervisor, and of the serving tier's
 protocol, views, admission, client, front, chaos, view board and
-balancer: each copied
-module's source equals its original with ``pos_evolution_tpu.`` replaced
-by ``pos_evolution_tpu_torch.`` and nothing else (the view board and the
-balancer with one repair each besides, listed in ``PATCHED``), and the FakeBLS
+balancer, and of the static analysis's shared rules and reporter: each
+copied module's source equals its original with ``pos_evolution_tpu.``
+replaced by ``pos_evolution_tpu_torch.`` and nothing else (the view board
+and the balancer with one repair each besides, and the analysis core with
+its rule list naming the torch rules, listed in ``PATCHED``), and the FakeBLS
 signature prefix the copy carries is the one kernel K1's wrapper hashes."""
 
 import os
@@ -73,10 +74,16 @@ COPIES = [
     "serve/server.py",
     "serve/chaos.py",
     "serve/__init__.py",
+    "analysis/lockset.py",
+    "analysis/rules_determinism.py",
+    "analysis/rules_hygiene.py",
+    "analysis/rules_mp.py",
+    "analysis/report.py",
 ]
 
-# copies with a repair: the original with the prefix replaced and each
-# (original text, repaired text) pair applied, and nothing else
+# copies with a repair, or with the one change the port needs: the original
+# with the prefix replaced and each (original text, new text) pair applied,
+# and nothing else
 _SWEEP = """                self._finish(li, ltier, "lost", now - lsched)
         self.wall_s = time.monotonic() - t_start
 """
@@ -92,6 +99,12 @@ _LOCK = """    def _flock(self):
         fcntl.flock(self._lock_fd, fcntl.LOCK_UN)
 """
 PATCHED = {
+    # the rule modules all_rules() loads: the torch rules for the JAX rules
+    "analysis/core.py": [("""    from . import (lockset, rules_determinism, rules_hygiene,  # noqa: F401
+                   rules_jax, rules_mp)
+""", """    from . import (lockset, rules_determinism, rules_hygiene,  # noqa: F401
+                   rules_mp, rules_torch)
+""")],
     "serve/shm.py": [(_FD, _FD + """\
         # flock excludes other open files only, not the threads sharing
         # this one: they take this lock first, which also keeps two first

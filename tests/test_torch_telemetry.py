@@ -271,7 +271,7 @@ def test_torchrt_counts_builds_launches_transfers(registry, monkeypatch):
     pt.end_slot(1)
     torchrt.record_dispatch(3, site="resident_head")
     torchrt.record_donation(100, site="epoch_step")
-    monkeypatch.setitem(kernels._entries, "agg_sig", lambda *a: 0)
+    monkeypatch.setitem(kernels._ENTRIES, "agg_sig", lambda *a: 0)
     before = kernels.launches["agg_sig"]
     torchrt.collect_launches()
     for _ in range(5):
